@@ -1,0 +1,15 @@
+"""mcvd_tpu_torch — the PyTorch/CUDA port of `mcvd_tpu` for NVIDIA Hopper.
+
+The package mirrors `mcvd_tpu`'s layout and names so each module's JAX
+counterpart is found by path (`mcvd_tpu/X` -> `mcvd_tpu_torch/X`). It imports
+torch and numpy only: never jax, flax or yaml. The hot ops that `mcvd_tpu`
+wrote as Pallas TPU kernels are hand-written Hopper kernels here (`ops/`),
+each beside a plain PyTorch version that CPU tensors use.
+
+Slice ported so far: DDPM autoregressive video prediction with the NCSN++
+(`arch: unetmore`, 2D, concat conditioning) score network —
+`models.get_model` -> `eval.video_gen.make_block_sampler` ->
+`eval.video_gen.autoregressive_predict`.
+"""
+
+__version__ = "0.1.0"
