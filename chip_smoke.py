@@ -12,28 +12,39 @@ line each:
   2. build     the nvcc build and the first Triton compile, in seconds;
   3. kernels   each kernel against its plain PyTorch version at the main
                path's shapes, fp32 (TF32 off) and bf16: max abs error and
-               median device ms of both;
-  4. slice     one flagship block (ngf=64, 10 steps + denoise, B=4, fp32)
+               median device ms of both, and of the one PyTorch call that
+               computes the same function where there is one
+               (`F.group_norm` for the affine GroupNorm,
+               `F.scaled_dot_product_attention`), timed for comparison only;
+  4. profile_gn2  the GroupNorm microbenchmark's kernels (`gn_copy`,
+               `gn_variant`) and `fused_leaky_relu` against their plain
+               versions at the tool's shapes, `gn_variant` against the port's
+               GroupNorm; then the tool's own run
+               (`mcvd_tpu_torch.tools.profile_gn2.measure`) and the
+               `fused_leaky_relu` op at a main-path activation, with their
+               launch counts: device ms and host us per call of each line;
+  5. slice     one flagship block (ngf=64, 10 steps + denoise, B=4, fp32)
                through the kernels and under `ops.reference_ops()`, same
                weights and draws; the parameter count;
-  5. headline  the bench protocol: B=16, 100-step DDPM + denoise, 16 frames
+  6. headline  the bench protocol: B=16, 100-step DDPM + denoise, 16 frames
                of 64x64 predicted in 4 blocks of 5 on 5 cond frames, bf16
                score network; one warm-up, 3 timed requests, frames/s, and
                the launch counts of each request.
 
-Then the per-kernel summary line, the card line, and last
-{"ok": true, "device": {...}}. Any failed check raises: the exit code is
-nonzero and the last line is not printed.
+Then the per-kernel summary line (with each kernel's bound: the larger of
+its bytes over the HBM rate and its operations over the peak rate for its
+type), the card line, and last {"ok": true, "device": {...}}. Any failed
+check raises: the exit code is nonzero and the last line is not printed.
 """
 
 import json
 import statistics
-import subprocess
 import sys
 import time
 from math import ceil
 
 import torch
+import torch.nn.functional as F
 
 FLAGSHIP_PARAM_COUNT = 27_941_765   # jax.eval_shape of the JAX flagship init
 GN_SHAPES = [(64, 64), (192, 64), (128, 32), (256, 8)]   # (C, H) at B=16
@@ -48,6 +59,17 @@ GN_FORMS = {  # name: (eps, affine, adagn, act)
 # value once to bf16, so they differ by at most one rounding step where the
 # two fp32 values straddle a boundary: two bf16 ulps relative.
 TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-3, 1.6e-2)}  # (atol, rtol)
+# gn_variant vs its plain version: as TOL. With stats_bf16 each channel's
+# fp32 sums, taken in another order, are rounded to bf16; where the two land
+# on either side of a bf16 boundary a statistic moves by one bf16 step, which
+# moves y by up to ~1e-2 at the tool's inputs.
+STATS_BF16_TOL = (1e-2, 1.6e-2)
+# fused_leaky_relu vs plain: both compute in fp32 and round once.
+ACT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (0.0, 2 ** -7)}
+# Published H100 SXM peaks (NVIDIA's data sheet): dense FLOP/s of fp32 on
+# the CUDA cores and of bf16 on the tensor cores (the HBM3 rate is the
+# tool's, `profile_gn2.HBM_BYTES_PER_S`).
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 # The flagship block, fp32: 11 evaluations of the 27.9M-parameter network
 # whose sums run in another order; the first steps divide eps by
 # sqrt(alpha) ~ 0.0067 before the x0 clip.
@@ -61,13 +83,6 @@ def emit(phase, **payload):
 def check(ok, msg):
     if not ok:
         raise RuntimeError(f"check failed: {msg}")
-
-
-def nvidia_smi():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def device_ms(fn, n=10, reps=5):
@@ -90,8 +105,27 @@ def device_ms(fn, n=10, reps=5):
     return statistics.median(times)
 
 
-def max_err(got, want, dtype_name):
-    atol, rtol = TOL[dtype_name]
+def bound(nbytes, flops, peak):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    each input read once and each output written once."""
+    from mcvd_tpu_torch.tools.profile_gn2 import HBM_BYTES_PER_S
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_launches(launches, want, what):
+    """The phase launched exactly `want` of its kernels and none of the rest."""
+    full = {k: want.get(k, 0) for k in launches}
+    check(launches == full, f"{what} launch counts {launches}, want {full}")
+
+
+def max_err(got, want, dtype_name, tol=None):
+    atol, rtol = tol or TOL[dtype_name]
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     check(bool(torch.isfinite(got).all()), "non-finite kernel output")
@@ -99,7 +133,17 @@ def max_err(got, want, dtype_name):
     return float(diff.max()), ok
 
 
+def record(summary, kernel, dtype_name, err):
+    """Keep the largest error of each kernel, overall and in fp32."""
+    s = summary[kernel]
+    s["max_abs_err"] = max(s["max_abs_err"], err)
+    if dtype_name == "float32":
+        s["max_abs_err_fp32"] = max(s["max_abs_err_fp32"], err)
+
+
 def phase_env():
+    from mcvd_tpu_torch.tools.profile_gn2 import nvidia_smi
+
     card = nvidia_smi()
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
@@ -137,12 +181,6 @@ def phase_kernels(card):
     B = 16
     cases = []
     summary = {k: {"max_abs_err": 0.0, "max_abs_err_fp32": 0.0} for k in ops.LAUNCHES}
-
-    def record(kernel, dtype_name, err):
-        s = summary[kernel]
-        s["max_abs_err"] = max(s["max_abs_err"], err)
-        if dtype_name == "float32":
-            s["max_abs_err_fp32"] = max(s["max_abs_err_fp32"], err)
 
     gn_cases = [(C, H, 1, form) for C, H in GN_SHAPES for form in GN_FORMS]
     gn_cases.append((64, 32, 2, "adagn_silu"))   # frames_last=2: C*N = 128
@@ -182,12 +220,12 @@ def phase_kernels(card):
                 a_err, a_ok = max_err(GN.gn_apply(x, Am, Bm, act),
                                       GN.gn_apply_reference(x, Am, Bm, act), dn)
                 check(a_ok, f"gn_apply C={C} H={H} N={N} {dn}: max err {a_err}")
-                record("gn_stats", dn, s_err)
-                record("gn_apply", dn, a_err)
+                record(summary, "gn_stats", dn, s_err)
+                record(summary, "gn_apply", dn, a_err)
                 case = dict(op="group_norm", form=form, B=B, C=C, H=H, frames_last=N,
                             dtype=dn, max_abs_err=err, gn_stats_err=s_err,
                             gn_apply_err=a_err)
-                if N == 1 and form == "adagn_silu" or (C, H) == (192, 64):
+                if N == 1 and form in ("adagn_silu", "affine") or (C, H) == (192, 64):
                     case["ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
                     with ops.reference_ops():
                         case["plain_ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
@@ -196,6 +234,13 @@ def phase_kernels(card):
                     case["gn_apply_ms"] = device_ms(lambda: GN.gn_apply(x, Am, Bm, act))
                     case["gn_apply_plain_ms"] = device_ms(
                         lambda: GN.gn_apply_reference(x, Am, Bm, act))
+                    case["bound_ms"], case["bound_by"] = bound(
+                        2 * nbytes(x), 8 * x.numel(), "fp32")
+                    case["gn_stats_bound"] = bound(nbytes(x, part), 3 * x.numel(), "fp32")
+                    case["gn_apply_bound"] = bound(nbytes(x, x, Am, Bm), 6 * x.numel(), "fp32")
+                    if form == "affine":   # one PyTorch call computes it, for comparison
+                        w, b = kw["gamma"].to(dtype), kw["beta"].to(dtype)
+                        case["library_ms"] = device_ms(lambda: F.group_norm(x, G, w, b, eps))
                 cases.append(case)
 
             for T, h in ATTN_SHAPES:
@@ -205,16 +250,126 @@ def phase_kernels(card):
                     want = A.attention_packed(qkv, h, 0.125)
                 err, ok = max_err(got, want, dn)
                 check(ok, f"attention T={T} h={h} {dn}: max err {err}")
-                record("attention_fwd", dn, err)
+                record(summary, "attention_fwd", dn, err)
                 case = dict(op="attention", B=B, T=T, heads=h, head_dim=64, dtype=dn,
                             max_abs_err=err,
                             ms=device_ms(lambda: A.attention_packed(qkv, h, 0.125)),
                             plain_ms=device_ms(
                                 lambda: A.attention_packed_reference(qkv, h, 0.125)))
+                # the one PyTorch call, on (B, h, T, D) made before timing
+                q, k, v = (t.reshape(B, T, h, 64).transpose(1, 2).contiguous()
+                           for t in qkv.split(h * 64, dim=-1))
+                case["library_ms"] = device_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
+                case["bound_ms"], case["bound_by"] = bound(
+                    nbytes(qkv) * 4 // 3, 4 * B * h * T * T * 64,
+                    "bf16" if dtype == torch.bfloat16 else "fp32")
                 cases.append(case)
     torch.cuda.synchronize()
     emit("kernels", card=card, cases=cases)
     return cases, summary
+
+
+def phase_profile_gn2(card, summary):
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.ops import fused_act as FA
+    from mcvd_tpu_torch.ops import groupnorm as GN
+    from mcvd_tpu_torch.tools import profile_gn2 as P
+
+    dev = "cuda"
+    G = 32
+    x64, x128, prm = P.inputs(dev, seed=1)
+    v64, v128 = x64.permute(0, 3, 1, 2), x128.permute(0, 3, 1, 2)
+    g = torch.Generator(device=dev).manual_seed(4)
+    act_x = torch.randn(16, 64, 64, 64, generator=g, device=dev).permute(0, 3, 1, 2)
+    act_b = torch.randn(64, generator=g, device=dev)
+    cases, timing = [], {}
+
+    def vs_plain(fn):
+        got = fn()
+        with ops.reference_ops():
+            want = fn()
+        return got, want
+
+    with torch.inference_mode():
+        # 1. each kernel against its plain version at the tool's shapes
+        for x in (x64, x128):
+            got, want = vs_plain(lambda: P.make_copy(x.shape)(x))
+            check(torch.equal(got, want) and torch.equal(got, x),
+                  f"gn_copy {tuple(x.shape)} is not exact")
+            record(summary, "gn_copy", "bfloat16", 0.0)
+            cases.append(dict(op="gn_copy", shape=list(x.shape), dtype="bfloat16",
+                              max_abs_err=0.0))
+        variants = [("baseline", v64, 64, {}), ("parallel", v64, 64, dict(parallel=True)),
+                    ("hsplit4", v64, 64, dict(hsplit=4, parallel=True)),
+                    ("stats_bf16", v64, 64, dict(stats_bf16=True, parallel=True)),
+                    ("lane_full", v128, 128, {})]
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            for label, v, c, kw in variants:
+                xv = v.to(dtype)
+                got, want = vs_plain(lambda: P.gn_variant(xv, G, *prm[c], **kw))
+                err, ok = max_err(got, want, dn, STATS_BF16_TOL if "stats_bf16" in kw else None)
+                check(ok, f"gn_variant {label} {dn}: max err {err}")
+                record(summary, "gn_variant", dn, err)
+                case = dict(op="gn_variant", variant=label, shape=list(v.shape), dtype=dn,
+                            max_abs_err=err)
+                if "hsplit" not in kw:
+                    # 2. the one-launch variant is the port's GroupNorm
+                    gamma, beta, scale, shift = prm[c]
+                    ref = GN.group_norm(xv, G, eps=P.EPS, gamma=gamma, beta=beta,
+                                        scale=scale, shift=shift, act=True)
+                    gerr, gok = max_err(got, ref, dn,
+                                        STATS_BF16_TOL if "stats_bf16" in kw else None)
+                    check(gok, f"gn_variant {label} {dn} vs group_norm: max err {gerr}")
+                    case["vs_group_norm_err"] = gerr
+                cases.append(case)
+            xa = act_x.to(dtype)
+            for b in (act_b, None):
+                got, want = vs_plain(lambda: FA.fused_leaky_relu(xa, b, dim=1))
+                err, ok = max_err(got, want, dn, ACT_TOL[dn])
+                check(ok, f"fused_leaky_relu {dn} bias={b is not None}: max err {err}")
+                record(summary, "fused_leaky_relu", dn, err)
+                cases.append(dict(op="fused_leaky_relu", shape=list(xa.shape), dtype=dn,
+                                  bias=b is not None, max_abs_err=err))
+
+        # the kernels' times at the tool's bf16 shapes, beside plain and library
+        xa = act_x.to(torch.bfloat16)
+        timing["gn_copy"] = dict(
+            ms=device_ms(lambda: P.gn_copy(x64)),
+            plain_ms=device_ms(lambda: P.copy_reference(x64)),
+            library_ms=device_ms(lambda: torch.mul(x64, 1.0000001)),
+            bound=bound(2 * nbytes(x64), x64.numel(), "fp32"))
+        timing["gn_variant"] = dict(
+            ms=device_ms(lambda: P.gn_variant(v64, G, *prm[64])),
+            plain_ms=device_ms(lambda: P.gn_variant_reference(v64, G, *prm[64])),
+            library_ms=None,   # no one PyTorch call does GroupNorm + AdaGN + SiLU
+            bound=bound(2 * nbytes(v64) + nbytes(*prm[64]), 13 * v64.numel(), "fp32"))
+        timing["fused_leaky_relu"] = dict(
+            ms=device_ms(lambda: FA.fused_leaky_relu(xa, act_b, dim=1)),
+            plain_ms=device_ms(lambda: FA.fused_leaky_relu_reference(xa, act_b, dim=1)),
+            library_ms=None,   # no one PyTorch call does bias + LeakyReLU + scale
+            bound=bound(2 * nbytes(xa) + nbytes(act_b), 3 * xa.numel(), "fp32"))
+
+    # 3. the slice's own paths: the tool's run, then the op at a main-path
+    # activation (B=16, C=64, 64x64, bf16, channels_last)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    lines = P.measure(dev)
+    with torch.inference_mode():
+        y = FA.fused_leaky_relu(xa, act_b, dim=1)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(bool(torch.isfinite(y.float()).all()), "fused_leaky_relu output not finite")
+    for k in ("gn_copy", "gn_variant", "fused_leaky_relu", "gn_stats", "gn_apply"):
+        check(launches[k] > 0, f"profile_gn2 launched no {k}: {launches}")
+    check(launches["attention_fwd"] == 0, f"profile_gn2 launched attention: {launches}")
+    for line in lines:
+        check(line["ms"] > 0 and line["host_us"] > 0, f"profile_gn2 line {line}")
+    emit("profile_gn2", card=card, device=torch.cuda.get_device_name(0),
+         hbm_spec_gb_per_s=P.HBM_BYTES_PER_S / 1e9, cases=cases, lines=lines,
+         launches=launches)
+    return timing, launches
 
 
 def phase_slice(card):
@@ -256,8 +411,8 @@ def phase_slice(card):
     got = block(init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    check(launches == {"gn_stats": 67 * 11, "gn_apply": 67 * 11, "attention_fwd": 10 * 11},
-          f"slice launch counts {launches}")
+    check_launches(launches, {"gn_stats": 67 * 11, "gn_apply": 67 * 11,
+                              "attention_fwd": 10 * 11}, "slice")
     with ops.reference_ops():
         want = block(init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
@@ -306,7 +461,7 @@ def phase_headline(card):
     times, launches = [], None
     for _ in range(3):
         out, dt, launches = request()
-        check(launches == want, f"request launch counts {launches}, want {want}")
+        check_launches(launches, want, "request")
         check(out.shape == (B, sz, sz, n_pred) and bool(torch.isfinite(out).all()),
               f"headline output {tuple(out.shape)} not finite")
         times.append(dt)
@@ -329,30 +484,48 @@ def main():
     card = phase_env()
     phase_build()
     cases, summary = phase_kernels(card)
+    timing, tool_launches = phase_profile_gn2(card, summary)
     phase_slice(card)
     launches = phase_headline(card)
     check("jax" not in sys.modules, "jax was imported")
 
-    where = {
-        "gn_stats": ("triton", "mcvd_tpu_torch/ops/groupnorm.py",
-                     "mcvd_tpu/ops/lab/groupnorm.py:283", "gn_stats"),
-        "gn_apply": ("triton", "mcvd_tpu_torch/ops/groupnorm.py",
-                     "mcvd_tpu/ops/lab/groupnorm.py:324", "gn_apply"),
-        "attention_fwd": ("cuda", "mcvd_tpu_torch/csrc/attention.cu",
-                          "mcvd_tpu/ops/lab/attention.py:60", None),
-    }
-    # times at the heaviest main-path shape in the headline's bf16
+    # times of the GroupNorm and attention kernels at the heaviest main-path
+    # shape, in the headline's bf16
     gn_big = next(c for c in cases if c["op"] == "group_norm" and c["dtype"] == "bfloat16"
                   and (c["C"], c["H"], c["form"]) == (192, 64, "adagn_silu"))
     attn_big = next(c for c in cases if c["op"] == "attention" and c["dtype"] == "bfloat16"
                     and c["T"] == 1024)
+    timing["gn_stats"] = dict(ms=gn_big["gn_stats_ms"], plain_ms=gn_big["gn_stats_plain_ms"],
+                              library_ms=None,   # no one call gives per-group sums
+                              bound=gn_big["gn_stats_bound"])
+    timing["gn_apply"] = dict(ms=gn_big["gn_apply_ms"], plain_ms=gn_big["gn_apply_plain_ms"],
+                              library_ms=None,   # no one call does x*A + B then SiLU
+                              bound=gn_big["gn_apply_bound"])
+    timing["attention_fwd"] = dict(ms=attn_big["ms"], plain_ms=attn_big["plain_ms"],
+                                   library_ms=attn_big["library_ms"],
+                                   bound=(attn_big["bound_ms"], attn_big["bound_by"]))
+    where = {   # name: (route, source, the TPU kernel it replaces, launches)
+        "gn_stats": ("triton", "mcvd_tpu_torch/ops/groupnorm.py",
+                     "mcvd_tpu/ops/lab/groupnorm.py:283", launches),
+        "gn_apply": ("triton", "mcvd_tpu_torch/ops/groupnorm.py",
+                     "mcvd_tpu/ops/lab/groupnorm.py:324", launches),
+        "attention_fwd": ("cuda", "mcvd_tpu_torch/csrc/attention.cu",
+                          "mcvd_tpu/ops/lab/attention.py:60", launches),
+        "fused_leaky_relu": ("triton", "mcvd_tpu_torch/ops/fused_act.py",
+                             "mcvd_tpu/ops/fused_act.py:46", tool_launches),
+        "gn_copy": ("cuda", "mcvd_tpu_torch/csrc/profile_gn2.cu",
+                    "tools/profile_gn2.py:65", tool_launches),
+        "gn_variant": ("cuda", "mcvd_tpu_torch/csrc/profile_gn2.cu",
+                       "tools/profile_gn2.py:145", tool_launches),
+    }
     kernels = []
-    for name, (route, source, replaces, key) in where.items():
-        ms = gn_big[f"{key}_ms"] if key else attn_big["ms"]
-        plain_ms = gn_big[f"{key}_plain_ms"] if key else attn_big["plain_ms"]
+    for name, (route, source, replaces, counts) in where.items():
+        t = timing[name]
+        check(counts[name] > 0, f"{name} was not launched on its path")
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
-                            launches=launches[name], ms=ms, plain_ms=plain_ms,
-                            **summary[name]))
+                            launches=counts[name], ms=t["ms"], plain_ms=t["plain_ms"],
+                            bound_ms=t["bound"][0], bound_by=t["bound"][1],
+                            library_ms=t["library_ms"], **summary[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 """flax params -> port state dict: `mcvd_tpu/compat/torch_ckpt.py` run
 backwards.
 
-`torch_ckpt._flax_path_to_torch` names each flax leaf's upstream torch key
-and layout kind; this module applies the inverse layout transform:
+`flax_names.flax_path_to_torch` (the port's copy of the JAX package's map)
+names each flax leaf's upstream torch key and layout kind; this module
+applies the inverse layout transform:
 
   Dense kernel (in,out)        -> Linear weight (out,in)
   Conv kernel (kh,kw,I,O)      -> Conv2d weight (O,I,kh,kw)
@@ -21,6 +22,8 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from .flax_names import flax_path_to_torch
+
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
@@ -33,11 +36,9 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
 def torch_state_dict_from_flax(params_numpy: Mapping) -> Dict[str, torch.Tensor]:
     """{torch key: tensor} for every leaf of a flax `params` tree; raises on a
     leaf it cannot map or on two leaves mapping to one key."""
-    from mcvd_tpu.compat.torch_ckpt import _flax_path_to_torch  # numpy-only
-
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _leaves(params_numpy):
-        key, kind, _ = _flax_path_to_torch(path)
+        key, kind, _ = flax_path_to_torch(path)
         key = key.lstrip(".")  # a leaf of the root module has an empty base
         w = np.asarray(leaf, dtype=np.float32)
         if kind == "conv_or_dense":

@@ -20,6 +20,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..data.transforms import data_transform
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..diffusion import samplers as samplers_mod
 from ..diffusion.schedules import DiffusionSchedule
 
@@ -69,9 +70,11 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule)
 
 
 def init_noise(config, sched: DiffusionSchedule, shape, *,
-               generator: torch.Generator, device=None) -> torch.Tensor:
-    """Initial reverse-diffusion state: N(0, 1) for the DDPM family,
-    data_transform(U[0, 1)) for SMLD."""
+               generator: torch.Generator, device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Initial reverse-diffusion state on `device` (the card unless
+    `device="cpu"`; raises without CUDA): N(0, 1) for the DDPM family,
+    data_transform(U[0, 1)) for SMLD. `generator` lives on that device."""
+    device = resolve_device(device, "init_noise")
     version = getattr(config.model, "version", "DDPM").upper()
     if version == "SMLD":
         return data_transform(config, torch.rand(shape, generator=generator, device=device))

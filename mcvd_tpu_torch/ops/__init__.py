@@ -4,7 +4,13 @@ version (counterpart of `mcvd_tpu/ops`, whose kernels are Pallas for the TPU).
   * `groupnorm`: GroupNorm(+affine)(+AdaGN)(+SiLU) as two Triton kernels,
     `gn_stats` and `gn_apply`;
   * `attention`: softmax attention forward, `attention_fwd`, CUDA C++ for
-    sm_90a built by `_build`.
+    sm_90a built by `_build`;
+  * `fused_act`: bias + LeakyReLU + scale, the Triton kernel
+    `fused_leaky_relu`.
+
+The GroupNorm microbenchmark's kernels, `gn_copy` and `gn_variant` (CUDA
+C++), live with their tool in `mcvd_tpu_torch.tools.profile_gn2` and count
+their launches here too.
 
 A wrapper takes its plain version for a tensor on the CPU, and only there: on
 a CUDA tensor it launches its kernel or raises. `reference_ops()` makes the
@@ -19,7 +25,8 @@ from __future__ import annotations
 
 import contextlib
 
-LAUNCHES = {"gn_stats": 0, "gn_apply": 0, "attention_fwd": 0}
+LAUNCHES = {"gn_stats": 0, "gn_apply": 0, "attention_fwd": 0, "fused_leaky_relu": 0,
+            "gn_copy": 0, "gn_variant": 0}
 _REFERENCE = [False]
 
 
@@ -48,7 +55,7 @@ def reference_ops():
         _REFERENCE[0] = prev
 
 
-from . import attention, groupnorm  # noqa: E402  (they import the names above)
+from . import attention, fused_act, groupnorm  # noqa: E402  (they import the names above)
 
-__all__ = ["LAUNCHES", "attention", "groupnorm", "reference_ops",
+__all__ = ["LAUNCHES", "attention", "fused_act", "groupnorm", "reference_ops",
            "reset_launches", "use_kernel"]

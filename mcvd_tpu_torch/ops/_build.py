@@ -1,5 +1,6 @@
 """nvcc build of `mcvd_tpu_torch/csrc/*.cu` into a shared library with a
-plain C interface, loaded with ctypes.
+plain C interface, loaded with ctypes. Each source compiles in its own nvcc
+process, all started together, then one nvcc links them.
 
 The library is built at first use into `build/mcvd_tpu_torch_kernels/` at the
 repo root, under a name keyed by a hash of the sources and flags, so a changed
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _LIB = [None]
 BUILD_SECONDS = [0.0]
@@ -52,22 +53,36 @@ def load_library() -> ctypes.CDLL:
     so = out_dir / f"libmcvd_tpu_torch_{h.hexdigest()[:16]}.so"
     if not so.exists():
         t0 = time.perf_counter()
-        # build to a temp name, then rename: a concurrent loader never sees a
+        # build in a temp dir, then rename: a concurrent loader never sees a
         # half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
+            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+                     for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                                 for src, obj in zip(sources, objs))]
+            results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+            if all(rc == 0 for *_, rc in results):
+                proc = subprocess.run(link, capture_output=True, text=True)
+                results.append((link, proc.stdout + proc.stderr, proc.returncode))
+            for cmd, out, rc in results:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+            os.replace(os.path.join(tmp, "lib.so"), so)
         BUILD_SECONDS[0] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
     _declare(lib)
     _LIB[0] = lib
     return lib
+
+
+def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    """Raise if a C entry point returned a CUDA error (cudaGetLastError)."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.mcvd_cuda_error_string(err).decode()} ({err})")
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -76,6 +91,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         # q, k, v, o, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale, stream
         fn.argtypes = [p, p, p, p, i, i, i, i, i64, i64, i64, i64, i64, i64, f, p]
+        fn.restype = i
+    # x, y, n, n_blocks, stream
+    lib.gn_copy_bf16.argtypes = [p, p, i64, i, p]
+    lib.gn_copy_bf16.restype = i
+    for name in ("gn_variant_f32", "gn_variant_bf16"):
+        fn = getattr(lib, name)
+        # x, gamma, beta, scale, shift, y, B, hsplit, rows, CN, G, n_per_group,
+        # eps, stats_bf16, stream
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, i, p]
         fn.restype = i
     lib.mcvd_cuda_error_string.argtypes = [i]
     lib.mcvd_cuda_error_string.restype = ctypes.c_char_p

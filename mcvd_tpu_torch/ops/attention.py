@@ -45,7 +45,7 @@ def attention_packed_reference(qkv, n_heads: int, scale: float):
 
 
 def _launch(q, k, v, o, B, H, T, D, q_strides, kv_strides, o_strides, scale):
-    from ._build import load_library
+    from ._build import check_launch, load_library
 
     lib = load_library()
     fn = lib.attention_fwd_f32 if q.dtype == torch.float32 else lib.attention_fwd_bf16
@@ -54,9 +54,7 @@ def _launch(q, k, v, o, B, H, T, D, q_strides, kv_strides, o_strides, scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  B, H, T, D, *q_strides, *kv_strides, *o_strides,
                  float(scale), stream)
-    if err != 0:
-        raise RuntimeError(f"attention_fwd launch failed: "
-                           f"{lib.mcvd_cuda_error_string(err).decode()} ({err})")
+    check_launch(lib, "attention_fwd", err)
     count_launch("attention_fwd")
 
 

@@ -18,6 +18,7 @@ from mcvd_tpu.models import blocks as jax_blocks
 from mcvd_tpu.models import get_model as jax_get_model
 from mcvd_tpu.models import resample as jax_resample
 from mcvd_tpu_torch.compat import load_flax_params, torch_state_dict_from_flax
+from mcvd_tpu_torch.compat.flax_names import flax_path_to_torch
 from mcvd_tpu_torch.config import dict2namespace, flagship_config
 from mcvd_tpu_torch.models import blocks, get_model, resample
 
@@ -91,7 +92,7 @@ def test_bridge_round_trip_tiny(tiny_params):
     n_leaves = len(jax.tree_util.tree_leaves(params))
     assert len(sd) == n_leaves
 
-    model = get_model(config)
+    model = get_model(config, device="cpu")
     port_params = dict(model.named_parameters())
     assert set(sd) == set(port_params)
     load_flax_params(model, params)
@@ -101,6 +102,48 @@ def test_bridge_round_trip_tiny(tiny_params):
                                 jax.tree_util.tree_leaves_with_path(back)):
         assert pa == pb
         np.testing.assert_array_equal(a, b)
+
+
+def _param_paths(tree):
+    return [tuple(str(getattr(p, "key", p)) for p in path)
+            for path, _ in jax.tree_util.tree_leaves_with_path(tree)]
+
+
+def _flagship_param_shapes():
+    """jax.eval_shape of the flagship init: the param tree's shapes, no compile."""
+    config = __graft_entry__._flagship_config()
+    x = jax.ShapeDtypeStruct((1, 64, 64, 5), jnp.float32)
+    y = jax.ShapeDtypeStruct((1,), jnp.int32)
+    return jax.eval_shape(jax_get_model(config).init, jax.random.PRNGKey(0), x, y, x)["params"]
+
+
+@pytest.mark.parametrize("which", ["tiny", "flagship"])
+def test_flax_name_map_matches_jax(which, request):
+    """The port's copy of the flax->torch name map gives the JAX package's
+    (key, kind, base) for every param path of the tiny and flagship inits,
+    and both raise on a leaf neither maps."""
+    tree = (request.getfixturevalue("tiny_params") if which == "tiny"
+            else _flagship_param_shapes())
+    paths = _param_paths(tree)
+    assert len(paths) > 50
+    for path in paths:
+        assert flax_path_to_torch(path) == _flax_path_to_torch(path), path
+    for odd in [("a", "Conv_0", "bias"), ("Conv_0", "Conv_0", "kernel"), ("x", "weights"),
+                ("temb_dense_1", "kernel"), ("mlp_shared", "Conv_0", "kernel")]:
+        assert flax_path_to_torch(odd) == _flax_path_to_torch(odd), odd
+    with pytest.raises(KeyError):
+        _flax_path_to_torch(("a", "nope"))
+    with pytest.raises(KeyError):
+        flax_path_to_torch(("a", "nope"))
+
+
+def test_get_model_defaults_to_the_card(monkeypatch):
+    """With no device, get_model builds on CUDA or raises: it never falls
+    back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_model(tiny_config())
+    assert next(get_model(tiny_config(), device="cpu").parameters()).device.type == "cpu"
 
 
 @pytest.mark.parametrize("name", ["upsample_2d", "downsample_2d", "naive_upsample_2d",
@@ -178,7 +221,7 @@ def test_tiny_forward_matches_jax(tiny_params, pallas):
                                                 jnp.asarray(y), jnp.asarray(cond)))
     finally:
         jax_ops.set_use_pallas(False)
-    model = get_model(config).eval()
+    model = get_model(config, device="cpu").eval()
     load_flax_params(model, params)
     with torch.no_grad():
         got = model(nhwc_to_nchw(x), torch.from_numpy(y).long(), nhwc_to_nchw(cond))
@@ -207,7 +250,7 @@ def test_forward_matches_upstream_golden(name, cond_emb):
     z = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
     sd = {k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}
     assert len(sd) == (139 if cond_emb else 138)
-    model = get_model(golden_config(cond_emb)).eval()
+    model = get_model(golden_config(cond_emb), device="cpu").eval()
     model.load_state_dict(sd, strict=True)
     cond_mask = torch.from_numpy(z["cond_mask"]) if cond_emb else None
     with torch.no_grad():
@@ -219,11 +262,7 @@ def test_forward_matches_upstream_golden(name, cond_emb):
 def test_flagship_param_names_and_shapes_match_jax():
     """jax.eval_shape of the flagship init (no compile): each flax leaf's
     torch key and shape equals the port's parameter of that name."""
-    config = __graft_entry__._flagship_config()
-    jmodel = jax_get_model(config)
-    x = jax.ShapeDtypeStruct((1, 64, 64, 5), jnp.float32)
-    y = jax.ShapeDtypeStruct((1,), jnp.int32)
-    shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), x, y, x)["params"]
+    shapes = _flagship_param_shapes()
     want = {}
     for path, leaf in jax.tree_util.tree_leaves_with_path(shapes):
         names = tuple(str(getattr(p, "key", p)) for p in path)
@@ -233,6 +272,6 @@ def test_flagship_param_names_and_shapes_match_jax():
             s = s[::-1] if len(s) == 2 else (s[3], s[2], s[0], s[1])
         want[key] = s
     assert sum(int(np.prod(s)) for s in want.values()) == FLAGSHIP_PARAM_COUNT
-    model = get_model(flagship_config())
+    model = get_model(flagship_config(), device="cpu")
     got = {k: tuple(p.shape) for k, p in model.named_parameters()}
     assert got == want

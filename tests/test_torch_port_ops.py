@@ -180,10 +180,19 @@ def test_reference_ops_restores_on_error():
 
 
 def test_cpu_paths_launch_no_kernel():
+    from mcvd_tpu_torch.tools import profile_gn2
+
     ops.reset_launches()
     x, kw = gn_inputs(6, 1, 8, 16, 1, "affine")
     run_port(x, num_groups_for(16), kw, torch.float32)
     ops.attention.attention_packed(torch.zeros(1, 4, 3 * 64), 1, 0.125)
+    ops.fused_act.fused_leaky_relu(torch.zeros(2, 3, 8), torch.zeros(8))
+    xb = to_torch_nchw(x).to(torch.bfloat16)
+    profile_gn2.make_copy(xb.shape)(xb.contiguous())
+    profile_gn2.gn_variant(xb, 4, torch.ones(16), torch.zeros(16), torch.zeros(1, 16),
+                           torch.zeros(1, 16), hsplit=2)
+    assert set(ops.LAUNCHES) == {"gn_stats", "gn_apply", "attention_fwd", "fused_leaky_relu",
+                                 "gn_copy", "gn_variant"}
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 

@@ -2,7 +2,9 @@
 against the JAX package, with the JAX random draws replayed into the port
 (split the keys as the JAX code does, draw in JAX, hand the arrays over)."""
 
+import glob
 import os
+import re
 import subprocess
 import sys
 
@@ -120,6 +122,19 @@ def test_ddpm_sampler_draws_from_generator_only_when_needed():
         samplers.get_sampler("DDIM")
 
 
+def test_init_noise_defaults_to_the_card(monkeypatch):
+    """With no device, init_noise draws on CUDA or raises; on the CPU only
+    when asked."""
+    config = sched_config()
+    sched = make_schedule(config)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        video_gen.init_noise(config, sched, (1, 2, 2, 1), generator=torch.Generator())
+    z = video_gen.init_noise(config, sched, (1, 2, 2, 1),
+                             generator=torch.Generator().manual_seed(0), device="cpu")
+    assert z.device.type == "cpu" and z.shape == (1, 2, 2, 1)
+
+
 def ar_config():
     """The tiny flagship at 2 pred + 2 cond frames, 5-step subsampled DDPM."""
     config = __graft_entry__._flagship_config(tiny=True)
@@ -144,7 +159,7 @@ def tiny_models():
     params = jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + 0.05 * rng.randn(*a.shape)).astype(np.float32),
         dict(params))
-    model = get_model(config).eval()
+    model = get_model(config, device="cpu").eval()
     load_flax_params(model, params)
     return config, jmodel, params, model
 
@@ -233,10 +248,37 @@ def test_data_transforms_match_jax(mode):
 
 
 def test_import_loads_no_jax_flax_or_yaml():
-    code = ("import sys, mcvd_tpu_torch, mcvd_tpu_torch.config, mcvd_tpu_torch.compat, "
-            "mcvd_tpu_torch.data, mcvd_tpu_torch.diffusion, mcvd_tpu_torch.eval, "
-            "mcvd_tpu_torch.models, mcvd_tpu_torch.ops; "
-            "print(sorted(m for m in ('jax', 'flax', 'yaml') if m in sys.modules))")
+    """Every module of the port imports, and the flax->torch bridge runs, with
+    no jax, flax, yaml or module of the JAX package loaded."""
+    code = """
+import importlib, pkgutil, sys
+import numpy as np
+import mcvd_tpu_torch
+for m in pkgutil.walk_packages(mcvd_tpu_torch.__path__, "mcvd_tpu_torch."):
+    importlib.import_module(m.name)
+from mcvd_tpu_torch.compat import torch_state_dict_from_flax
+sd = torch_state_dict_from_flax({"all_modules_0": {"kernel": np.zeros((2, 3)),
+                                                   "bias": np.zeros(3)}})
+assert sorted(sd) == ["all_modules.0.bias", "all_modules.0.weight"], sorted(sd)
+assert "mcvd_tpu_torch.tools.profile_gn2" in sys.modules
+print(sorted(m for m in sys.modules if m in ("jax", "flax", "yaml", "mcvd_tpu")
+             or m.startswith(("jax.", "flax.", "mcvd_tpu."))))
+"""
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
     assert out.stdout.strip() == "[]", out.stdout + out.stderr
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """Static scan: no file of the port, nor chip_smoke.py, imports jax, flax,
+    yaml or any `mcvd_tpu` module (lazy imports inside functions included)."""
+    bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|yaml|mcvd_tpu)(?![\w])", re.M)
+    files = sorted(glob.glob(os.path.join(REPO, "mcvd_tpu_torch", "**", "*.py"),
+                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    hits = [(f, m.group(0).strip()) for f in files
+            for m in bad.finditer(open(f, encoding="utf-8").read())]
+    assert hits == []
+    # the pattern does catch what it must
+    assert bad.search("    from mcvd_tpu.compat import x") and bad.search("import jax.numpy")
+    assert not bad.search("from mcvd_tpu_torch import ops")
