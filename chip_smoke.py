@@ -9,13 +9,23 @@ Imports torch, numpy and `mcvd_tpu_torch` only (no jax). Phases, one JSON
 line each:
 
   1. env       torch/CUDA versions and the card's name and power limit;
-  2. build     the nvcc build and the first Triton compile, in seconds;
-  3. kernels   each kernel against its plain PyTorch version at the main
-               path's shapes, fp32 (TF32 off) and bf16: max abs error and
-               median device ms of both, and of the one PyTorch call that
-               computes the same function where there is one
-               (`F.group_norm` for the affine GroupNorm,
-               `F.scaled_dot_product_attention`), timed for comparison only;
+  2. build     the nvcc build (with ptxas' registers and spills per kernel)
+               and the first Triton compile, in seconds;
+  3. kernels   each kernel against its plain PyTorch version, fp32 (TF32
+               off) and bf16: the GroupNorm `gn_fused` at every shape and
+               form of one flagship evaluation (read from the model by
+               `tools.gn_calls`), with its plan (cluster, blocks, rows,
+               threads, shared memory, clusters resident at once);
+               attention at the main path's T and a ragged T, the bf16
+               route held per element to the bound of rounding p to bf16
+               and, tighter, to a plain emulation of its own arithmetic
+               (`ops.attention.bf16_tolerances`). Max abs error, median
+               device ms of
+               kernel and plain version, host us of enqueue per GroupNorm
+               call, and the one PyTorch call that computes the same
+               function where there is one (`F.group_norm` for the affine
+               GroupNorm, `F.scaled_dot_product_attention`), timed for
+               comparison only; the GroupNorm totals of one evaluation;
   4. profile_gn2  the GroupNorm microbenchmark's kernels (`gn_copy`,
                `gn_variant`) and `fused_leaky_relu` against their plain
                versions at the tool's shapes, `gn_variant` against the port's
@@ -47,7 +57,6 @@ import torch
 import torch.nn.functional as F
 
 FLAGSHIP_PARAM_COUNT = 27_941_765   # jax.eval_shape of the JAX flagship init
-GN_SHAPES = [(64, 64), (192, 64), (128, 32), (256, 8)]   # (C, H) at B=16
 ATTN_SHAPES = [(1024, 2), (256, 3), (64, 4)]             # (T, heads), D=64, B=16
 GN_FORMS = {  # name: (eps, affine, adagn, act)
     "adagn_silu": (1e-5, False, True, True),
@@ -85,26 +94,6 @@ def check(ok, msg):
         raise RuntimeError(f"check failed: {msg}")
 
 
-def device_ms(fn, n=10, reps=5):
-    """Median device time of one fn() call: the card first sleeps, so the
-    host has enqueued all n calls before the card reaches them and the
-    events time back-to-back work, not the host's enqueue."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / n)
-    return statistics.median(times)
-
-
 def bound(nbytes, flops, peak):
     """(ms, "bytes" or "operations"): the least time the card could take,
     each input read once and each output written once."""
@@ -125,6 +114,8 @@ def check_launches(launches, want, what):
 
 
 def max_err(got, want, dtype_name, tol=None):
+    """(max abs error, within tolerance): |got - want| <= atol + rtol*|want|
+    everywhere; atol may be a tensor of want's shape (a bound per element)."""
     atol, rtol = tol or TOL[dtype_name]
     got, want = got.float(), want.float()
     diff = (got - want).abs()
@@ -151,28 +142,60 @@ def phase_env():
     return card
 
 
+def ptxas_summary(log):
+    """Registers, shared memory and spills of each compiled kernel, from
+    nvcc's -Xptxas -v output."""
+    out, cur = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = {"entry": line.split("'")[1]}
+            out.append(cur)
+        elif cur is not None and "spill" in line:
+            cur["spill"] = line.strip()
+        elif cur is not None and "Used" in line:
+            cur["used"] = line.split(":", 1)[1].strip()
+    return out
+
+
 def phase_build():
-    from mcvd_tpu_torch import ops
     from mcvd_tpu_torch.ops import _build
+    from mcvd_tpu_torch.ops import fused_act as FA
 
     t0 = time.perf_counter()
     _build.load_library()
     nvcc_s = time.perf_counter() - t0
-    x = torch.randn(2, 64, 8, 8, device="cuda").contiguous(memory_format=torch.channels_last)
+    x = torch.randn(2, 8, 8, 64, device="cuda")
     t0 = time.perf_counter()
     with torch.inference_mode():
-        ops.groupnorm.group_norm(x, 32, eps=1e-5, act=True)
+        FA.fused_leaky_relu(x, None)
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
     emit("build", nvcc_s=nvcc_s, nvcc_compile_s=_build.BUILD_SECONDS[0],
-         triton_first_compile_s=triton_s)
+         triton_first_compile_s=triton_s, ptxas=ptxas_summary(_build.BUILD_LOG[0]))
+
+
+def host_us(fn, n=100, reps=3):
+    """Median host time of enqueueing one fn() call, in us (no sync inside)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+    return 1e6 * statistics.median(times)
 
 
 def phase_kernels(card):
+    from collections import Counter
+
     from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.models.layers import num_groups_for
+    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
     from mcvd_tpu_torch.ops import attention as A
     from mcvd_tpu_torch.ops import groupnorm as GN
+    from mcvd_tpu_torch.tools.gn_calls import form, group_norm_calls
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -182,96 +205,114 @@ def phase_kernels(card):
     cases = []
     summary = {k: {"max_abs_err": 0.0, "max_abs_err_fp32": 0.0} for k in ops.LAUNCHES}
 
-    gn_cases = [(C, H, 1, form) for C, H in GN_SHAPES for form in GN_FORMS]
-    gn_cases.append((64, 32, 2, "adagn_silu"))   # frames_last=2: C*N = 128
+    # every GroupNorm shape and form of one flagship evaluation, read from the
+    # model; plus frames_last=2
+    calls = group_norm_calls(batch=B)
+    check(len(calls) == 67, f"{len(calls)} GroupNorm calls per evaluation, want 67")
+    per_eval = Counter((c["C"], c["H"], form(c)) for c in calls)
+    groups = {(c["C"], c["H"], form(c)): c["num_groups"] for c in calls}
+    gn_cases = [(C, H, 1, f, groups[C, H, f]) for C, H, f in sorted(per_eval)]
+    gn_cases.append((64, 32, 2, "adagn_silu", 16))   # frames_last=2: C*N = 128
+    gn_eval = {"ms": 0.0, "plain_ms": 0.0, "host_us": 0.0, "plain_host_us": 0.0}
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
-            for C, H, N, form in gn_cases:
-                eps, affine, adagn, act = GN_FORMS[form]
+            for C, H, N, fm, G in gn_cases:
+                eps, affine, adagn, act = GN_FORMS[fm]
                 CN = C * N
-                G = num_groups_for(C)
                 x = (torch.randn(B, H, H, CN, generator=g, device=dev) * 2 + 0.5).to(dtype)
                 x = x.permute(0, 3, 1, 2)   # channels_last NCHW
                 kw = dict(eps=eps, frames_last=N, act=act)
                 if affine:
                     kw["gamma"] = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
                     kw["beta"] = 0.1 * torch.randn(C, generator=g, device=dev)
-                if adagn:
-                    kw["scale"] = (0.1 * torch.randn(B, CN, generator=g, device=dev)).to(dtype)
-                    kw["shift"] = (0.1 * torch.randn(B, CN, generator=g, device=dev)).to(dtype)
-                # the whole GroupNorm: gn_stats + combine + gn_apply vs plain
+                if adagn:   # as ActNorm passes them: chunks of one (B, 2*C*N) tensor
+                    ss = (0.1 * torch.randn(B, 2 * CN, generator=g, device=dev)).to(dtype)
+                    kw["scale"], kw["shift"] = ss.chunk(2, dim=1)
+                p = GN.plan(CN, H, H, dtype, G)
+                before = ops.LAUNCHES["gn_fused"]
                 got = GN.group_norm(x, G, **kw)
+                check(ops.LAUNCHES["gn_fused"] == before + 1, "group_norm launched no gn_fused")
                 with ops.reference_ops():
                     want = GN.group_norm(x, G, **kw)
                 err, ok = max_err(got, want, dn)
-                check(ok, f"group_norm {form} C={C} H={H} N={N} {dn}: max err {err}")
-                # gn_stats alone, as per-group mean and E[x^2]
-                n = H * H * CN // G
-                part = GN.gn_stats(x, G)
-                ref = GN.gn_stats_reference(x, G)
-                s_err = float((part.sum(1) / n - ref.sum(1) / n).abs().max())
-                check(s_err <= 1e-5 * max(1.0, float((ref.sum(1) / n).abs().max())),
-                      f"gn_stats C={C} H={H} N={N} {dn}: max err {s_err}")
-                # gn_apply alone, on the same fp32 A, B
-                Am, Bm = GN.fold_stats(ref, n, CN, eps=eps, frames_last=N,
-                                       **{k: kw[k] for k in ("gamma", "beta", "scale", "shift")
-                                          if k in kw})
-                a_err, a_ok = max_err(GN.gn_apply(x, Am, Bm, act),
-                                      GN.gn_apply_reference(x, Am, Bm, act), dn)
-                check(a_ok, f"gn_apply C={C} H={H} N={N} {dn}: max err {a_err}")
-                record(summary, "gn_stats", dn, s_err)
-                record(summary, "gn_apply", dn, a_err)
-                case = dict(op="group_norm", form=form, B=B, C=C, H=H, frames_last=N,
-                            dtype=dn, max_abs_err=err, gn_stats_err=s_err,
-                            gn_apply_err=a_err)
-                if N == 1 and form in ("adagn_silu", "affine") or (C, H) == (192, 64):
-                    case["ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
+                check(ok, f"group_norm {fm} C={C} H={H} N={N} {dn}: max err {err}")
+                record(summary, "gn_fused", dn, err)
+                case = dict(op="group_norm", form=fm, B=B, C=C, H=H, frames_last=N, dtype=dn,
+                            max_abs_err=err, cluster=p.cluster,
+                            blocks=p.cluster * B, rows_per_block=p.rows, threads=p.threads,
+                            smem=p.smem, max_active_clusters=GN.max_active_clusters(x, p, G),
+                            calls_per_eval=per_eval.get((C, H, fm), 0) if N == 1 else 0)
+                case["ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
+                if dn == "bfloat16" or (C, H) == (192, 64):
+                    case["host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
                     with ops.reference_ops():
                         case["plain_ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
-                    case["gn_stats_ms"] = device_ms(lambda: GN.gn_stats(x, G))
-                    case["gn_stats_plain_ms"] = device_ms(lambda: GN.gn_stats_reference(x, G))
-                    case["gn_apply_ms"] = device_ms(lambda: GN.gn_apply(x, Am, Bm, act))
-                    case["gn_apply_plain_ms"] = device_ms(
-                        lambda: GN.gn_apply_reference(x, Am, Bm, act))
+                        case["plain_host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
                     case["bound_ms"], case["bound_by"] = bound(
                         2 * nbytes(x), 8 * x.numel(), "fp32")
-                    case["gn_stats_bound"] = bound(nbytes(x, part), 3 * x.numel(), "fp32")
-                    case["gn_apply_bound"] = bound(nbytes(x, x, Am, Bm), 6 * x.numel(), "fp32")
-                    if form == "affine":   # one PyTorch call computes it, for comparison
+                    case["library_ms"] = None   # no one PyTorch call does AdaGN or the SiLU
+                    if fm == "affine":   # one PyTorch call computes it, for comparison
                         w, b = kw["gamma"].to(dtype), kw["beta"].to(dtype)
                         case["library_ms"] = device_ms(lambda: F.group_norm(x, G, w, b, eps))
+                    if dn == "bfloat16" and N == 1:
+                        for k in gn_eval:
+                            gn_eval[k] += case["calls_per_eval"] * case[k]
                 cases.append(case)
 
-            for T, h in ATTN_SHAPES:
+    attn_shapes = ATTN_SHAPES + [(100, 2)]   # and a ragged T
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            for T, h in attn_shapes:
                 qkv = torch.randn(B, T, 3 * h * 64, generator=g, device=dev).to(dtype)
                 got = A.attention_packed(qkv, h, 0.125)
                 with ops.reference_ops():
                     want = A.attention_packed(qkv, h, 0.125)
-                err, ok = max_err(got, want, dn)
+                tols = (A.bf16_tolerances(qkv, h, 0.125) if dn == "bfloat16"
+                        else {"plain": TOL[dn]})
+                tol = tols["plain"]
+                err, ok = max_err(got, want, dn, tol)
                 check(ok, f"attention T={T} h={h} {dn}: max err {err}")
                 record(summary, "attention_fwd", dn, err)
+                # (B*h, T, 64) views of q, k, v, made before timing
+                q, k, v = (t.reshape(B, T, h, 64).transpose(1, 2).reshape(B * h, T, 64)
+                           .contiguous() for t in qkv.split(h * 64, dim=-1))
                 case = dict(op="attention", B=B, T=T, heads=h, head_dim=64, dtype=dn,
-                            max_abs_err=err,
-                            ms=device_ms(lambda: A.attention_packed(qkv, h, 0.125)),
-                            plain_ms=device_ms(
-                                lambda: A.attention_packed_reference(qkv, h, 0.125)))
-                # the one PyTorch call, on (B, h, T, D) made before timing
-                q, k, v = (t.reshape(B, T, h, 64).transpose(1, 2).contiguous()
-                           for t in qkv.split(h * 64, dim=-1))
-                case["library_ms"] = device_ms(
-                    lambda: F.scaled_dot_product_attention(q, k, v, scale=0.125))
-                case["bound_ms"], case["bound_by"] = bound(
-                    nbytes(qkv) * 4 // 3, 4 * B * h * T * T * 64,
-                    "bf16" if dtype == torch.bfloat16 else "fp32")
+                            path=("tensor cores, mma.sync m16n8k16 bf16" if dn == "bfloat16"
+                                  else "CUDA cores, fp32 FMA"),
+                            max_abs_err=err, max_atol=float(torch.as_tensor(tol[0]).max()),
+                            rtol=tol[1])
+                if dn == "bfloat16":   # the kernel's own arithmetic in plain torch
+                    emu = A.attention_tc_emulation(q, k, v, 0.125)
+                    emu = emu.reshape(B, h, T, 64).transpose(1, 2).reshape(B, T, h * 64)
+                    e_err, e_ok = max_err(got, emu, dn, tols["emulation"])
+                    check(e_ok, f"attention T={T} h={h} bf16 vs its emulation: max err {e_err}")
+                    case.update(emulation_err=e_err,
+                                emulation_max_atol=float(tols["emulation"][0].max()),
+                                emulation_rtol=tols["emulation"][1])
+                if (T, h) in ATTN_SHAPES:
+                    case["ms"] = device_ms(lambda: A.attention_packed(qkv, h, 0.125))
+                    case["plain_ms"] = device_ms(
+                        lambda: A.attention_packed_reference(qkv, h, 0.125))
+                    # the one PyTorch call, on (B, h, T, D)
+                    q4, k4, v4 = (t.view(B, h, T, 64) for t in (q, k, v))
+                    case["library_ms"] = device_ms(
+                        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=0.125))
+                    flops = 4 * B * h * T * T * 64
+                    case["bound_ms"], case["bound_by"] = bound(
+                        nbytes(qkv) * 4 // 3, flops,
+                        "bf16" if dtype == torch.bfloat16 else "fp32")
+                    case["tflops"] = flops / case["ms"] / 1e9
                 cases.append(case)
     torch.cuda.synchronize()
-    emit("kernels", card=card, cases=cases)
+    emit("kernels", card=card, cases=cases, gn_per_eval_bf16=gn_eval)
     return cases, summary
 
 
 def phase_profile_gn2(card, summary):
     from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
     from mcvd_tpu_torch.ops import fused_act as FA
     from mcvd_tpu_torch.ops import groupnorm as GN
     from mcvd_tpu_torch.tools import profile_gn2 as P
@@ -361,7 +402,7 @@ def phase_profile_gn2(card, summary):
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     check(bool(torch.isfinite(y.float()).all()), "fused_leaky_relu output not finite")
-    for k in ("gn_copy", "gn_variant", "fused_leaky_relu", "gn_stats", "gn_apply"):
+    for k in ("gn_copy", "gn_variant", "fused_leaky_relu", "gn_fused"):
         check(launches[k] > 0, f"profile_gn2 launched no {k}: {launches}")
     check(launches["attention_fwd"] == 0, f"profile_gn2 launched attention: {launches}")
     for line in lines:
@@ -411,8 +452,7 @@ def phase_slice(card):
     got = block(init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
-    check_launches(launches, {"gn_stats": 67 * 11, "gn_apply": 67 * 11,
-                              "attention_fwd": 10 * 11}, "slice")
+    check_launches(launches, {"gn_fused": 67 * 11, "attention_fwd": 10 * 11}, "slice")
     with ops.reference_ops():
         want = block(init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
@@ -457,7 +497,7 @@ def phase_headline(card):
 
     torch.cuda.reset_peak_memory_stats()
     _, warm_s, _ = request()
-    want = {"gn_stats": 67 * evals, "gn_apply": 67 * evals, "attention_fwd": 10 * evals}
+    want = {"gn_fused": 67 * evals, "attention_fwd": 10 * evals}
     times, launches = [], None
     for _ in range(3):
         out, dt, launches = request()
@@ -495,20 +535,16 @@ def main():
                   and (c["C"], c["H"], c["form"]) == (192, 64, "adagn_silu"))
     attn_big = next(c for c in cases if c["op"] == "attention" and c["dtype"] == "bfloat16"
                     and c["T"] == 1024)
-    timing["gn_stats"] = dict(ms=gn_big["gn_stats_ms"], plain_ms=gn_big["gn_stats_plain_ms"],
-                              library_ms=None,   # no one call gives per-group sums
-                              bound=gn_big["gn_stats_bound"])
-    timing["gn_apply"] = dict(ms=gn_big["gn_apply_ms"], plain_ms=gn_big["gn_apply_plain_ms"],
-                              library_ms=None,   # no one call does x*A + B then SiLU
-                              bound=gn_big["gn_apply_bound"])
+    timing["gn_fused"] = dict(ms=gn_big["ms"], plain_ms=gn_big["plain_ms"],
+                              library_ms=None,   # no one call does GroupNorm + AdaGN + SiLU
+                              bound=(gn_big["bound_ms"], gn_big["bound_by"]),
+                              host_us=gn_big["host_us"])
     timing["attention_fwd"] = dict(ms=attn_big["ms"], plain_ms=attn_big["plain_ms"],
                                    library_ms=attn_big["library_ms"],
                                    bound=(attn_big["bound_ms"], attn_big["bound_by"]))
     where = {   # name: (route, source, the TPU kernel it replaces, launches)
-        "gn_stats": ("triton", "mcvd_tpu_torch/ops/groupnorm.py",
-                     "mcvd_tpu/ops/lab/groupnorm.py:283", launches),
-        "gn_apply": ("triton", "mcvd_tpu_torch/ops/groupnorm.py",
-                     "mcvd_tpu/ops/lab/groupnorm.py:324", launches),
+        "gn_fused": ("cuda", "mcvd_tpu_torch/csrc/groupnorm.cu",
+                     "mcvd_tpu/ops/lab/groupnorm.py:409", launches),
         "attention_fwd": ("cuda", "mcvd_tpu_torch/csrc/attention.cu",
                           "mcvd_tpu/ops/lab/attention.py:60", launches),
         "fused_leaky_relu": ("triton", "mcvd_tpu_torch/ops/fused_act.py",
@@ -522,10 +558,14 @@ def main():
     for name, (route, source, replaces, counts) in where.items():
         t = timing[name]
         check(counts[name] > 0, f"{name} was not launched on its path")
+        extra = {k: t[k] for k in ("host_us",) if k in t}
+        if name == "gn_fused":   # it replaces the Pallas tiled path too
+            extra["also_replaces"] = ["mcvd_tpu/ops/lab/groupnorm.py:283",
+                                      "mcvd_tpu/ops/lab/groupnorm.py:324"]
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=counts[name], ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound"][0], bound_by=t["bound"][1],
-                            library_ms=t["library_ms"], **summary[name]))
+                            library_ms=t["library_ms"], **extra, **summary[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

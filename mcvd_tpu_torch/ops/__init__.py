@@ -1,10 +1,11 @@
 """Hand-written Hopper kernels for the hot ops, each beside a plain PyTorch
 version (counterpart of `mcvd_tpu/ops`, whose kernels are Pallas for the TPU).
 
-  * `groupnorm`: GroupNorm(+affine)(+AdaGN)(+SiLU) as two Triton kernels,
-    `gn_stats` and `gn_apply`;
+  * `groupnorm`: GroupNorm(+affine)(+AdaGN)(+SiLU) in one launch, `gn_fused`,
+    CUDA C++ for sm_90a built by `_build` (a thread-block cluster per
+    example);
   * `attention`: softmax attention forward, `attention_fwd`, CUDA C++ for
-    sm_90a built by `_build`;
+    sm_90a (bf16 on the tensor cores, fp32 on the CUDA cores);
   * `fused_act`: bias + LeakyReLU + scale, the Triton kernel
     `fused_leaky_relu`.
 
@@ -25,8 +26,8 @@ from __future__ import annotations
 
 import contextlib
 
-LAUNCHES = {"gn_stats": 0, "gn_apply": 0, "attention_fwd": 0, "fused_leaky_relu": 0,
-            "gn_copy": 0, "gn_variant": 0}
+LAUNCHES = {"gn_fused": 0, "attention_fwd": 0, "fused_leaky_relu": 0, "gn_copy": 0,
+            "gn_variant": 0}
 _REFERENCE = [False]
 
 

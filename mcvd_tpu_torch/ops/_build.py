@@ -21,10 +21,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB = [None]
 BUILD_SECONDS = [0.0]
+BUILD_LOG = [""]   # nvcc's output of the last build (ptxas: registers, spills)
 
 
 BUILD_DIR = CSRC.parent.parent / "build" / "mcvd_tpu_torch_kernels"
@@ -70,6 +71,7 @@ def load_library() -> ctypes.CDLL:
             for cmd, out, rc in results:
                 if rc != 0:
                     raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out}")
+            BUILD_LOG[0] = "\n".join(out for _, out, _ in results)
             os.replace(os.path.join(tmp, "lib.so"), so)
         BUILD_SECONDS[0] = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so))
@@ -101,5 +103,12 @@ def _declare(lib: ctypes.CDLL) -> None:
         # eps, stats_bf16, stream
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, i, p]
         fn.restype = i
+    # x, y, gamma, beta, scale, shift, ss_stride, gb_bf16, ss_bf16, bf16, B, S,
+    # CN, G, N, rows, cluster, threads, smem, eps, n_per_group, act, stream
+    lib.gn_fused.argtypes = [p, p, p, p, p, p, i64, *[i] * 12, f, f, i, p]
+    lib.gn_fused.restype = i
+    # bf16, B, S, CN, G, N, rows, cluster, threads, smem, out
+    lib.gn_fused_max_active_clusters.argtypes = [*[i] * 10, ctypes.POINTER(i)]
+    lib.gn_fused_max_active_clusters.restype = i
     lib.mcvd_cuda_error_string.argtypes = [i]
     lib.mcvd_cuda_error_string.restype = ctypes.c_char_p

@@ -8,11 +8,19 @@ both: it takes q, k and v as pointers with (batch, token) strides and puts
 head h at column h*D, so it reads `AttnBlock`'s packed (B, T, 3C) qkv as it
 is and writes (B, T, C); with one head it is the (BH, T, D) entry point.
 
-Scores and softmax are fp32 (online softmax over key tiles); p stays fp32 for
-the PV product. D=64 only; other head dims raise. Forward only: the backward
-(`_fa_bwd`, `_packed_bwd`) comes with training. The T>2048 einsum fallback of
-the Pallas version is not carried over: the kernel tiles keys and has no
-length limit.
+Two routes, by dtype. bf16 runs on the tensor cores (FlashAttention-2 form,
+`mma.sync` m16n8k16, fp32 accumulate): the unnormalised p is rounded to bf16
+before the PV product, as the Pallas kernel rounds p to v's dtype, so it
+differs from the plain version (p in fp32) by at most
+2^-8 * sum_j p_j |v_j| / l per output before the output rounding
+(`BF16_P_ROUNDOFF` times `abs_v_weights`; `attention_tc_emulation` repeats
+its arithmetic on the CPU). fp32 runs on
+the CUDA cores with p in fp32, the parity route. Scores and softmax are
+fp32 on both (online softmax over key tiles). D=64 only; other head dims
+raise; the bf16 route also needs 16-byte aligned rows. Forward only: the
+backward (`_fa_bwd`, `_packed_bwd`) comes with training. The T>2048 einsum
+fallback of the Pallas version is not carried over: the kernel tiles keys
+and has no length limit.
 """
 
 from __future__ import annotations
@@ -23,6 +31,10 @@ from . import count_launch, use_kernel
 
 SUPPORTED_HEAD_DIMS = (64,)
 _DTYPES = (torch.float32, torch.bfloat16)
+TC_KEYS_PER_TILE = 64
+# bf16's unit roundoff: rounding p to bf16 moves sum_j p_j v_j / l by at
+# most 2^-8 * sum_j p_j |v_j| / l (l sums the unrounded p).
+BF16_P_ROUNDOFF = 2.0 ** -8
 
 
 def attention_reference(q, k, v, scale: float):
@@ -31,6 +43,58 @@ def attention_reference(q, k, v, scale: float):
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def attention_tc_emulation(q, k, v, scale: float):
+    """The bf16 kernel's arithmetic in plain torch on (BH, T, D), for the
+    tests: per tile of 64 keys, fp32 scores scaled by scale*log2(e), a
+    running max m and sum l of exp2(s - m) in fp32, p rounded to bf16 before
+    the PV product with fp32 accumulation; o = acc / l rounded once."""
+    log2e = 1.4426950408889634
+    qf, kf, vf = q.float(), k.float(), v.float()
+    BH, T, D = q.shape
+    m = torch.full((BH, T, 1), float("-inf"), device=q.device)
+    l = torch.zeros(BH, T, 1, device=q.device)
+    acc = torch.zeros(BH, T, D, device=q.device)
+    for n0 in range(0, T, TC_KEYS_PER_TILE):
+        s = torch.matmul(qf, kf[:, n0:n0 + TC_KEYS_PER_TILE].transpose(-1, -2))
+        s = s * (scale * log2e)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(),
+                                         vf[:, n0:n0 + TC_KEYS_PER_TILE])
+        m = m_new
+    return (acc * (1.0 / l)).to(q.dtype)
+
+
+def abs_v_weights(qkv, n_heads: int, scale: float):
+    """sum_j p_j |v_j| / l per output of packed (B, T, 3C) qkv, in fp32: the
+    plain version with |v| for v. Times `BF16_P_ROUNDOFF` it bounds what
+    rounding p to bf16 moves that output."""
+    C = qkv.shape[-1] // 3
+    qkv = torch.cat([qkv[..., :2 * C], qkv[..., 2 * C:].abs()], dim=-1).float()
+    return attention_packed_reference(qkv, n_heads, scale)
+
+
+def bf16_tolerances(qkv, n_heads: int, scale: float) -> dict:
+    """(atol per output, rtol) of the bf16 route on packed qkv, with
+    w = `abs_v_weights`:
+    - "plain", against the plain version (p in fp32): rounding p to bf16
+      moves an output by at most 2^-8 * w before the last rounding (1% slack
+      for the fp32 sums); both sides then round once: two bf16 steps
+      relative;
+    - "emulation", against `attention_tc_emulation`, the same arithmetic in
+      torch: the fp32 scores differ in summation order only (~1e-6
+      relative), so a p rounds to another bf16 value only that close to a
+      rounding midpoint (under 0.1% of them), by one step (2^-7 p); 2^-10 * w
+      lets an eighth of a row's weight do so. rtol as for "plain": the
+      output's one rounding step, plus one for a flipped p of a key that
+      carries the row."""
+    w = abs_v_weights(qkv, n_heads, scale)
+    return {"plain": (1.01 * BF16_P_ROUNDOFF * w, 1.6e-2),
+            "emulation": (2.0 ** -10 * w, 1.6e-2)}
 
 
 def attention_packed_reference(qkv, n_heads: int, scale: float):

@@ -8,8 +8,8 @@ of its enqueue:
 
   * a copy at (16, 64, 64, 64) and at the lane-full (16, 64, 32, 128), the
     CUDA kernel `gn_copy`: the card's copy ceiling at this size;
-  * the current GroupNorm, `ops.groupnorm.group_norm` (Triton `gn_stats`,
-    the combine in torch ops, Triton `gn_apply`);
+  * the current GroupNorm, `ops.groupnorm.group_norm`: the CUDA kernel
+    `gn_fused`, one launch with a thread-block cluster per example;
   * `gn_variant`, one CUDA launch that does the statistics, the combine and
     normalize+SiLU: the baseline, `parallel`, H/4 blocks (tile-local
     statistics, timing only) and bf16 statistics;
@@ -186,6 +186,26 @@ def gn_variant(x, G, gamma, beta, scale, shift, *, hsplit=1, parallel=False,
 
 
 # ---------------------------------------------------------------- timing
+
+def device_ms(fn, n=10, reps=5):
+    """Median device time of one fn() call: the card first sleeps, so the
+    host has enqueued all n calls before the card reaches them and the
+    events time back-to-back work, not the host's enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
 
 def _sleep_cycles_per_ms() -> float:
     torch.cuda.synchronize()
