@@ -39,12 +39,32 @@ line each:
   6. headline  the bench protocol: B=16, 100-step DDPM + denoise, 16 frames
                of 64x64 predicted in 4 blocks of 5 on 5 cond frames, bf16
                score network; one warm-up, 3 timed requests, frames/s, and
-               the launch counts of each request.
+               the launch counts of each request;
+  7. train_kernels  the backward kernels against the plain backward passes,
+               fp32 (TF32 off) and bf16 at B=16: `gn_fused_bwd` at every
+               GroupNorm shape and form of one flagship evaluation (and
+               frames_last=2), through autograd with the inputs' and
+               parameters' gradients; `attention_bwd` at the main path's
+               (T, heads) and a ragged T. Max abs error, device ms of the
+               kernel alone (from the forward's saved statistics or
+               logsumexp) and of the plain backward, the bound, and the
+               one PyTorch call for comparison (autograd of `F.group_norm`
+               for the affine form, SDPA's backward), launches per call;
+  8. train_slice  one flagship training step (B=4, fp32, TF32 off, dropout 0,
+               warmup 0) through the kernels and under `ops.reference_ops()`
+               from the same weights and draws: loss, grad_norm, every
+               gradient (through Adam's first moment), the updated
+               parameters and the EMA, and exact launch counts (67 GroupNorm
+               and 10 attention calls, forward and backward);
+  9. train_headline  the yml's training config at full width, B=64, fp32 and
+               then bf16 compute: one warm-up step, 5 timed steps, ms per
+               step, clips/s, peak memory and the launch counts per step.
 
-Then the per-kernel summary line (with each kernel's bound: the larger of
-its bytes over the HBM rate and its operations over the peak rate for its
-type), the card line, and last {"ok": true, "device": {...}}. Any failed
-check raises: the exit code is nonzero and the last line is not printed.
+Then the per-kernel summary line of the seven kernels (with each kernel's
+bound: the larger of its bytes over the HBM rate and its operations over the
+peak rate for its type), the card line, and last {"ok": true, "device":
+{...}}. Any failed check raises: the exit code is nonzero and the last line
+is not printed.
 """
 
 import json
@@ -53,6 +73,7 @@ import sys
 import time
 from math import ceil
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -83,6 +104,24 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
 # whose sums run in another order; the first steps divide eps by
 # sqrt(alpha) ~ 0.0067 before the x0 clip.
 SLICE_ATOL = 5e-3
+# The training phases: each kernel once per GroupNorm and attention call of
+# one step, forward and backward.
+TRAIN_LAUNCHES = {"gn_fused": 67, "gn_fused_bwd": 67, "attention_fwd": 10, "attention_bwd": 10}
+# attention_bwd against the plain backward, per d(q), d(k), d(v): the max
+# error over the largest entry. fp32: summation order. bf16: one rounding of
+# each gradient (2^-8 of its size) and the row term D = rowsum(dO * O) taken
+# from the forward's output, whose p the tensor cores rounded to bf16 (2^-8
+# relative): together within 2^-6.
+ATTN_BWD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
+# The fp32 training step, kernels against plain (same weights and draws):
+# loss and grad_norm rtol 1e-4; gradients (mu = 0.1 g after the first step)
+# 1e-3 of each tensor's largest entry, floored at 1e-6 of the model's
+# largest gradient (the rounding noise of an exactly-zero gradient such as
+# the key bias's); parameters after the Adam step 0.1*lr where |mu| >= 1e-2
+# of its tensor's largest (the update's error is ~lr * error(mu) / |mu|),
+# else 2*lr, the update's own bound; EMA 1e-3 of that plus 1e-6.
+TRAIN_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-3
 
 
 def emit(phase, **payload):
@@ -514,6 +553,280 @@ def phase_headline(card):
     return launches
 
 
+def grad_err(got, want, dtype_name):
+    """(max abs error, within tolerance) of a gradient against the plain
+    backward's: fp32 1e-4 of the larger of 1 and its largest entry (the sums
+    run in another order, over up to B*H*W terms); bf16 that plus two bf16
+    steps per element (both round one fp32 value)."""
+    got, want = got.float(), want.float()
+    check(bool(torch.isfinite(got).all()), "non-finite gradient")
+    diff = (got - want).abs()
+    atol = 1e-4 * max(1.0, float(want.abs().max()))
+    rtol = 0.0 if dtype_name == "float32" else 1.6e-2
+    return float(diff.max()), bool((diff <= atol + rtol * want.abs()).all())
+
+
+def phase_train_kernels(card, summary):
+    from collections import Counter
+
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.ops import attention as A
+    from mcvd_tpu_torch.ops import groupnorm as GN
+    from mcvd_tpu_torch.tools.gn_calls import form, group_norm_calls
+    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dev, B = "cuda", 16
+    cases = []
+    calls = group_norm_calls(batch=B)
+    per_eval = Counter((c["C"], c["H"], form(c)) for c in calls)
+    groups = {(c["C"], c["H"], form(c)): c["num_groups"] for c in calls}
+    gn_cases = [(C, H, 1, f, groups[C, H, f]) for C, H, f in sorted(per_eval)]
+    gn_cases.append((64, 32, 2, "adagn_silu", 16))   # frames_last=2: C*N = 128
+    gn_step = {"float32": 0.0, "bfloat16": 0.0}      # device ms of the 67 backwards
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for C, H, N, fm, G in gn_cases:
+            eps, affine, adagn, act = GN_FORMS[fm]
+            CN = C * N
+            x = (torch.randn(B, H, H, CN, generator=g, device=dev) * 2 + 0.5).to(dtype)
+            x = x.permute(0, 3, 1, 2)   # channels_last NCHW
+            dy = torch.randn(B, H, H, CN, generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
+            prm = {"gamma": None, "beta": None, "scale": None, "shift": None}
+            if affine:   # in the compute dtype, as the bf16 step casts the parameters
+                prm["gamma"] = (1 + 0.1 * torch.randn(C, generator=g, device=dev)).to(dtype)
+                prm["beta"] = (0.1 * torch.randn(C, generator=g, device=dev)).to(dtype)
+                leaves = [x, prm["gamma"], prm["beta"]]
+            if adagn:   # as ActNorm passes them: chunks of one (B, 2*C*N) tensor
+                ss = (0.1 * torch.randn(B, 2 * CN, generator=g, device=dev)).to(dtype)
+                leaves = [x, ss]
+            for t in leaves:
+                t.requires_grad_()
+            if adagn:
+                prm["scale"], prm["shift"] = ss.chunk(2, dim=1)
+            kw = dict(eps=eps, frames_last=N, act=act, **prm)
+            before = dict(ops.LAUNCHES)
+            got = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
+            check(ops.LAUNCHES["gn_fused"] == before["gn_fused"] + 1 and
+                  ops.LAUNCHES["gn_fused_bwd"] == before["gn_fused_bwd"] + 1,
+                  "group_norm's backward did not run gn_fused then gn_fused_bwd")
+            with ops.reference_ops():
+                want = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
+            err = 0.0
+            for i, (a, b) in enumerate(zip(got, want)):
+                e, ok = grad_err(a, b, dn)
+                check(ok, f"gn_fused_bwd {fm} C={C} H={H} N={N} {dn} input {i}: max err {e}")
+                err = max(err, e)
+            record(summary, "gn_fused_bwd", dn, err)
+            # the backward alone, from the forward's saved statistics
+            xd = x.detach()
+            pd = {k: None if v is None else v.detach() for k, v in prm.items()}
+            _, stats = GN.group_norm_fwd(xd, G, eps, pd["gamma"], pd["beta"], pd["scale"],
+                                         pd["shift"], N, act, want_stats=True)
+            args = (xd, dy, stats, G, pd["gamma"], pd["beta"], pd["scale"], pd["shift"], N, act)
+            case = dict(op="group_norm_bwd", form=fm, B=B, C=C, H=H, frames_last=N, dtype=dn,
+                        max_abs_err=err, launches_per_call=2 if affine else 1,
+                        calls_per_step=per_eval.get((C, H, fm), 0) if N == 1 else 0)
+            case["ms"] = device_ms(lambda: GN.group_norm_bwd(*args))
+            gn_step[dn] += case["calls_per_step"] * case["ms"]
+            if dn == "bfloat16" or (C, H) == (192, 64):
+                case["plain_ms"] = device_ms(lambda: GN.group_norm_bwd_reference(
+                    xd, dy, G, eps=eps, frames_last=N, act=act, **pd))
+                case["bound_ms"], case["bound_by"] = bound(3 * nbytes(x), 12 * x.numel(),
+                                                           "fp32")
+                case["library_ms"] = None   # no one PyTorch call does AdaGN or the SiLU
+                if fm == "affine":   # autograd of F.group_norm, for comparison
+                    xl = xd.clone().requires_grad_()
+                    wl, bl = (pd[k].clone().requires_grad_() for k in ("gamma", "beta"))
+                    yl = F.group_norm(xl, G, wl, bl, eps)
+                    case["library_ms"] = device_ms(lambda: torch.autograd.grad(
+                        yl, [xl, wl, bl], dy, retain_graph=True))
+            cases.append(case)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[-1]
+        for T, h in ATTN_SHAPES + [(100, 2)]:   # and a ragged T
+            C = h * 64
+            qkv = torch.randn(B, T, 3 * C, generator=g, device=dev).to(dtype).requires_grad_()
+            dy = torch.randn(B, T, C, generator=g, device=dev).to(dtype)
+            before = dict(ops.LAUNCHES)
+            got, = torch.autograd.grad(A.attention_packed(qkv, h, 0.125), [qkv], dy)
+            check(ops.LAUNCHES["attention_fwd"] == before["attention_fwd"] + 1 and
+                  ops.LAUNCHES["attention_bwd"] == before["attention_bwd"] + 1,
+                  "attention_packed's backward did not run attention_bwd")
+            with ops.reference_ops():
+                want, = torch.autograd.grad(A.attention_packed(qkv, h, 0.125), [qkv], dy)
+            rel = ATTN_BWD_REL[dn]
+            err = 0.0
+            for i, part in enumerate("qkv"):
+                a, b = (t[..., i * C:(i + 1) * C].float() for t in (got, want))
+                check(bool(torch.isfinite(a).all()), "non-finite attention gradient")
+                e = float((a - b).abs().max())
+                check(e <= rel * float(b.abs().max()),
+                      f"attention_bwd T={T} h={h} {dn} d{part}: max err {e}")
+                err = max(err, e)
+            record(summary, "attention_bwd", dn, err)
+            case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=64, dtype=dn,
+                        path="CUDA cores, fp32 FMA (dq, then dk and dv)",
+                        max_abs_err=err, rel_tol=rel, launches_per_call=2)
+            if (T, h) in ATTN_SHAPES:
+                qd = qkv.detach()
+                o, lse = A.attention_packed_fwd(qd, h, 0.125, True)
+                case["ms"] = device_ms(lambda: A.attention_packed_bwd(qd, o, lse, dy, h, 0.125))
+                case["plain_ms"] = device_ms(
+                    lambda: A.attention_packed_bwd_reference(qd, dy, h, 0.125))
+                q4, k4, v4 = (t.reshape(B, T, h, 64).transpose(1, 2).contiguous()
+                              .requires_grad_() for t in qd.split(C, dim=-1))
+                o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=0.125)
+                dy4 = dy.reshape(B, T, h, 64).transpose(1, 2)
+                case["library_ms"] = device_ms(lambda: torch.autograd.grad(
+                    o4, [q4, k4, v4], dy4, retain_graph=True))
+                flops = 10 * B * h * T * T * 64   # 5 products of 2*T*T*64 per (b, head)
+                case["bound_ms"], case["bound_by"] = bound(
+                    2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops,
+                    "bf16" if dtype == torch.bfloat16 else "fp32")
+                case["tflops"] = flops / case["ms"] / 1e9
+            cases.append(case)
+    torch.cuda.synchronize()
+    emit("train_kernels", card=card, cases=cases, gn_bwd_ms_per_step_at_B16=gn_step)
+    return cases
+
+
+def _slice_model(config, seed):
+    """The flagship with its zero-scale layers redrawn at scale 1 (else the
+    network's output and most gradients are ~0 and hide the kernels)."""
+    from mcvd_tpu_torch.models import get_model
+    from mcvd_tpu_torch.models.layers import init_weights
+
+    model = get_model(config, generator=torch.Generator().manual_seed(seed), device="cuda")
+    for m in model.modules():
+        if getattr(m, "init_scale", None) == 0.0:
+            m.init_scale = 1.0
+    init_weights(model, torch.Generator().manual_seed(seed + 1))
+    return model
+
+
+def phase_train_slice(card):
+    import contextlib
+
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.config import flagship_config
+    from mcvd_tpu_torch.diffusion import make_schedule
+    from mcvd_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = flagship_config()
+    config.model.dropout = 0.0
+    config.optim.warmup = 0   # with warmup the first update is exactly zero
+    lr = config.optim.lr
+    model = _slice_model(config, 10)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == FLAGSHIP_PARAM_COUNT, f"{n_params} params, JAX has {FLAGSHIP_PARAM_COUNT}")
+    weights = {k: v.clone() for k, v in model.state_dict().items()}
+    sched = make_schedule(config)
+    B, sz = 4, config.data.image_size
+    g = torch.Generator(device="cuda").manual_seed(12)
+    X = torch.rand(B, 10, sz, sz, 1, generator=g, device="cuda")
+    draws = {"labels": torch.randint(0, len(sched.alphas), (B,), generator=g, device="cuda"),
+             "z": torch.randn(B, sz, sz, 5, generator=g, device="cuda").permute(0, 3, 1, 2)}
+
+    def run(reference):
+        model.load_state_dict(weights)
+        state = create_train_state(config, model, device="cuda")
+        step = make_train_step(model, sched, config)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        with ops.reference_ops() if reference else contextlib.nullcontext():
+            state, m = step(state, X, draws=draws)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        snap = {k: {n: t.detach().clone() for n, t in d.items()} for k, d in
+                (("params", state.params), ("ema", state.ema_params),
+                 ("mu", state.opt_state["mu"]), ("nu", state.opt_state["nu"]))}
+        return snap, {k: float(v) for k, v in m.items()}, launches
+
+    got, mk, launches = run(False)
+    check_launches(launches, TRAIN_LAUNCHES, "train_slice step")
+    want, mr, ref_launches = run(True)
+    check_launches(ref_launches, {}, "train_slice step under reference_ops")
+    for k in ("loss", "grad_norm"):
+        check(abs(mk[k] - mr[k]) <= TRAIN_RTOL * abs(mr[k]),
+              f"train_slice {k}: kernels {mk[k]}, plain {mr[k]}")
+    # gradients: mu after the first step is 0.1 * the clipped gradient
+    gmax = max(float(t.abs().max()) for t in want["mu"].values()) / 0.1
+    worst = {"grad": 0.0, "nu": 0.0, "param_over_tol": 0.0, "ema": 0.0}
+    for n in want["params"]:
+        for slot, rel, floor in (("mu", TRAIN_GRAD_REL, 0.1 * 1e-6 * gmax),
+                                 ("nu", 2 * TRAIN_GRAD_REL, 1e-3 * (1e-6 * gmax) ** 2)):
+            a, b = got[slot][n], want[slot][n]
+            e = float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+            check(e <= rel, f"train_slice {slot} {n}: error {e} of its largest entry")
+            worst["grad" if slot == "mu" else "nu"] = max(worst["grad" if slot == "mu"
+                                                                else "nu"], e)
+        mu = want["mu"][n]
+        atol = torch.where(mu.abs() < 1e-2 * float(mu.abs().max()), 2 * lr, 0.1 * lr)
+        e = float(((got["params"][n] - want["params"][n]).abs() / atol).max())
+        check(e <= 1.0, f"train_slice param {n}: {e} of its tolerance")
+        ema_e = float(((got["ema"][n] - want["ema"][n]).abs() / (1e-3 * atol + 1e-6)).max())
+        check(ema_e <= 1.0, f"train_slice ema {n}: {ema_e} of its tolerance")
+        worst["param_over_tol"] = max(worst["param_over_tol"], e)
+        worst["ema"] = max(worst["ema"], ema_e)
+    emit("train_slice", card=card, B=B, dtype="float32", params=n_params, lr=lr,
+         kernels=mk, plain=mr, loss_rtol=TRAIN_RTOL, grad_rel=TRAIN_GRAD_REL, worst=worst,
+         launches=launches)
+
+
+def phase_train_headline(card):
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.config import flagship_config
+    from mcvd_tpu_torch.diffusion import make_schedule
+    from mcvd_tpu_torch.models import get_model
+    from mcvd_tpu_torch.train import create_train_state, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launches = {}
+    for dn in ("float32", "bfloat16"):
+        config = flagship_config()
+        config.training.batch_size = B = 64   # smmnist_DDPM_big5.yml's
+        config.training.compute_dtype = dn
+        model = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
+        state = create_train_state(config, model, device="cuda")
+        step = make_train_step(model, make_schedule(config), config)
+        d = config.data
+        g = torch.Generator(device="cuda").manual_seed(7)
+        X = torch.rand(B, d.num_frames_cond + d.num_frames, d.image_size, d.image_size,
+                       d.channels, generator=g, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, m = step(state, X, generator=g)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        times, losses = [], []
+        for _ in range(5):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            state, m = step(state, X, generator=g)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            launches[dn] = dict(ops.LAUNCHES)
+            check_launches(launches[dn], TRAIN_LAUNCHES, f"train step {dn}")
+            losses.append(float(m["loss"]))
+            check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
+                  f"train step {dn}: loss {losses[-1]}")
+        ms = statistics.median(times)
+        emit("train_headline", card=card, B=B, dtype=dn, steps=5, warmup_s=warm_s,
+             ms_per_step=ms, ms_all=times, clips_per_s=1e3 * B / ms,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches[dn],
+             loss=losses, grad_norm=float(m["grad_norm"]), step=state.step)
+        del model, state, step, m
+        torch.cuda.empty_cache()
+    return launches["float32"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -527,6 +840,9 @@ def main():
     timing, tool_launches = phase_profile_gn2(card, summary)
     phase_slice(card)
     launches = phase_headline(card)
+    train_cases = phase_train_kernels(card, summary)
+    phase_train_slice(card)
+    train_launches = phase_train_headline(card)
     check("jax" not in sys.modules, "jax was imported")
 
     # times of the GroupNorm and attention kernels at the heaviest main-path
@@ -542,6 +858,14 @@ def main():
     timing["attention_fwd"] = dict(ms=attn_big["ms"], plain_ms=attn_big["plain_ms"],
                                    library_ms=attn_big["library_ms"],
                                    bound=(attn_big["bound_ms"], attn_big["bound_by"]))
+    # the backward kernels at the same shapes, in the training config's fp32
+    for name, op, key in (("gn_fused_bwd", "group_norm_bwd", ("C", "H", "form")),
+                          ("attention_bwd", "attention_bwd", ("T",))):
+        want = (192, 64, "adagn_silu") if name == "gn_fused_bwd" else (1024,)
+        c = next(c for c in train_cases if c["op"] == op and c["dtype"] == "float32"
+                 and tuple(c[k] for k in key) == want)
+        timing[name] = dict(ms=c["ms"], plain_ms=c["plain_ms"], library_ms=c["library_ms"],
+                            bound=(c["bound_ms"], c["bound_by"]), dtype="float32")
     where = {   # name: (route, source, the TPU kernel it replaces, launches)
         "gn_fused": ("cuda", "mcvd_tpu_torch/csrc/groupnorm.cu",
                      "mcvd_tpu/ops/lab/groupnorm.py:409", launches),
@@ -549,6 +873,10 @@ def main():
                           "mcvd_tpu/ops/lab/attention.py:60", launches),
         "fused_leaky_relu": ("triton", "mcvd_tpu_torch/ops/fused_act.py",
                              "mcvd_tpu/ops/fused_act.py:46", tool_launches),
+        "gn_fused_bwd": ("cuda", "mcvd_tpu_torch/csrc/groupnorm.cu",
+                         "mcvd_tpu/ops/lab/groupnorm.py:160", train_launches),
+        "attention_bwd": ("cuda", "mcvd_tpu_torch/csrc/attention.cu",
+                          "mcvd_tpu/ops/lab/attention.py:187", train_launches),
         "gn_copy": ("cuda", "mcvd_tpu_torch/csrc/profile_gn2.cu",
                     "tools/profile_gn2.py:65", tool_launches),
         "gn_variant": ("cuda", "mcvd_tpu_torch/csrc/profile_gn2.cu",
@@ -558,10 +886,14 @@ def main():
     for name, (route, source, replaces, counts) in where.items():
         t = timing[name]
         check(counts[name] > 0, f"{name} was not launched on its path")
-        extra = {k: t[k] for k in ("host_us",) if k in t}
+        extra = {k: t[k] for k in ("host_us", "dtype") if k in t}
         if name == "gn_fused":   # it replaces the Pallas tiled path too
             extra["also_replaces"] = ["mcvd_tpu/ops/lab/groupnorm.py:283",
                                       "mcvd_tpu/ops/lab/groupnorm.py:324"]
+        if name.endswith("_bwd"):   # counterparts of custom VJPs, not of Pallas bodies
+            extra["counterpart_of"] = "the JAX custom VJP (jnp/einsum code XLA compiles)"
+        if name == "attention_bwd":
+            extra["also_replaces"] = ["mcvd_tpu/ops/lab/attention.py:78"]
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=counts[name], ms=t["ms"], plain_ms=t["plain_ms"],
                             bound_ms=t["bound"][0], bound_by=t["bound"][1],

@@ -6,10 +6,13 @@ torch and numpy only: never jax, flax or yaml. The hot ops that `mcvd_tpu`
 wrote as Pallas TPU kernels are hand-written Hopper kernels here (`ops/`),
 each beside a plain PyTorch version that CPU tensors use.
 
-Slice ported so far: DDPM autoregressive video prediction with the NCSN++
-(`arch: unetmore`, 2D, concat conditioning) score network —
+Slices ported so far, with the NCSN++ (`arch: unetmore`, 2D, concat
+conditioning) score network: DDPM autoregressive video prediction —
 `models.get_model` -> `eval.video_gen.make_block_sampler` ->
-`eval.video_gen.autoregressive_predict`.
+`eval.video_gen.autoregressive_predict` — and its training step —
+`train.create_train_state` -> `train.make_train_step` (transform,
+conditioning, DSM loss, gradients through the kernels' backward passes,
+clip, optimizer, EMA).
 """
 
 __version__ = "0.1.0"

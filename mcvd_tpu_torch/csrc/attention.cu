@@ -1,4 +1,5 @@
-// Softmax attention forward for NVIDIA Hopper (sm_90a), head dim 64.
+// Softmax attention for NVIDIA Hopper (sm_90a), head dim 64: the forward
+// attention_fwd and its VJP attention_bwd (see "backward" below).
 //
 // Replaces mcvd_tpu/ops/lab/attention.py: fused_attention (_kernel) and
 // fused_attention_packed (_packed_kernel). Those Pallas kernels hold the whole
@@ -47,6 +48,10 @@
 // H = 1, ts = D. The bf16 route reads 16-byte chunks: pointers 16-byte
 // aligned and strides multiples of 8 elements (the wrapper checks).
 //
+// With a non-null lse pointer the forward also writes each row's logsumexp
+// (B, H, T) in fp32, natural log of the scaled scores, for attention_bwd
+// (below), whose two launches recompute p from it.
+//
 // C interface (ctypes): each entry returns cudaGetLastError() after the
 // launch; it never synchronises and allocates nothing.
 
@@ -64,6 +69,7 @@ constexpr int kThreads = 256; // fp32 route: thread t: query row t/4, quarter t%
 constexpr int kTcBN = 64;     // keys per tile (bf16 route)
 constexpr int kTcThreads = 128;  // bf16 route: 4 warps x 16 query rows
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The fp32 route's body is written for an element type T; it is
 // instantiated for float only (bf16 takes the tensor-core kernel below).
@@ -75,8 +81,8 @@ template <> __device__ __forceinline__ float from_f32<float>(float x) { return x
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int T_len,
-                     int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts,
+                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                     int T_len, int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts,
                      int64_t o_bs, int64_t o_ts, float scale) {
   __shared__ __align__(16) float sQ[kBM][kD + 1];    // +1: rows in distinct banks
   __shared__ __align__(16) float sKt[kD][kBN + 4];   // K^T; +4 keeps float4 alignment
@@ -182,6 +188,8 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = ob + row * o_ts + qd * 16;
 #pragma unroll
     for (int e = 0; e < 16; ++e) orow[e] = from_f32<T>(acc[e] * inv);
+    if (lse != nullptr && qd == 0)
+      lse[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * T_len + row] = m_i + logf(l_i);
   }
 }
 
@@ -258,9 +266,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
 // accumulator holds rows g (c0, c1) and g+8 (c2, c3), columns 2t, 2t+1.
 __global__ void __launch_bounds__(kTcThreads)
 attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o, int T_len,
-                        int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts,
-                        int64_t o_bs, int64_t o_ts, float scale_log2) {
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        float* __restrict__ lse, int T_len, int64_t q_bs, int64_t q_ts,
+                        int64_t kv_bs, int64_t kv_ts, int64_t o_bs, int64_t o_ts,
+                        float scale_log2) {
   __shared__ __align__(128) bf16 sQ[kBM * kD];
   __shared__ __align__(128) bf16 sK[2][kTcBN * kD];
   __shared__ __align__(128) bf16 sV[2][kTcBN * kD];
@@ -399,6 +408,256 @@ attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int nb = 0; nb < 8; ++nb)
         *reinterpret_cast<uint32_t*>(orow + nb * 8) =
             pack_bf16(acc[nb][2 * r] * inv, acc[nb][2 * r + 1] * inv);
+      if (lse != nullptr && (lane & 3) == 0)   // natural log: (m + log2 l) * ln 2
+        lse[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * T_len + row] =
+            (m_r[r] + log2f(l)) * kLn2;
+    }
+  }
+}
+
+// ----------------------------------------------------------------- backward
+//
+// attention_bwd: the VJP of the JAX package's _fa_bwd / _packed_bwd
+// (mcvd_tpu/ops/lab/attention.py:78, :187; einsums there, no Pallas body),
+// in the FlashAttention-2 form. The forward saved each row's logsumexp
+// (lse, natural log of the scaled scores), so p = exp(s*scale - lse) is
+// recomputed tile by tile and neither P, dP nor dS reaches device memory:
+//   D_i = rowsum(dO_i * O_i)   (= rowsum(dp * p), the VJP's row term);
+//   ds = p * (dp - D), dp = dO V^T;
+//   dQ = scale * dS K, dK = scale * dS^T Q, dV = P^T dO.
+// Two launches, no atomics, so the result is deterministic:
+//   attention_bwd_dq_kernel, query-major: a block owns 64 query rows of one
+//   (batch, head), computes and stores their D, and walks the keys in tiles
+//   of 32 accumulating dQ;
+//   attention_bwd_dkv_kernel, key-major, after it: a block owns 64 keys and
+//   walks the queries in tiles of 32 accumulating dK and dV.
+// Both run on the CUDA cores in fp32 for fp32 and bf16 inputs (bf16 read and
+// widened, the gradients rounded once), the forward fp32 route's thread
+// layout: thread t owns row t/4 of the block and a quarter t%4 of the 64
+// dims; a tile's scores are 8 per thread, made from row-major and
+// transposed copies of the tiles in shared memory (rows padded against bank
+// conflicts).
+//
+// What bounds it on this card: operations. S and dP are computed in both
+// kernels, so it does 7 products of 2*T*T*64 FLOPs per (batch, head) where
+// 5 would do, on the CUDA cores at fp32's 67 TFLOP/s; at small T the bytes
+// of q, k, v, o, dO and d(qkv). The tensor-core form (mma.sync, as the bf16
+// forward) is later work (ROADMAP).
+
+constexpr int kBwdRows = 64;   // rows (queries or keys) a block owns
+constexpr int kBwdTile = 32;   // keys (dq kernel) or queries (dkv kernel) per tile
+constexpr int kBwdThreads = 256;
+constexpr int kPadT = kBwdTile + 4;   // transposed tile row: float4-aligned
+constexpr int kPadD = kD + 4;         // row-major tile row: float4-aligned
+constexpr int kPadR = kD + 1;         // a block's own rows: bank-distinct
+
+template <> __device__ __forceinline__ float to_f32<bf16>(bf16 x) { return __bfloat162float(x); }
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+
+// Shared memory of the two kernels, in floats.
+constexpr int kDqSmem = 2 * kBwdRows * kPadR + 2 * kD * kPadT + kBwdTile * kPadD +
+                        kBwdRows * (kBwdTile + 1);
+constexpr int kDkvSmem = 2 * kBwdRows * kPadR + 2 * kD * kPadT + 2 * kBwdTile * kPadD +
+                         2 * kBwdRows * (kBwdTile + 1) + 2 * kBwdTile;
+
+// rows [row0, row0 + n) of a (token, 64) slice into fp32 shared memory,
+// row-major with row pitch `pitch` and/or transposed ([d][row], pitch
+// kPadT); rows >= T_len are zero.
+template <typename T>
+__device__ __forceinline__ void stage(const T* __restrict__ src, int64_t ts, int row0, int n,
+                                      int T_len, float* rowmajor, int pitch, float* trans,
+                                      int tid) {
+  for (int idx = tid; idx < n * kD; idx += kBwdThreads) {
+    const int r = idx / kD, d = idx % kD;
+    const int row = row0 + r;
+    const float v = row < T_len ? to_f32(src[(int64_t)row * ts + d]) : 0.f;
+    if (rowmajor) rowmajor[r * pitch + d] = v;
+    if (trans) trans[d * kPadT + r] = v;
+  }
+}
+
+// acc[j] += sum_d a[d] * bt[d][j0 + j] for j < 8: a row of 64 against eight
+// columns of a transposed tile.
+__device__ __forceinline__ void dot8(const float* a, const float* bt, int j0, float (&acc)[8]) {
+#pragma unroll 16
+  for (int d = 0; d < kD; ++d) {
+    const float av = a[d];
+    const float4 b0 = *reinterpret_cast<const float4*>(bt + d * kPadT + j0);
+    const float4 b1 = *reinterpret_cast<const float4*>(bt + d * kPadT + j0 + 4);
+    acc[0] = fmaf(av, b0.x, acc[0]); acc[1] = fmaf(av, b0.y, acc[1]);
+    acc[2] = fmaf(av, b0.z, acc[2]); acc[3] = fmaf(av, b0.w, acc[3]);
+    acc[4] = fmaf(av, b1.x, acc[4]); acc[5] = fmaf(av, b1.y, acc[5]);
+    acc[6] = fmaf(av, b1.z, acc[6]); acc[7] = fmaf(av, b1.w, acc[7]);
+  }
+}
+
+// acc[e] += sum_c w[c] * m[c][d0 + e] for e < 16, c < kBwdTile.
+__device__ __forceinline__ void axpy16(const float* w, const float* m, int d0, float (&acc)[16]) {
+#pragma unroll 8
+  for (int c = 0; c < kBwdTile; ++c) {
+    const float wc = w[c];
+    const float4* mr = reinterpret_cast<const float4*>(m + c * kPadD + d0);
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      const float4 mv = mr[f];
+      acc[4 * f + 0] = fmaf(wc, mv.x, acc[4 * f + 0]);
+      acc[4 * f + 1] = fmaf(wc, mv.y, acc[4 * f + 1]);
+      acc[4 * f + 2] = fmaf(wc, mv.z, acc[4 * f + 2]);
+      acc[4 * f + 3] = fmaf(wc, mv.w, acc[4 * f + 3]);
+    }
+  }
+}
+
+struct BwdArgs {
+  const void* q; const void* k; const void* v; const void* o; const void* dout;
+  const float* lse;
+  void* dq; void* dk; void* dv;
+  float* delta;            // (B, H, T) row sums D
+  int T_len;
+  int64_t bs, ts;          // q, k, v and dq, dk, dv: batch and token strides
+  int64_t o_bs, o_ts;      // o and dO
+  float scale;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) attention_bwd_dq_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  float* sQ = sm;                          // [64][kPadR]
+  float* sdO = sQ + kBwdRows * kPadR;      // [64][kPadR]
+  float* sKt = sdO + kBwdRows * kPadR;     // [64 d][kPadT]
+  float* sVt = sKt + kD * kPadT;           // [64 d][kPadT]
+  float* sK = sVt + kD * kPadT;            // [32][kPadD]
+  float* sS = sK + kBwdTile * kPadD;       // [64][33]: ds of the tile
+
+  const int tid = threadIdx.x, r = tid >> 2, qd = tid & 3;
+  const int m0 = blockIdx.x * kBwdRows;
+  const int64_t h_off = (int64_t)blockIdx.y * kD;
+  const int64_t b = blockIdx.z;
+  const int64_t bh = b * gridDim.y + blockIdx.y;
+  const T* qb = static_cast<const T*>(a.q) + b * a.bs + h_off;
+  const T* kb = static_cast<const T*>(a.k) + b * a.bs + h_off;
+  const T* vb = static_cast<const T*>(a.v) + b * a.bs + h_off;
+  const T* ob = static_cast<const T*>(a.o) + b * a.o_bs + h_off;
+  const T* gb = static_cast<const T*>(a.dout) + b * a.o_bs + h_off;
+  const int T_len = a.T_len;
+  const float sl2 = a.scale * kLog2e;
+
+  stage(qb, a.ts, m0, kBwdRows, T_len, sQ, kPadR, static_cast<float*>(nullptr), tid);
+  stage(gb, a.o_ts, m0, kBwdRows, T_len, sdO, kPadR, static_cast<float*>(nullptr), tid);
+  __syncthreads();
+
+  // D of this row: the four lanes of the row split its 64 dims
+  const int row = m0 + r;
+  const bool row_ok = row < T_len;
+  float D = 0.f;
+  if (row_ok) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      D = fmaf(sdO[r * kPadR + qd * 16 + e], to_f32(ob[(int64_t)row * a.o_ts + qd * 16 + e]), D);
+  }
+  D += __shfl_xor_sync(0xffffffffu, D, 1);
+  D += __shfl_xor_sync(0xffffffffu, D, 2);
+  if (row_ok && qd == 0) a.delta[bh * T_len + row] = D;
+  const float lse2 = row_ok ? a.lse[bh * T_len + row] * kLog2e : 0.f;
+
+  float acc[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+  for (int n0 = 0; n0 < T_len; n0 += kBwdTile) {
+    __syncthreads();   // the previous tile's reads are done
+    stage(kb, a.ts, n0, kBwdTile, T_len, sK, kPadD, sKt, tid);
+    stage(vb, a.ts, n0, kBwdTile, T_len, static_cast<float*>(nullptr), 0, sVt, tid);
+    __syncthreads();
+    float s[8], dp[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = dp[j] = 0.f;
+    dot8(sQ + r * kPadR, sKt, qd * 8, s);
+    dot8(sdO + r * kPadR, sVt, qd * 8, dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const bool ok = row_ok && n0 + qd * 8 + j < T_len;
+      const float p = ok ? exp2f(s[j] * sl2 - lse2) : 0.f;
+      sS[r * (kBwdTile + 1) + qd * 8 + j] = p * (dp[j] - D);
+    }
+    __syncwarp();   // the row's ds, written by its four lanes, are visible
+    axpy16(sS + r * (kBwdTile + 1), sK, qd * 16, acc);
+  }
+  if (row_ok) {
+    T* out = static_cast<T*>(a.dq) + b * a.bs + h_off + (int64_t)row * a.ts + qd * 16;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) out[e] = from_f32<T>(acc[e] * a.scale);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  float* sK = sm;                          // [64 keys][kPadR]
+  float* sV = sK + kBwdRows * kPadR;       // [64 keys][kPadR]
+  float* sQt = sV + kBwdRows * kPadR;      // [64 d][kPadT]
+  float* sdOt = sQt + kD * kPadT;          // [64 d][kPadT]
+  float* sQ = sdOt + kD * kPadT;           // [32][kPadD]
+  float* sdO = sQ + kBwdTile * kPadD;      // [32][kPadD]
+  float* sP = sdO + kBwdTile * kPadD;      // [64 keys][33]: p of the tile
+  float* sS = sP + kBwdRows * (kBwdTile + 1);   // [64 keys][33]: ds
+  float* sL = sS + kBwdRows * (kBwdTile + 1);   // [32]: lse * log2(e)
+  float* sD = sL + kBwdTile;                    // [32]: D
+
+  const int tid = threadIdx.x, c = tid >> 2, qd = tid & 3;
+  const int k0 = blockIdx.x * kBwdRows;
+  const int64_t h_off = (int64_t)blockIdx.y * kD;
+  const int64_t b = blockIdx.z;
+  const int64_t bh = b * gridDim.y + blockIdx.y;
+  const T* qb = static_cast<const T*>(a.q) + b * a.bs + h_off;
+  const T* kb = static_cast<const T*>(a.k) + b * a.bs + h_off;
+  const T* vb = static_cast<const T*>(a.v) + b * a.bs + h_off;
+  const T* gb = static_cast<const T*>(a.dout) + b * a.o_bs + h_off;
+  const int T_len = a.T_len;
+  const float sl2 = a.scale * kLog2e;
+
+  stage(kb, a.ts, k0, kBwdRows, T_len, sK, kPadR, static_cast<float*>(nullptr), tid);
+  stage(vb, a.ts, k0, kBwdRows, T_len, sV, kPadR, static_cast<float*>(nullptr), tid);
+  const int key = k0 + c;
+  const bool key_ok = key < T_len;
+
+  float dk[16], dv[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) dk[e] = dv[e] = 0.f;
+  for (int i0 = 0; i0 < T_len; i0 += kBwdTile) {
+    __syncthreads();   // the previous tile's reads are done
+    stage(qb, a.ts, i0, kBwdTile, T_len, sQ, kPadD, sQt, tid);
+    stage(gb, a.o_ts, i0, kBwdTile, T_len, sdO, kPadD, sdOt, tid);
+    if (tid < kBwdTile) {
+      const int i = i0 + tid;
+      sL[tid] = i < T_len ? a.lse[bh * T_len + i] * kLog2e : 0.f;
+      sD[tid] = i < T_len ? a.delta[bh * T_len + i] : 0.f;
+    }
+    __syncthreads();
+    float s[8], dp[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = dp[j] = 0.f;
+    dot8(sK + c * kPadR, sQt, qd * 8, s);     // s[j] = k_c . q_i
+    dot8(sV + c * kPadR, sdOt, qd * 8, dp);   // dp[j] = v_c . dO_i
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int ii = qd * 8 + j;
+      const bool ok = key_ok && i0 + ii < T_len;
+      const float p = ok ? exp2f(s[j] * sl2 - sL[ii]) : 0.f;
+      sP[c * (kBwdTile + 1) + ii] = p;
+      sS[c * (kBwdTile + 1) + ii] = p * (dp[j] - sD[ii]);
+    }
+    __syncwarp();   // the key's p and ds, written by its four lanes, are visible
+    axpy16(sP + c * (kBwdTile + 1), sdO, qd * 16, dv);
+    axpy16(sS + c * (kBwdTile + 1), sQ, qd * 16, dk);
+  }
+  if (key_ok) {
+    const int64_t off = b * a.bs + h_off + (int64_t)key * a.ts + qd * 16;
+    T* ok_ = static_cast<T*>(a.dk) + off;
+    T* ov = static_cast<T*>(a.dv) + off;
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      ok_[e] = from_f32<T>(dk[e] * a.scale);
+      ov[e] = from_f32<T>(dv[e]);
     }
   }
 }
@@ -407,20 +666,20 @@ bool bad_shape(int B, int H, int T_len, int D) {
   return D != kD || B <= 0 || H <= 0 || T_len <= 0 || B > 65535 || H > 65535;
 }
 
-int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-               int T_len, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
+int launch_f32(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+               int H, int T_len, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
                int64_t kv_ts, int64_t o_bs, int64_t o_ts, float scale, void* stream) {
   if (bad_shape(B, H, T_len, D)) return (int)cudaErrorInvalidValue;
   const dim3 grid((T_len + kBM - 1) / kBM, H, B);
   attention_fwd_kernel<float><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), T_len, q_bs, q_ts, kv_bs,
+      static_cast<const float*>(v), static_cast<float*>(o), lse, T_len, q_bs, q_ts, kv_bs,
       kv_ts, o_bs, o_ts, scale);
   return (int)cudaGetLastError();
 }
 
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                int T_len, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                int H, int T_len, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
                 int64_t kv_ts, int64_t o_bs, int64_t o_ts, float scale, void* stream) {
   const bool aligned = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o) % 16 == 0;
   if (bad_shape(B, H, T_len, D) || !aligned ||
@@ -429,7 +688,48 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   const dim3 grid((T_len + kBM - 1) / kBM, H, B);
   attention_fwd_tc_kernel<<<grid, kTcThreads, 0, (cudaStream_t)stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale * kLog2e);
+      static_cast<bf16*>(o), lse, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts,
+      scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
+constexpr int kMaxDevices = 64;
+
+// Both backward kernels opt in to more than 48 KB of dynamic shared memory:
+// once per device and element type.
+template <typename T>
+cudaError_t bwd_attributes() {
+  static bool set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(attention_bwd_dq_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem * 4);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(attention_bwd_dkv_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem * 4);
+  if (err != cudaSuccess) return err;
+  set[dev] = true;
+  return cudaSuccess;
+}
+
+template <typename T>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dq, void* dk, void* dv, float* delta, int B, int H,
+               int T_len, int D, int64_t bs, int64_t ts, int64_t o_bs, int64_t o_ts,
+               float scale, void* stream) {
+  if (bad_shape(B, H, T_len, D) || lse == nullptr || delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = bwd_attributes<T>();
+  if (err != cudaSuccess) return (int)err;
+  const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, delta, T_len, bs, ts, o_bs, o_ts, scale};
+  const dim3 grid((T_len + kBwdRows - 1) / kBwdRows, H, B);
+  attention_bwd_dq_kernel<T><<<grid, kBwdThreads, kDqSmem * 4, (cudaStream_t)stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attention_bwd_dkv_kernel<T><<<grid, kBwdThreads, kDkvSmem * 4, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -437,20 +737,36 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
 
 extern "C" {
 
-int attention_fwd_f32(const void* q, const void* k, const void* v, void* o, int B,
-                      int H, int T, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
+int attention_fwd_f32(const void* q, const void* k, const void* v, void* o, float* lse,
+                      int B, int H, int T, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
                       int64_t kv_ts, int64_t o_bs, int64_t o_ts, float scale,
                       void* stream) {
-  return launch_f32(q, k, v, o, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale,
-                    stream);
+  return launch_f32(q, k, v, o, lse, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts,
+                    scale, stream);
 }
 
-int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                       int H, int T, int D, int64_t q_bs, int64_t q_ts, int64_t kv_bs,
-                       int64_t kv_ts, int64_t o_bs, int64_t o_ts, float scale,
-                       void* stream) {
-  return launch_bf16(q, k, v, o, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale,
-                     stream);
+int attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                       int B, int H, int T, int D, int64_t q_bs, int64_t q_ts,
+                       int64_t kv_bs, int64_t kv_ts, int64_t o_bs, int64_t o_ts,
+                       float scale, void* stream) {
+  return launch_bf16(q, k, v, o, lse, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts,
+                     scale, stream);
+}
+
+int attention_bwd_f32(const void* q, const void* k, const void* v, const void* o,
+                      const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                      float* delta, int B, int H, int T, int D, int64_t bs, int64_t ts,
+                      int64_t o_bs, int64_t o_ts, float scale, void* stream) {
+  return launch_bwd<float>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, T, D, bs, ts,
+                           o_bs, o_ts, scale, stream);
+}
+
+int attention_bwd_bf16(const void* q, const void* k, const void* v, const void* o,
+                       const void* dout, const float* lse, void* dq, void* dk, void* dv,
+                       float* delta, int B, int H, int T, int D, int64_t bs, int64_t ts,
+                       int64_t o_bs, int64_t o_ts, float scale, void* stream) {
+  return launch_bwd<bf16>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H, T, D, bs, ts,
+                          o_bs, o_ts, scale, stream);
 }
 
 const char* mcvd_cuda_error_string(int code) {

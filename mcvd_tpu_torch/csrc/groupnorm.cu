@@ -1,5 +1,5 @@
 // GroupNorm(+affine)(+AdaGN)(+SiLU) in one launch for NVIDIA Hopper (sm_90a):
-// gn_fused.
+// gn_fused, and its VJP gn_fused_bwd (see "backward" below).
 //
 // Replaces mcvd_tpu/ops/lab/groupnorm.py: fused_group_norm's single pass
 // (_kernel) and _fused_group_norm_tiled's two passes (_stats_kernel,
@@ -36,9 +36,13 @@
 // __launch_bounds__(512, 2) caps registers at 64 so that two blocks fit an
 // SM, which keeps enough loads in flight.
 //
-// C interface (ctypes): gn_fused returns cudaGetLastError() (or the launch's
-// own error) and never synchronises or allocates; gn_fused_max_active_clusters
-// reports how many clusters of a plan the card can hold at once.
+// The forward also writes the (B, 2, G) mean and rstd when given a pointer
+// for them, for gn_fused_bwd (below), the backward on the same plan.
+//
+// C interface (ctypes): gn_fused and gn_fused_bwd return cudaGetLastError()
+// (or the launch's own error) and never synchronise or allocate;
+// gn_fused_max_active_clusters reports how many clusters of a plan the card
+// can hold at once.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -62,6 +66,7 @@ struct GnArgs {
   const void* beta;
   const void* scale;   // (B, C*N) rows ss_stride apart, or null
   const void* shift;
+  float* stats;        // (B, 2, G) mean, rstd for the backward, or null
   int64_t ss_stride;
   int S, CN, G, N, rows;
   float eps, n_per_group;
@@ -202,6 +207,10 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_fused_kernel(const GnArgs a
     const float var = t2 / a.n_per_group - mean * mean;
     gstat[g] = mean;
     gstat[G + g] = rsqrtf(var + a.eps);
+    if (a.stats != nullptr && rank == 0) {
+      a.stats[(int64_t)b * 2 * G + g] = mean;
+      a.stats[(int64_t)b * 2 * G + G + g] = gstat[G + g];
+    }
   }
   cluster_arrive();   // this block is done reading its peers' partials
   __syncthreads();
@@ -248,11 +257,268 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_fused_kernel(const GnArgs a
   cluster_wait();   // no block leaves while a peer may still read its partials
 }
 
+// ------------------------------------------------------------ backward
+//
+// gn_fused_bwd: the VJP of y = act(A*x + Bc), the closed form of the JAX
+// package's custom VJP _fgn_bwd (mcvd_tpu/ops/lab/groupnorm.py:160), which
+// XLA compiles from jnp there (it has no Pallas body). Per (b, channel),
+// with xh = (x - mean)*rstd from the forward's saved statistics, dz = dy *
+// silu'(u) (dy without the activation) and a = gamma*(1 + scale):
+//   S1 = sum_hw dz, S2 = sum_hw dz*xh;
+//   d_shift = S1, d_scale = gamma*S2 + beta*S1;
+//   per example, (1 + scale)*S2 and (1 + scale)*S1, summed over b and the
+//   frames_last copies n by a second small launch into dgamma, dbeta;
+//   per group, m1 = sum a*S1 / n, m2 = sum a*S2 / n;
+//   dx = rstd*(a*dz - m1 - xh*m2).
+// That is the forward's structure, a per-channel reduction over H*W that
+// crosses blocks and then a streaming pass, so it runs on the forward's plan:
+// the cluster of example b splits its rows; each block sums dz and dz*xh for
+// its rows per channel, in a fixed order; after a cluster barrier every
+// block adds all peers' per-channel sums over distributed shared memory in
+// rank order (no atomics: deterministic, the same in every block); block 0
+// writes the per-example parameter sums; then every block re-reads its x
+// and dy (from L2) and writes dx.
+//
+// What bounds it on this card: bytes, reading x and dy twice (the second
+// time mostly from L2) and writing dx, a few FLOPs per byte.
+// __launch_bounds__(512, 1): the per-channel coefficients of a thread's
+// VEC channels (mean, rstd, A, Bc and, in the second pass, a, m1, m2) take
+// registers that the forward's 64-register cap would spill; kBwdUnroll = 2
+// keeps two 16-byte loads of x and two of dy in flight a thread.
+
+constexpr int kBwdUnroll = 2;
+
+struct GnBwdArgs {
+  const void* x;
+  const void* dy;
+  void* dx;
+  const float* stats;  // (B, 2, G) mean, rstd from the forward
+  const void* gamma;   // (C,) or null
+  const void* beta;
+  const void* scale;   // (B, C*N) rows ss_stride apart, or null
+  const void* shift;
+  int64_t ss_stride;
+  int S, CN, G, N, rows;
+  float n_per_group;
+  int act, gb_bf16, ss_bf16;
+  float* d_ss;   // (B, 2*CN): d_scale | d_shift
+  float* part;   // (B, 2*CN): (1+scale)*S2 | (1+scale)*S1, summed into dgamma | dbeta
+};
+
+// Shared memory, in bytes:
+// [red: threads*VEC][chan: 2*CN][tot: 2*CN][gm: 2*G] (f32).
+inline int64_t bwd_smem_layout(int threads, int vec, int CN, int G) {
+  return 4 * ((int64_t)threads * vec + 4 * CN + 2 * G);
+}
+
+// dz of one element: dy, times silu'(u) at u = A*x + Bc with the activation
+__device__ __forceinline__ float grad_pre_act(float xv, float gv, float A, float Bc, int act) {
+  if (!act) return gv;
+  const float u = fmaf(xv, A, Bc);
+  const float sig = 1.f / (1.f + expf(-u));
+  return gv * (sig + u * sig * (1.f - sig));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads, 1) gn_fused_bwd_kernel(const GnBwdArgs a) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_ranks = (int)cluster.num_blocks();
+  const int b = blockIdx.y;
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int CN = a.CN, G = a.G;
+  const int cpg = CN / G;
+  const int nv = CN / VEC;
+  const int oct = tid % nv;
+  const int r0 = tid / nv;
+  const int rstep = nthreads / nv;
+  const int row_lo = rank * a.rows;
+  const int nrows = max(0, min(a.S, row_lo + a.rows) - row_lo);
+  const int64_t base = ((int64_t)b * a.S + row_lo) * CN;
+  const T* xb = static_cast<const T*>(a.x) + base;
+  const T* gb = static_cast<const T*>(a.dy) + base;
+  T* dxb = static_cast<T*>(a.dx) + base;
+
+  float* red = reinterpret_cast<float*>(smem);
+  float* chan = red + nthreads * VEC;   // [2][CN]: this block's S1, S2 per channel
+  float* tot = chan + 2 * CN;           // [2][CN]: the example's S1, S2
+  float* gm = tot + 2 * CN;             // [2][G]: m1, m2
+
+  // this thread's channels: statistics and the forward's fold A*x + Bc
+  float mean[VEC], rstd[VEC], A[VEC], Bc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int c = oct * VEC + i;
+    const int g = c / cpg;
+    mean[i] = a.stats[(int64_t)b * 2 * G + g];
+    rstd[i] = a.stats[(int64_t)b * 2 * G + G + g];
+    float ai = rstd[i], bi = -mean[i] * rstd[i];
+    if (a.gamma) {
+      const float ga = load_param(a.gamma, c / a.N, a.gb_bf16);
+      ai = ai * ga;
+      bi = bi * ga + load_param(a.beta, c / a.N, a.gb_bf16);
+    }
+    if (a.scale) {
+      const int64_t k = (int64_t)b * a.ss_stride + c;
+      const float e = 1.f + load_param(a.scale, k, a.ss_bf16);
+      ai = ai * e;
+      bi = bi * e + load_param(a.shift, k, a.ss_bf16);
+    }
+    A[i] = ai;
+    Bc[i] = bi;
+  }
+
+  // pass 1: per-thread sums of dz and dz*xh over its rows
+  float s1[VEC], s2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
+  for (int rr = r0; rr < nrows; rr += kBwdUnroll * rstep) {
+    uint4 rx[kBwdUnroll], rg[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      const int r = rr + u * rstep;
+      const int64_t off = (int64_t)r * CN + oct * VEC;
+      rx[u] = r < nrows ? *reinterpret_cast<const uint4*>(xb + off) : make_uint4(0, 0, 0, 0);
+      rg[u] = r < nrows ? *reinterpret_cast<const uint4*>(gb + off) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      const T* ex = reinterpret_cast<const T*>(&rx[u]);
+      const T* eg = reinterpret_cast<const T*>(&rg[u]);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {   // dy = 0 on padding rows: adds nothing
+        const float xv = to_f32(ex[i]);
+        const float dz = grad_pre_act(xv, to_f32(eg[i]), A[i], Bc[i], a.act);
+        s1[i] += dz;
+        s2[i] += dz * ((xv - mean[i]) * rstd[i]);
+      }
+    }
+  }
+
+  // per channel of this block, in a fixed order, published for the peers
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) red[tid * VEC + i] = pass ? s2[i] : s1[i];
+    __syncthreads();
+    for (int c = tid; c < CN; c += nthreads) {
+      const int o = c / VEC, i = c % VEC;
+      float acc = 0.f;
+      for (int j = 0; j < rstep; ++j) acc += red[(j * nv + o) * VEC + i];
+      chan[pass * CN + c] = acc;
+    }
+    __syncthreads();
+  }
+
+  // the example's sums: every block adds all peers' in rank order
+  cluster_arrive();
+  cluster_wait();
+  for (int c = tid; c < 2 * CN; c += nthreads) {
+    float t = 0.f;
+    for (int r = 0; r < n_ranks; ++r) t += cluster.map_shared_rank(chan, r)[c];
+    tot[c] = t;
+  }
+  cluster_arrive();   // this block is done reading its peers' sums
+  __syncthreads();
+
+  // per group m1, m2 over a = gamma*(1 + scale); block 0 writes the
+  // example's parameter sums
+  for (int g = tid; g < G; g += nthreads) {
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = g * cpg; c < (g + 1) * cpg; ++c) {
+      float ac = a.gamma ? load_param(a.gamma, c / a.N, a.gb_bf16) : 1.f;
+      if (a.scale) ac *= 1.f + load_param(a.scale, (int64_t)b * a.ss_stride + c, a.ss_bf16);
+      m1 += ac * tot[c];
+      m2 += ac * tot[CN + c];
+    }
+    gm[g] = m1 / a.n_per_group;
+    gm[G + g] = m2 / a.n_per_group;
+  }
+  if (rank == 0) {
+    for (int c = tid; c < CN; c += nthreads) {
+      const float S1 = tot[c], S2 = tot[CN + c];
+      const float e = a.scale ? 1.f + load_param(a.scale, (int64_t)b * a.ss_stride + c,
+                                                 a.ss_bf16) : 1.f;
+      if (a.scale) {
+        const float ga = a.gamma ? load_param(a.gamma, c / a.N, a.gb_bf16) : 1.f;
+        const float be = a.gamma ? load_param(a.beta, c / a.N, a.gb_bf16) : 0.f;
+        a.d_ss[(int64_t)b * 2 * CN + c] = ga * S2 + be * S1;
+        a.d_ss[(int64_t)b * 2 * CN + CN + c] = S1;
+      }
+      if (a.gamma) {
+        a.part[(int64_t)b * 2 * CN + c] = e * S2;
+        a.part[(int64_t)b * 2 * CN + CN + c] = e * S1;
+      }
+    }
+  }
+  __syncthreads();
+
+  // pass 2: dx = rstd*(a*dz - m1 - xh*m2), re-reading x and dy (from L2)
+  float ac[VEC], m1[VEC], m2[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int c = oct * VEC + i;
+    const int g = c / cpg;
+    ac[i] = a.gamma ? load_param(a.gamma, c / a.N, a.gb_bf16) : 1.f;
+    if (a.scale) ac[i] *= 1.f + load_param(a.scale, (int64_t)b * a.ss_stride + c, a.ss_bf16);
+    m1[i] = gm[g];
+    m2[i] = gm[G + g];
+  }
+  for (int rr = r0; rr < nrows; rr += kBwdUnroll * rstep) {
+    uint4 rx[kBwdUnroll], rg[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      const int r = rr + u * rstep;
+      const int64_t off = (int64_t)r * CN + oct * VEC;
+      if (r < nrows) {
+        rx[u] = *reinterpret_cast<const uint4*>(xb + off);
+        rg[u] = *reinterpret_cast<const uint4*>(gb + off);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      const int r = rr + u * rstep;
+      if (r >= nrows) continue;
+      const T* ex = reinterpret_cast<const T*>(&rx[u]);
+      const T* eg = reinterpret_cast<const T*>(&rg[u]);
+      uint4 out;
+      T* eo = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xv = to_f32(ex[i]);
+        const float dz = grad_pre_act(xv, to_f32(eg[i]), A[i], Bc[i], a.act);
+        const float xh = (xv - mean[i]) * rstd[i];
+        eo[i] = from_f32<T>(rstd[i] * (ac[i] * dz - m1[i] - xh * m2[i]));
+      }
+      *reinterpret_cast<uint4*>(dxb + (int64_t)r * CN + oct * VEC) = out;
+    }
+  }
+  cluster_wait();   // no block leaves while a peer may still read its sums
+}
+
+// dgamma[c] = sum_b sum_n part[b, c*N + n], dbeta likewise, in a fixed order.
+__global__ void gn_bwd_params_kernel(const float* __restrict__ part, float* __restrict__ dgb,
+                                     int B, int CN, int C, int N) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float dg = 0.f, db = 0.f;
+  for (int b = 0; b < B; ++b)
+    for (int n = 0; n < N; ++n) {
+      dg += part[(int64_t)b * 2 * CN + c * N + n];
+      db += part[(int64_t)b * 2 * CN + CN + c * N + n];
+    }
+  dgb[c] = dg;
+  dgb[C + c] = db;
+}
+
 constexpr int kMaxDevices = 64;
 
 // The opt-in to kSmemLimit bytes of dynamic shared memory holds per device
-// and per kernel: set once for each (device, dtype) this process launches on.
-template <typename T>
+// and per kernel: set once for each (device, dtype, direction) this process
+// launches on.
+template <typename T, bool kBwd>
 cudaError_t config(int B, int cluster, int threads, int smem, cudaStream_t stream,
                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   static bool attrs_set[kMaxDevices] = {};
@@ -261,8 +527,10 @@ cudaError_t config(int B, int cluster, int threads, int smem, cudaStream_t strea
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!attrs_set[dev]) {
-    err = cudaFuncSetAttribute(gn_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kSmemLimit);
+    err = kBwd ? cudaFuncSetAttribute(gn_fused_bwd_kernel<T>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit)
+               : cudaFuncSetAttribute(gn_fused_kernel<T>,
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
     if (err != cudaSuccess) return err;
     attrs_set[dev] = true;
   }
@@ -284,9 +552,22 @@ template <typename T>
 int launch(const GnArgs& a, int B, int cluster, int threads, int smem, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = config<T>(B, cluster, threads, smem, (cudaStream_t)stream, &cfg, &attr);
+  cudaError_t err = config<T, false>(B, cluster, threads, smem, (cudaStream_t)stream, &cfg,
+                                     &attr);
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&cfg, gn_fused_kernel<T>, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const GnBwdArgs& a, int B, int cluster, int threads, int smem, void* stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = config<T, true>(B, cluster, threads, smem, (cudaStream_t)stream, &cfg,
+                                    &attr);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, gn_fused_bwd_kernel<T>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -295,14 +576,15 @@ template <typename T>
 int max_clusters(int B, int cluster, int threads, int smem, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = config<T>(B, cluster, threads, smem, 0, &cfg, &attr);
+  cudaError_t err = config<T, false>(B, cluster, threads, smem, 0, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveClusters(out, gn_fused_kernel<T>, &cfg);
 }
 
-// The plan's checks, against the kernel's own layout.
+// The plan's checks, against the kernel's own layout (`want_smem` is the
+// direction's shared-memory layout).
 bool bad_plan(int bf16, int B, int S, int CN, int G, int N, int rows, int cluster,
-              int threads, int smem) {
+              int threads, int smem, bool bwd) {
   const int vec = bf16 ? 8 : 4;
   if (B <= 0 || B > 65535 || S <= 0 || CN <= 0 || G <= 0 || N <= 0 || rows <= 0 ||
       cluster < 1 || cluster > kMaxCluster || CN % vec || CN % G || CN % N)
@@ -310,7 +592,9 @@ bool bad_plan(int bf16, int B, int S, int CN, int G, int N, int rows, int cluste
   const int nv = CN / vec;
   if (threads <= 0 || threads > kMaxThreads || threads % nv) return true;
   if ((int64_t)rows * cluster < S || (int64_t)rows * (cluster - 1) >= S) return true;
-  return smem != smem_layout(threads, vec, CN, G) || smem > kSmemLimit;
+  const int64_t want = bwd ? bwd_smem_layout(threads, vec, CN, G)
+                           : smem_layout(threads, vec, CN, G);
+  return smem != want || smem > kSmemLimit;
 }
 
 }  // namespace
@@ -318,22 +602,47 @@ bool bad_plan(int bf16, int B, int S, int CN, int G, int N, int rows, int cluste
 extern "C" {
 
 int gn_fused(const void* x, void* y, const void* gamma, const void* beta, const void* scale,
-             const void* shift, int64_t ss_stride, int gb_bf16, int ss_bf16, int bf16,
-             int B, int S, int CN, int G, int N, int rows, int cluster, int threads,
+             const void* shift, float* stats, int64_t ss_stride, int gb_bf16, int ss_bf16,
+             int bf16, int B, int S, int CN, int G, int N, int rows, int cluster, int threads,
              int smem, float eps, float n_per_group, int act, void* stream) {
-  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem) ||
+  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem, false) ||
       (uintptr_t)x % 16 || (uintptr_t)y % 16 || (gamma == nullptr) != (beta == nullptr) ||
       (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
-  const GnArgs a{x, y, gamma, beta, scale, shift, ss_stride, S, CN, G, N, rows,
+  const GnArgs a{x, y, gamma, beta, scale, shift, stats, ss_stride, S, CN, G, N, rows,
                  eps, n_per_group, act, gb_bf16, ss_bf16};
   return bf16 ? launch<__nv_bfloat16>(a, B, cluster, threads, smem, stream)
               : launch<float>(a, B, cluster, threads, smem, stream);
 }
 
+// ws: fp32 workspace of 4*B*CN + 2*C floats: [d_scale | d_shift] (B, 2CN),
+// the per-example parameter sums (B, 2CN), then [dgamma | dbeta] (2C).
+// Launches the cluster kernel, then (with gamma) the parameter reduction.
+int gn_fused_bwd(const void* x, const void* dy, void* dx, const float* stats,
+                 const void* gamma, const void* beta, const void* scale, const void* shift,
+                 int64_t ss_stride, int gb_bf16, int ss_bf16, int bf16, int B, int S, int CN,
+                 int G, int N, int rows, int cluster, int threads, int smem,
+                 float n_per_group, int act, float* ws, int C, void* stream) {
+  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem, true) ||
+      (uintptr_t)x % 16 || (uintptr_t)dy % 16 || (uintptr_t)dx % 16 || stats == nullptr ||
+      ws == nullptr || C * N != CN || (gamma == nullptr) != (beta == nullptr) ||
+      (scale == nullptr) != (shift == nullptr))
+    return (int)cudaErrorInvalidValue;
+  float* d_ss = ws;
+  float* part = ws + (int64_t)2 * B * CN;
+  const GnBwdArgs a{x, dy, dx, stats, gamma, beta, scale, shift, ss_stride, S, CN, G, N,
+                    rows, n_per_group, act, gb_bf16, ss_bf16, d_ss, part};
+  int err = bf16 ? launch_bwd<__nv_bfloat16>(a, B, cluster, threads, smem, stream)
+                 : launch_bwd<float>(a, B, cluster, threads, smem, stream);
+  if (err != 0 || gamma == nullptr) return err;
+  gn_bwd_params_kernel<<<(C + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      part, ws + (int64_t)4 * B * CN, B, CN, C, N);
+  return (int)cudaGetLastError();
+}
+
 int gn_fused_max_active_clusters(int bf16, int B, int S, int CN, int G, int N, int rows,
                                  int cluster, int threads, int smem, int* out) {
-  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem))
+  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem, false))
     return (int)cudaErrorInvalidValue;
   return bf16 ? max_clusters<__nv_bfloat16>(B, cluster, threads, smem, out)
               : max_clusters<float>(B, cluster, threads, smem, out);

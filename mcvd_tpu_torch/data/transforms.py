@@ -1,8 +1,14 @@
 """Data transforms (counterpart of `mcvd_tpu/data/transforms.py`;
-upstream datasets/__init__.py:228-261). Dequantization is not ported yet
-(ROADMAP Queue 1 item 8: training)."""
+upstream datasets/__init__.py:228-261).
+
+Dequantization draws its noise from an explicit tensor of X's shape
+(`uniform` in [0, 1), `normal` N(0, 1)) or, where none is given, from
+`generator` on X's device: the tests replay the JAX draws this way.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -12,12 +18,23 @@ def logit_transform(image: torch.Tensor, lam: float = 1e-6) -> torch.Tensor:
     return torch.log(image) - torch.log1p(-image)
 
 
-def data_transform(config, X: torch.Tensor) -> torch.Tensor:
+def _draw(explicit, X, generator, sample):
+    if explicit is not None:
+        if explicit.shape != X.shape:
+            raise ValueError(f"dequantization noise {tuple(explicit.shape)} is not X's "
+                             f"{tuple(X.shape)}")
+        return explicit.to(device=X.device, dtype=X.dtype)
+    return sample(X.shape, generator=generator, device=X.device, dtype=X.dtype)
+
+
+def data_transform(config, X: torch.Tensor, *, uniform: Optional[torch.Tensor] = None,
+                   normal: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     data = config.data
-    if getattr(data, "uniform_dequantization", False) or getattr(
-            data, "gaussian_dequantization", False):
-        raise NotImplementedError(
-            "dequantization: not ported yet (ROADMAP Queue 1 item 8: training)")
+    if getattr(data, "uniform_dequantization", False):
+        X = X / 256.0 * 255.0 + _draw(uniform, X, generator, torch.rand) / 256.0
+    if getattr(data, "gaussian_dequantization", False):
+        X = X + _draw(normal, X, generator, torch.randn) * 0.01
     if getattr(data, "rescaled", False):
         return 2 * X - 1.0
     if getattr(data, "logit_transform", False):

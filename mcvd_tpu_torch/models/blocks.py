@@ -95,7 +95,12 @@ class ResnetBlockBigGAN(nn.Module):
     """actnorm0 -> [FIR (1,3,3,1) up/down] -> Conv_0 -> actnorm1 -> dropout
     -> Conv_1 (init 0) -> (+ Conv_2 1x1 shortcut) / sqrt(2)
     (upstream ResnetBlockBigGANppGN with fir and skip_rescale, as NCSN++
-    builds it)."""
+    builds it).
+
+    In training mode the dropout mask is drawn from `generator` (the train
+    step's explicit one; torch's global generator when None), as flax draws
+    it from the step's dropout key: keep where U[0, 1) >= rate, kept values
+    scaled by 1/(1 - rate)."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: Optional[int] = None, up: bool = False, down: bool = False,
@@ -114,7 +119,15 @@ class ResnetBlockBigGAN(nn.Module):
         self.Conv_2 = (Conv2dSame(in_ch, out_ch, 1)
                        if in_ch != out_ch or up or down else None)
 
-    def forward(self, x, temb=None):
+    def dropout(self, h, generator=None):
+        rate = self.Dropout_0.p
+        if not self.training or rate == 0.0:
+            return h
+        B, C, H, W = h.shape   # the mask in h's channels_last layout
+        u = torch.rand(B, H, W, C, generator=generator, device=h.device).permute(0, 3, 1, 2)
+        return h * (u >= rate).to(h.dtype) / (1.0 - rate)
+
+    def forward(self, x, temb=None, generator=None):
         h = self.actnorm0(x, temb)
         if self.up:
             h = resample.upsample_2d(h, FIR_KERNEL, factor=2)
@@ -124,7 +137,7 @@ class ResnetBlockBigGAN(nn.Module):
             x = resample.downsample_2d(x, FIR_KERNEL, factor=2)
         h = self.Conv_0(h)
         h = self.actnorm1(h, temb)
-        h = self.Dropout_0(h)
+        h = self.dropout(h, generator)
         h = self.Conv_1(h)
         if self.Conv_2 is not None:
             x = self.Conv_2(x)

@@ -111,9 +111,12 @@ class NCSNpp(nn.Module):
         self.all_modules = nn.ModuleList(modules)
         self.register_buffer("sigmas", torch.from_numpy(get_sigmas(config).copy()))
 
-    def forward(self, x, time_cond, cond=None, cond_mask=None):
+    def forward(self, x, time_cond, cond=None, cond_mask=None, dropout_generator=None):
+        """`dropout_generator` draws the resblocks' dropout masks in training
+        mode (`blocks.ResnetBlockBigGAN`)."""
         modules = self.all_modules
         m_idx = 0
+        gen = dropout_generator
         if cond is not None:
             x = torch.cat([x, cond], dim=1)
         x = x.contiguous(memory_format=torch.channels_last)
@@ -137,32 +140,32 @@ class NCSNpp(nn.Module):
         m_idx += 1
         for i_level in range(self.num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = modules[m_idx](hs[-1], temb)
+                h = modules[m_idx](hs[-1], temb, gen)
                 m_idx += 1
                 if self.all_resolutions[i_level] in self.attn_resolutions:
                     h = modules[m_idx](h)
                     m_idx += 1
                 hs.append(h)
             if i_level != self.num_resolutions - 1:
-                hs.append(modules[m_idx](hs[-1], temb))
+                hs.append(modules[m_idx](hs[-1], temb, gen))
                 m_idx += 1
 
         # Middle
-        h = modules[m_idx](hs[-1], temb)
+        h = modules[m_idx](hs[-1], temb, gen)
         h = modules[m_idx + 1](h)
-        h = modules[m_idx + 2](h, temb)
+        h = modules[m_idx + 2](h, temb, gen)
         m_idx += 3
 
         # Up
         for i_level in reversed(range(self.num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb)
+                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb, gen)
                 m_idx += 1
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = modules[m_idx](h)
                 m_idx += 1
             if i_level != 0:
-                h = modules[m_idx](h, temb)
+                h = modules[m_idx](h, temb, gen)
                 m_idx += 1
         assert not hs
 
@@ -194,5 +197,5 @@ class UNetMoreDDPM(nn.Module):
         for name in ("betas", "alphas", "alphas_prev"):
             self.register_buffer(name, torch.from_numpy(getattr(sched, name).copy()))
 
-    def forward(self, x, y, cond=None, cond_mask=None):
-        return self.unet(x, y, cond, cond_mask)
+    def forward(self, x, y, cond=None, cond_mask=None, dropout_generator=None):
+        return self.unet(x, y, cond, cond_mask, dropout_generator)

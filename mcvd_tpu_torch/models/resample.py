@@ -50,13 +50,16 @@ _FIR_WEIGHTS = {}
 def _fir_weight(kernel: np.ndarray, C: int, dtype, device) -> torch.Tensor:
     """The flipped kernel as a (C, 1, kh, kw) depthwise weight, made once per
     (kernel, C, dtype, device): a fresh one per call would copy host to
-    device on every resample."""
+    device on every resample. Made outside inference mode, so a weight
+    first made by the sampler (under `torch.inference_mode()`) serves the
+    train step's autograd too."""
     key = (kernel.tobytes(), kernel.shape, C, dtype, device)
     w = _FIR_WEIGHTS.get(key)
     if w is None:
         kf = np.ascontiguousarray(np.flip(kernel, (0, 1)))
-        w = torch.as_tensor(kf, dtype=dtype, device=device)
-        w = w[None, None].expand(C, 1, *kf.shape).contiguous()
+        with torch.inference_mode(False):
+            w = torch.as_tensor(kf, dtype=dtype, device=device)
+            w = w[None, None].expand(C, 1, *kf.shape).contiguous()
         _FIR_WEIGHTS[key] = w
     return w
 

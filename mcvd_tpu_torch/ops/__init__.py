@@ -2,10 +2,11 @@
 version (counterpart of `mcvd_tpu/ops`, whose kernels are Pallas for the TPU).
 
   * `groupnorm`: GroupNorm(+affine)(+AdaGN)(+SiLU) in one launch, `gn_fused`,
-    CUDA C++ for sm_90a built by `_build` (a thread-block cluster per
-    example);
-  * `attention`: softmax attention forward, `attention_fwd`, CUDA C++ for
-    sm_90a (bf16 on the tensor cores, fp32 on the CUDA cores);
+    and its VJP `gn_fused_bwd`, CUDA C++ for sm_90a built by `_build` (a
+    thread-block cluster per example);
+  * `attention`: softmax attention forward, `attention_fwd` (bf16 on the
+    tensor cores, fp32 on the CUDA cores), and its VJP `attention_bwd` (CUDA
+    cores), CUDA C++ for sm_90a;
   * `fused_act`: bias + LeakyReLU + scale, the Triton kernel
     `fused_leaky_relu`.
 
@@ -19,15 +20,16 @@ wrappers take the plain versions on the card too; only the tests and
 `chip_smoke.py` use it, to hold the kernels against the plain versions.
 
 Each wrapper adds one to its counter in `LAUNCHES` where it launches its
-kernel, and nowhere else, so a run can show it went through the kernels.
+kernel, and nowhere else, so a run can show it went through the kernels (a
+backward wrapper counts one per call, though it may make two launches).
 """
 
 from __future__ import annotations
 
 import contextlib
 
-LAUNCHES = {"gn_fused": 0, "attention_fwd": 0, "fused_leaky_relu": 0, "gn_copy": 0,
-            "gn_variant": 0}
+LAUNCHES = {"gn_fused": 0, "gn_fused_bwd": 0, "attention_fwd": 0, "attention_bwd": 0,
+            "fused_leaky_relu": 0, "gn_copy": 0, "gn_variant": 0}
 _REFERENCE = [False]
 
 

@@ -91,8 +91,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
     for name in ("attention_fwd_f32", "attention_fwd_bf16"):
         fn = getattr(lib, name)
-        # q, k, v, o, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale, stream
-        fn.argtypes = [p, p, p, p, i, i, i, i, i64, i64, i64, i64, i64, i64, f, p]
+        # q, k, v, o, lse, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale,
+        # stream
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i64, i64, i64, i64, i64, i64, f, p]
+        fn.restype = i
+    for name in ("attention_bwd_f32", "attention_bwd_bf16"):
+        fn = getattr(lib, name)
+        # q, k, v, o, do, lse, dq, dk, dv, delta, B, H, T, D, qkv_bs, qkv_ts, o_bs,
+        # o_ts, scale, stream
+        fn.argtypes = [p] * 10 + [i, i, i, i, i64, i64, i64, i64, f, p]
         fn.restype = i
     # x, y, n, n_blocks, stream
     lib.gn_copy_bf16.argtypes = [p, p, i64, i, p]
@@ -103,10 +110,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         # eps, stats_bf16, stream
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, i, p]
         fn.restype = i
-    # x, y, gamma, beta, scale, shift, ss_stride, gb_bf16, ss_bf16, bf16, B, S,
-    # CN, G, N, rows, cluster, threads, smem, eps, n_per_group, act, stream
-    lib.gn_fused.argtypes = [p, p, p, p, p, p, i64, *[i] * 12, f, f, i, p]
+    # x, y, gamma, beta, scale, shift, stats, ss_stride, gb_bf16, ss_bf16, bf16, B,
+    # S, CN, G, N, rows, cluster, threads, smem, eps, n_per_group, act, stream
+    lib.gn_fused.argtypes = [p, p, p, p, p, p, p, i64, *[i] * 12, f, f, i, p]
     lib.gn_fused.restype = i
+    # x, dy, dx, stats, gamma, beta, scale, shift, ss_stride, gb_bf16, ss_bf16,
+    # bf16, B, S, CN, G, N, rows, cluster, threads, smem, n_per_group, act, ws, C,
+    # stream
+    lib.gn_fused_bwd.argtypes = [p] * 8 + [i64, *[i] * 12, f, i, p, i, p]
+    lib.gn_fused_bwd.restype = i
     # bf16, B, S, CN, G, N, rows, cluster, threads, smem, out
     lib.gn_fused_max_active_clusters.argtypes = [*[i] * 10, ctypes.POINTER(i)]
     lib.gn_fused_max_active_clusters.restype = i

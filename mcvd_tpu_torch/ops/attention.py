@@ -1,4 +1,4 @@
-"""Softmax attention forward, `attention_fwd`: CUDA C++ for sm_90a
+"""Softmax attention, `attention_fwd` and `attention_bwd`: CUDA C++ for sm_90a
 (`csrc/attention.cu`), built with nvcc and bound with ctypes (`_build`).
 
 Replaces `mcvd_tpu/ops/lab/attention.py`: `fused_attention` (Pallas body
@@ -17,10 +17,20 @@ differs from the plain version (p in fp32) by at most
 its arithmetic on the CPU). fp32 runs on
 the CUDA cores with p in fp32, the parity route. Scores and softmax are
 fp32 on both (online softmax over key tiles). D=64 only; other head dims
-raise; the bf16 route also needs 16-byte aligned rows. Forward only: the
-backward (`_fa_bwd`, `_packed_bwd`) comes with training. The T>2048 einsum
+raise; the bf16 route also needs 16-byte aligned rows. The T>2048 einsum
 fallback of the Pallas version is not carried over: the kernel tiles keys
 and has no length limit.
+
+Gradients: when autograd needs them the entry points run through
+`torch.autograd.Function`s. On the card the forward also writes each row's
+logsumexp (fp32, natural log of the scaled scores), and the backward is
+`attention_bwd` (`csrc/attention.cu`), the FlashAttention-2 backward of the
+JAX package's custom VJPs `_fa_bwd` and `_packed_bwd`: p recomputed from the
+logsumexp tile by tile, so no (T, T) block reaches device memory; d(qkv)
+comes back packed as qkv. On CPU tensors, and under `reference_ops()`, both
+directions are the plain versions (`attention_bwd_reference`,
+`attention_packed_bwd_reference`). With no input needing a gradient the
+forward saves nothing.
 """
 
 from __future__ import annotations
@@ -108,7 +118,37 @@ def attention_packed_reference(qkv, n_heads: int, scale: float):
     return o.transpose(1, 2).reshape(B, T, C)
 
 
-def _launch(q, k, v, o, B, H, T, D, q_strides, kv_strides, o_strides, scale):
+def attention_bwd_reference(q, k, v, g, scale: float):
+    """The plain VJP on (BH, T, D): (dq, dk, dv) in q's dtype, computed in
+    fp32 as the JAX package's `_fa_bwd` (`attention.py:78`): p recomputed,
+    ds = p * (dp - rowsum(dp * p)), `scale` on dq and dk."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1)
+    dv = torch.matmul(p.transpose(-1, -2), gf)
+    dp = torch.matmul(gf, vf.transpose(-1, -2))
+    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def attention_packed_bwd_reference(qkv, g, n_heads: int, scale: float):
+    """The plain VJP on packed (B, T, 3C) qkv and g (B, T, C): d(qkv) packed
+    as qkv, as the JAX package's `_packed_bwd` (`attention.py:187`)."""
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    d = C // n_heads
+
+    def heads(t):
+        return t.reshape(B, T, n_heads, d).transpose(1, 2)
+
+    q, k, v = (heads(t) for t in qkv.split(C, dim=-1))
+    grads = attention_bwd_reference(q, k, v, heads(g), scale)
+    return torch.cat([t.transpose(1, 2).reshape(B, T, C) for t in grads], dim=-1)
+
+
+def _launch(q, k, v, o, lse, B, H, T, D, q_strides, kv_strides, o_strides, scale):
     from ._build import check_launch, load_library
 
     lib = load_library()
@@ -116,10 +156,29 @@ def _launch(q, k, v, o, B, H, T, D, q_strides, kv_strides, o_strides, scale):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 B, H, T, D, *q_strides, *kv_strides, *o_strides,
-                 float(scale), stream)
+                 None if lse is None else lse.data_ptr(),
+                 B, H, T, D, *q_strides, *kv_strides, *o_strides, float(scale), stream)
     check_launch(lib, "attention_fwd", err)
     count_launch("attention_fwd")
+
+
+def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, B, H, T, D, qkv_strides, o_strides,
+                scale):
+    """`attention_bwd`: two launches (dq with the row sums D = rowsum(do*o),
+    then dk and dv) on one (B, H, T) fp32 scratch for D."""
+    from ._build import check_launch, load_library
+
+    lib = load_library()
+    fn = lib.attention_bwd_f32 if q.dtype == torch.float32 else lib.attention_bwd_bf16
+    delta = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 delta.data_ptr(), B, H, T, D, *qkv_strides, *o_strides, float(scale),
+                 stream)
+    check_launch(lib, "attention_bwd", err)
+    count_launch("attention_bwd")
 
 
 def _check(name, ts):
@@ -131,9 +190,6 @@ def _check(name, ts):
             raise ValueError(f"{name}: inputs differ in dtype or device")
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise RuntimeError(f"{name}: the kernel is forward-only; run under "
-                           "torch.no_grad() or torch.inference_mode()")
 
 
 def _check_head_dim(name, d):
@@ -142,36 +198,124 @@ def _check_head_dim(name, d):
                          f"(supported: {SUPPORTED_HEAD_DIMS})")
 
 
-def attention(q, k, v, scale: float):
-    """(BH, T, D) -> (BH, T, D): the `fused_attention` entry point."""
-    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
-        raise ValueError(f"attention: q, k, v must share one (BH, T, D) shape, got "
-                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if not use_kernel(q):
-        return attention_reference(q, k, v, scale)
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _fwd(q, k, v, scale, want_lse):
+    """(o, lse) on (BH, T, D): `attention_fwd`, with the (BH, 1, T) fp32
+    logsumexp when `want_lse`."""
     _check("attention", (q, k, v))
     BH, T, D = q.shape
     _check_head_dim("attention", D)
     o = torch.empty_like(q)
-    _launch(q, k, v, o, BH, 1, T, D, (T * D, D), (T * D, D), (T * D, D), scale)
-    return o
+    lse = torch.empty(BH, 1, T, device=q.device) if want_lse else None
+    _launch(q, k, v, o, lse, BH, 1, T, D, (T * D, D), (T * D, D), (T * D, D), scale)
+    return o, lse
 
 
-def attention_packed(qkv, n_heads: int, scale: float):
-    """Packed (B, T, 3C) qkv, as the fused QKV projection lays it out, ->
-    (B, T, C); head h of q, k, v is columns h*d, C + h*d, 2C + h*d."""
-    if qkv.ndim != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % n_heads:
-        raise ValueError(f"attention_packed: qkv {tuple(qkv.shape)} is not "
-                         f"(B, T, 3C) with C divisible by {n_heads} heads")
-    if not use_kernel(qkv):
-        return attention_packed_reference(qkv, n_heads, scale)
+def attention_packed_fwd(qkv, n_heads, scale, want_lse):
+    """(o, lse) on packed qkv: `attention_fwd` on CUDA tensors, with the
+    (B, h, T) fp32 logsumexp for `attention_packed_bwd` when `want_lse`."""
     _check("attention_packed", (qkv,))
     B, T, C3 = qkv.shape
     C = C3 // 3
     _check_head_dim("attention_packed", C // n_heads)
     o = torch.empty((B, T, C), device=qkv.device, dtype=qkv.dtype)
-    k = qkv[..., C:]
-    v = qkv[..., 2 * C:]
-    _launch(qkv, k, v, o, B, n_heads, T, C // n_heads, (T * C3, C3), (T * C3, C3),
-            (T * C, C), scale)
-    return o
+    lse = torch.empty(B, n_heads, T, device=qkv.device) if want_lse else None
+    _launch(qkv, qkv[..., C:], qkv[..., 2 * C:], o, lse, B, n_heads, T, C // n_heads,
+            (T * C3, C3), (T * C3, C3), (T * C, C), scale)
+    return o, lse
+
+
+class _Attention(torch.autograd.Function):
+    """attention on (BH, T, D) with its VJP; the forward's route (kernel or
+    plain) is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        kernel = use_kernel(q)
+        o, lse = _fwd(q, k, v, scale, True) if kernel else (
+            attention_reference(q, k, v, scale), None)
+        ctx.save_for_backward(q, k, v, o if kernel else None, lse)
+        ctx.cfg = (scale, kernel)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, o, lse = ctx.saved_tensors
+        scale, kernel = ctx.cfg
+        if not kernel:
+            return (*attention_bwd_reference(q, k, v, g, scale), None)
+        BH, T, D = q.shape
+        g = g.to(q.dtype).contiguous()
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        _launch_bwd(q, k, v, o, g, lse, dq, dk, dv, BH, 1, T, D, (T * D, D), (T * D, D),
+                    scale)
+        return dq, dk, dv, None
+
+
+class _AttentionPacked(torch.autograd.Function):
+    """attention_packed with its VJP, d(qkv) in the packed layout; the
+    forward's route (kernel or plain) is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, qkv, n_heads, scale):
+        kernel = use_kernel(qkv)
+        o, lse = attention_packed_fwd(qkv, n_heads, scale, True) if kernel else (
+            attention_packed_reference(qkv, n_heads, scale), None)
+        ctx.save_for_backward(qkv, o if kernel else None, lse)
+        ctx.cfg = (n_heads, scale, kernel)
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, o, lse = ctx.saved_tensors
+        n_heads, scale, kernel = ctx.cfg
+        if not kernel:
+            return attention_packed_bwd_reference(qkv, g, n_heads, scale), None, None
+        return attention_packed_bwd(qkv, o, lse, g, n_heads, scale), None, None
+
+
+def attention_packed_bwd(qkv, o, lse, g, n_heads: int, scale: float):
+    """`attention_bwd` on CUDA tensors: d(qkv), packed as qkv, from the
+    forward's output o and logsumexp lse (`attention_packed_fwd`) and the
+    output's gradient g (B, T, C)."""
+    if not qkv.is_cuda or lse is None:
+        raise ValueError("attention_packed_bwd: the kernel takes CUDA tensors and the "
+                         "forward's lse (the plain VJP is attention_packed_bwd_reference)")
+    B, T, C3 = qkv.shape
+    C = C3 // 3
+    g = g.to(qkv.dtype).contiguous()
+    dqkv = torch.empty_like(qkv)
+    _launch_bwd(qkv, qkv[..., C:], qkv[..., 2 * C:], o, g, lse, dqkv, dqkv[..., C:],
+                dqkv[..., 2 * C:], B, n_heads, T, C // n_heads, (T * C3, C3), (T * C, C),
+                scale)
+    return dqkv
+
+
+def attention(q, k, v, scale: float):
+    """(BH, T, D) -> (BH, T, D): the `fused_attention` entry point;
+    differentiable in q, k and v."""
+    if q.ndim != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"attention: q, k, v must share one (BH, T, D) shape, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if _needs_grad(q, k, v):
+        return _Attention.apply(q, k, v, scale)
+    if not use_kernel(q):
+        return attention_reference(q, k, v, scale)
+    return _fwd(q, k, v, scale, False)[0]
+
+
+def attention_packed(qkv, n_heads: int, scale: float):
+    """Packed (B, T, 3C) qkv, as the fused QKV projection lays it out, ->
+    (B, T, C); head h of q, k, v is columns h*d, C + h*d, 2C + h*d.
+    Differentiable in qkv."""
+    if qkv.ndim != 3 or qkv.shape[-1] % 3 or (qkv.shape[-1] // 3) % n_heads:
+        raise ValueError(f"attention_packed: qkv {tuple(qkv.shape)} is not "
+                         f"(B, T, 3C) with C divisible by {n_heads} heads")
+    if _needs_grad(qkv):
+        return _AttentionPacked.apply(qkv, n_heads, scale)
+    if not use_kernel(qkv):
+        return attention_packed_reference(qkv, n_heads, scale)
+    return attention_packed_fwd(qkv, n_heads, scale, False)[0]

@@ -18,6 +18,7 @@ from mcvd_tpu_torch import ops
 from mcvd_tpu_torch.models.layers import num_groups_for
 
 try:
+    import jax
     import jax.numpy as jnp
 
     import mcvd_tpu.ops.lab.groupnorm as jax_gn
@@ -270,8 +271,14 @@ def test_cpu_paths_launch_no_kernel():
     profile_gn2.make_copy(xb.shape)(xb.contiguous())
     profile_gn2.gn_variant(xb, 4, torch.ones(16), torch.zeros(16), torch.zeros(1, 16),
                            torch.zeros(1, 16), hsplit=2)
-    assert set(ops.LAUNCHES) == {"gn_fused", "attention_fwd", "fused_leaky_relu", "gn_copy",
-                                 "gn_variant"}
+    # and both backward passes
+    xg = to_torch_nchw(x).requires_grad_()
+    ops.groupnorm.group_norm(xg, 4, eps=1e-5, act=True).sum().backward()
+    qkv = torch.zeros(1, 4, 3 * 64, requires_grad=True)
+    ops.attention.attention_packed(qkv, 1, 0.125).sum().backward()
+    assert xg.grad is not None and qkv.grad is not None
+    assert set(ops.LAUNCHES) == {"gn_fused", "gn_fused_bwd", "attention_fwd", "attention_bwd",
+                                 "fused_leaky_relu", "gn_copy", "gn_variant"}
     assert all(v == 0 for v in ops.LAUNCHES.values())
 
 
@@ -363,12 +370,199 @@ def test_kernels_refuse_what_they_do_not_take(cuda, dtype):
     with pytest.raises(ValueError, match="supported"):
         ops.attention.attention_packed(torch.zeros(1, 8, 3 * 32, device=cuda, dtype=dtype),
                                        1, 1.0)
-    qkv = torch.zeros(1, 8, 3 * 64, device=cuda, dtype=dtype, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
+    qkv = torch.zeros(1, 8, 3 * 32, device=cuda, dtype=dtype, requires_grad=True)
+    with pytest.raises(ValueError, match="supported"):   # the autograd route checks too
         ops.attention.attention_packed(qkv, 1, 1.0)
     x = torch.zeros(1, 8, 4, 4, device=cuda, dtype=dtype, requires_grad=True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        ops.groupnorm.group_norm(x.contiguous(memory_format=torch.channels_last), 2, eps=1e-5)
+    with pytest.raises(ValueError, match="channels_last"):
+        ops.groupnorm.group_norm(x, 2, eps=1e-5)
     with pytest.raises(ValueError, match="channels_last"):
         ops.groupnorm.group_norm(torch.zeros(1, 8, 4, 4, device=cuda, dtype=dtype), 2,
                                  eps=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The VJPs: the plain backward passes (what CPU tensors take) against jax.vjp
+# of the Pallas entry points in interpret mode and of the lax references.
+# ---------------------------------------------------------------------------
+
+PARAM_NAMES = {"adagn_silu": ("scale", "shift"), "affine": ("gamma", "beta"),
+               "affine_silu": ("gamma", "beta")}
+
+
+def jax_gn_vjp(fn, x, G, kw, g, names):
+    """jax.vjp of fn(x, G, **kw) in x and the named parameters, at cotangent g."""
+    static = {k: v for k, v in kw.items() if k not in names}
+
+    def f(x, *ps):
+        return fn(x, G, **static, **dict(zip(names, ps)))
+
+    _, vjp = jax.vjp(f, jnp.asarray(x), *[jnp.asarray(kw[n]) for n in names])
+    return [np.asarray(t) for t in vjp(jnp.asarray(g))]
+
+
+def port_gn_vjp(x, G, kw, g, names):
+    """The port's gradients of group_norm at cotangent g (NHWC numpy in and
+    out): scale/shift as the two chunks of one (B, 2CN) leaf, as ActNorm
+    passes them."""
+    xt = to_torch_nchw(x).requires_grad_()
+    tkw = {k: v for k, v in kw.items() if k not in names}
+    if names == ("scale", "shift"):
+        ss = torch.from_numpy(np.concatenate([kw["scale"], kw["shift"]], 1)).requires_grad_()
+        tkw["scale"], tkw["shift"] = ss.chunk(2, dim=1)
+        leaves = [ss]
+    else:
+        leaves = [torch.from_numpy(kw[n]).requires_grad_() for n in names]
+        tkw.update(zip(names, leaves))
+    ops.reset_launches()
+    y = ops.groupnorm.group_norm(xt, G, **tkw)
+    grads = torch.autograd.grad(y, [xt, *leaves], grad_outputs=to_torch_nchw(g))
+    assert all(v == 0 for v in ops.LAUNCHES.values())   # the plain versions, on the CPU
+    dx = to_numpy_nhwc(grads[0])
+    assert grads[0].is_contiguous(memory_format=torch.channels_last)
+    if names == ("scale", "shift"):
+        CN = x.shape[-1]
+        return [dx, grads[1][:, :CN].numpy(), grads[1][:, CN:].numpy()]
+    return [dx] + [t.numpy() for t in grads[1:]]
+
+
+# fp32 on both sides with the same closed form (the port's plain backward
+# follows _fgn_bwd line by line; against group_norm_folded, XLA's autodiff of
+# the forward): summation order only. dx is O(1); the parameter gradients sum
+# up to B*H*W*N = 256 terms of O(1), so they take rtol 1e-5 beside atol 1e-5.
+VJP_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("against", ["pallas", "lax"])
+@pytest.mark.parametrize("frames_last", [1, 2])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_group_norm_vjp_matches_jax(form, frames_last, against):
+    C = 16
+    x, kw = gn_inputs(10, 2, 8, C, frames_last, form)
+    g = np.random.RandomState(11).randn(*x.shape).astype(np.float32)
+    G = num_groups_for(C)
+    names = PARAM_NAMES[form]
+    if against == "pallas":
+        def fn(x, G, **k):
+            return jax_gn.fused_group_norm(x, G, interpret=True, **k)
+    else:
+        def fn(x, G, **k):
+            return jax_layers.group_norm_folded(x, G, **k)[0]
+    want = jax_gn_vjp(fn, x, G, kw, g, names)
+    got = port_gn_vjp(x, G, kw, g, names)
+    for name, a, b in zip(("x",) + names, got, want):
+        np.testing.assert_allclose(a, b, **VJP_TOL, err_msg=f"d{name}")
+
+
+# atol 1e-5: fp32 on both sides, p recomputed the same way; the T-term sums
+# run in another order.
+@pytest.mark.parametrize("h,d", [(1, 64), (2, 8), (3, 64)])
+@pytest.mark.parametrize("T", [16, 64])
+def test_attention_packed_vjp_matches_pallas(T, h, d):
+    B, C = 2, h * d
+    q, k, v = attn_inputs(12, (B, T, C))
+    g = np.random.RandomState(13).randn(B, T, C).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: fused_attention_packed(q, k, v, h, d ** -0.5,
+                                                            interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = np.concatenate([np.asarray(t) for t in vjp(jnp.asarray(g))], -1)
+    qkv = torch.from_numpy(np.concatenate([q, k, v], -1)).requires_grad_()
+    ops.reset_launches()
+    out = ops.attention.attention_packed(qkv, h, d ** -0.5)
+    got, = torch.autograd.grad(out, [qkv], grad_outputs=torch.from_numpy(g))
+    assert all(v == 0 for v in ops.LAUNCHES.values())
+    assert got.shape == (B, T, 3 * C)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("T", [16, 64])
+def test_attention_vjp_matches_pallas(T):
+    q, k, v = attn_inputs(14, (3, T, 64))
+    g = np.random.RandomState(15).randn(3, T, 64).astype(np.float32)
+    _, vjp = jax.vjp(lambda q, k, v: fused_attention(q, k, v, 0.125, interpret=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = [np.asarray(t) for t in vjp(jnp.asarray(g))]
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = ops.attention.attention(qt, kt, vt, 0.125)
+    got = torch.autograd.grad(out, [qt, kt, vt], grad_outputs=torch.from_numpy(g))
+    for name, a, b in zip("qkv", got, want):
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=1e-5, err_msg=f"d{name}")
+
+
+def test_forward_saves_nothing_without_grad():
+    """With no input needing a gradient the ops take their forward-only
+    route: no autograd graph on the output."""
+    x, kw = gn_inputs(16, 1, 8, 16, 1, "affine")
+    tkw = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in kw.items()}
+    y = ops.groupnorm.group_norm(to_torch_nchw(x), 4, **tkw)
+    o = ops.attention.attention_packed(torch.zeros(1, 4, 3 * 64), 1, 0.125)
+    assert y.grad_fn is None and o.grad_fn is None
+    tkw["gamma"].requires_grad_()
+    assert ops.groupnorm.group_norm(to_torch_nchw(x), 4, **tkw).grad_fn is not None
+
+
+# On the card: the backward kernels against the plain backward passes. fp32:
+# summation order (1e-4 of the largest gradient; the parameter gradients
+# sum up to B*H*W terms). bf16: both compute in fp32 from the same bf16
+# inputs and round once, so an element differs by at most two bf16 steps
+# (rtol 1.6e-2), beside the fp32 order term.
+def _grad_close(got, want, dtype, what):
+    got, want = got.float(), want.float()
+    big = float(want.abs().max())
+    atol = 1e-4 * max(big, 1.0)
+    rtol = 0.0 if dtype == torch.float32 else 1.6e-2
+    err = (got - want).abs()
+    assert bool((err <= atol + rtol * want.abs()).all()), f"{what}: max err {float(err.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("form", list(FORMS))
+def test_group_norm_bwd_kernel_matches_plain(cuda, form, dtype):
+    GN = ops.groupnorm
+    names = PARAM_NAMES[form]
+    for B, C, H, N in GN_KERNEL_CASES:
+        xt, tkw = _gn_case(cuda, dtype, B, C, H, N, form)
+        xt.requires_grad_()
+        if names == ("scale", "shift"):
+            ss = torch.cat([tkw["scale"], tkw["shift"]], 1).requires_grad_()
+            tkw["scale"], tkw["shift"] = ss.chunk(2, dim=1)
+            leaves = [xt, ss]
+        else:
+            leaves = [xt] + [tkw[n].requires_grad_() for n in names]
+        G = num_groups_for(C)
+        g = torch.randn(xt.shape, device=cuda).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        ops.reset_launches()
+        got = torch.autograd.grad(GN.group_norm(xt, G, **tkw), leaves, grad_outputs=g)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["gn_fused"] == 1 and ops.LAUNCHES["gn_fused_bwd"] == 1
+        with ops.reference_ops():
+            want = torch.autograd.grad(GN.group_norm(xt, G, **tkw), leaves, grad_outputs=g)
+        for i, (a, b) in enumerate(zip(got, want)):
+            _grad_close(a, b, dtype, f"C={C} H={H} N={N} input {i}")
+
+
+# bf16: each gradient is rounded once (2^-8 of its size), and the row term
+# D = rowsum(dO * O) uses the forward's output, whose p the tensor cores
+# rounded to bf16 (2^-8 relative): together within 2^-6 of the largest entry.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_attention_bwd_kernel_matches_plain(cuda, dtype):
+    for T, h in [(64, 4), (100, 2), (256, 3), (1024, 2)]:
+        q, k, v = attn_inputs(8, (2, T, 64 * h))
+        qkv = torch.from_numpy(np.concatenate([q, k, v], -1)).to(cuda, dtype).requires_grad_()
+        g = torch.randn(2, T, 64 * h, device=cuda).to(dtype)
+        ops.reset_launches()
+        got, = torch.autograd.grad(ops.attention.attention_packed(qkv, h, 0.125), [qkv],
+                                   grad_outputs=g)
+        torch.cuda.synchronize()
+        assert ops.LAUNCHES["attention_fwd"] == 1 and ops.LAUNCHES["attention_bwd"] == 1
+        with ops.reference_ops():
+            want, = torch.autograd.grad(ops.attention.attention_packed(qkv, h, 0.125), [qkv],
+                                        grad_outputs=g)
+        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+        for i, part in enumerate("qkv"):
+            a, b = (t[..., i * 64 * h:(i + 1) * 64 * h].float() for t in (got, want))
+            err = float((a - b).abs().max())
+            assert err <= rel * float(b.abs().max()), f"T={T} h={h} d{part}: max err {err}"
