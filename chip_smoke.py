@@ -16,7 +16,8 @@ line each:
                form of one flagship evaluation (read from the model by
                `tools.gn_calls`), with its plan (cluster, blocks, rows,
                threads, shared memory, clusters resident at once);
-               attention at the main path's T and a ragged T, the bf16
+               attention at the main path's T and a ragged T (bf16 on
+               mma.sync m16n8k16, fp32 as 3xTF32 on m16n8k8), the bf16
                route held per element to the bound of rounding p to bf16
                and, tighter, to a plain emulation of its own arithmetic
                (`ops.attention.bf16_tolerances`). Max abs error, median
@@ -45,7 +46,11 @@ line each:
                GroupNorm shape and form of one flagship evaluation (and
                frames_last=2), through autograd with the inputs' and
                parameters' gradients; `attention_bwd` at the main path's
-               (T, heads) and a ragged T. Max abs error, device ms of the
+               (T, heads) and a ragged T, bf16 also per element within
+               `ops.attention.bf16_bwd_tolerances` of the plain backward
+               and, tighter, of `attention_bwd_tc_emulation` on the
+               kernel's own forward, and both dtypes bit-identical over two
+               calls. Max abs error, device ms of the
                kernel alone (from the forward's saved statistics or
                logsumexp) and of the plain backward, the bound, and the
                one PyTorch call for comparison (autograd of `F.group_norm`
@@ -62,7 +67,9 @@ line each:
 
 Then the per-kernel summary line of the seven kernels (with each kernel's
 bound: the larger of its bytes over the HBM rate and its operations over the
-peak rate for its type), the card line, and last {"ok": true, "device":
+peak rate for its type; for fp32 attention the smaller of that on the CUDA
+cores and of three TF32 products per product, the route the kernels take),
+the card line, and last {"ok": true, "device":
 {...}}. Any failed check raises: the exit code is nonzero and the last line
 is not printed.
 """
@@ -97,9 +104,11 @@ STATS_BF16_TOL = (1e-2, 1.6e-2)
 # fused_leaky_relu vs plain: both compute in fp32 and round once.
 ACT_TOL = {"float32": (1e-6, 1e-6), "bfloat16": (0.0, 2 ** -7)}
 # Published H100 SXM peaks (NVIDIA's data sheet): dense FLOP/s of fp32 on
-# the CUDA cores and of bf16 on the tensor cores (the HBM3 rate is the
-# tool's, `profile_gn2.HBM_BYTES_PER_S`).
-PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12}
+# the CUDA cores and of bf16 and TF32 on the tensor cores (the HBM3 rate is
+# the tool's, `profile_gn2.HBM_BYTES_PER_S`).
+PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
+# The attention kernels' routes, by dtype.
+ATTN_PATH = {"bfloat16": "mma.sync m16n8k16 bf16", "float32": "mma.sync m16n8k8 3xTF32"}
 # The flagship block, fp32: 11 evaluations of the 27.9M-parameter network
 # whose sums run in another order; the first steps divide eps by
 # sqrt(alpha) ~ 0.0067 before the x0 clip.
@@ -140,6 +149,15 @@ def bound(nbytes, flops, peak):
 
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[peak]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_bound(nb, flops, dtype_name):
+    """`bound` of an attention kernel: bf16 on the tensor cores; fp32 the
+    smaller of the CUDA cores' fp32 rate and 3xTF32 (three TF32 products for
+    each fp32 product), the route the fp32 kernels take."""
+    if dtype_name == "bfloat16":
+        return bound(nb, flops, "bf16")
+    return min(bound(nb, flops, "fp32"), bound(nb, 3 * flops, "tf32"))
 
 
 def nbytes(*ts):
@@ -318,8 +336,7 @@ def phase_kernels(card):
                 q, k, v = (t.reshape(B, T, h, 64).transpose(1, 2).reshape(B * h, T, 64)
                            .contiguous() for t in qkv.split(h * 64, dim=-1))
                 case = dict(op="attention", B=B, T=T, heads=h, head_dim=64, dtype=dn,
-                            path=("tensor cores, mma.sync m16n8k16 bf16" if dn == "bfloat16"
-                                  else "CUDA cores, fp32 FMA"),
+                            path=ATTN_PATH[dn],
                             max_abs_err=err, max_atol=float(torch.as_tensor(tol[0]).max()),
                             rtol=tol[1])
                 if dn == "bfloat16":   # the kernel's own arithmetic in plain torch
@@ -339,9 +356,8 @@ def phase_kernels(card):
                     case["library_ms"] = device_ms(
                         lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=0.125))
                     flops = 4 * B * h * T * T * 64
-                    case["bound_ms"], case["bound_by"] = bound(
-                        nbytes(qkv) * 4 // 3, flops,
-                        "bf16" if dtype == torch.bfloat16 else "fp32")
+                    case["bound_ms"], case["bound_by"] = attn_bound(
+                        nbytes(qkv) * 4 // 3, flops, dn)
                     case["tflops"] = flops / case["ms"] / 1e9
                 cases.append(case)
     torch.cuda.synchronize()
@@ -669,11 +685,32 @@ def phase_train_kernels(card, summary):
                 err = max(err, e)
             record(summary, "attention_bwd", dn, err)
             case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=64, dtype=dn,
-                        path="CUDA cores, fp32 FMA (dq, then dk and dv)",
+                        path=ATTN_PATH[dn] + " (dq, then dk and dv)",
                         max_abs_err=err, rel_tol=rel, launches_per_call=2)
+            # the kernel alone, from the forward's output and logsumexp: the
+            # same bits twice (no atomics); bf16 per element
+            qd = qkv.detach()
+            o, lse = A.attention_packed_fwd(qd, h, 0.125, True)
+            once = A.attention_packed_bwd(qd, o, lse, dy, h, 0.125)
+            check(torch.equal(once, A.attention_packed_bwd(qd, o, lse, dy, h, 0.125)),
+                  f"attention_bwd T={T} h={h} {dn}: two calls differ")
+            case["deterministic"] = True
+            if dn == "bfloat16":
+                tols = A.bf16_bwd_tolerances(qd, dy, h, 0.125)
+                p_err, p_ok = max_err(once, want, dn, tols["plain"])
+                check(p_ok, f"attention_bwd T={T} h={h} bf16 per element: max err {p_err}")
+                heads = [t.reshape(B, T, h, 64).transpose(1, 2).reshape(B * h, T, 64)
+                         for t in (*qd.split(C, dim=-1), dy, o)]
+                emu = A.attention_bwd_tc_emulation(*heads[:4], 0.125, o=heads[4],
+                                                   lse=lse.reshape(B * h, T))
+                emu = torch.cat([t.reshape(B, h, T, 64).transpose(1, 2).reshape(B, T, C)
+                                 for t in emu], dim=-1)
+                e_err, e_ok = max_err(once, emu, dn, tols["emulation"])
+                check(e_ok, f"attention_bwd T={T} h={h} bf16 vs its emulation: max err {e_err}")
+                case.update(per_element_err=p_err, max_atol=float(tols["plain"][0].max()),
+                            emulation_err=e_err,
+                            emulation_max_atol=float(tols["emulation"][0].max()))
             if (T, h) in ATTN_SHAPES:
-                qd = qkv.detach()
-                o, lse = A.attention_packed_fwd(qd, h, 0.125, True)
                 case["ms"] = device_ms(lambda: A.attention_packed_bwd(qd, o, lse, dy, h, 0.125))
                 case["plain_ms"] = device_ms(
                     lambda: A.attention_packed_bwd_reference(qd, dy, h, 0.125))
@@ -684,9 +721,8 @@ def phase_train_kernels(card, summary):
                 case["library_ms"] = device_ms(lambda: torch.autograd.grad(
                     o4, [q4, k4, v4], dy4, retain_graph=True))
                 flops = 10 * B * h * T * T * 64   # 5 products of 2*T*T*64 per (b, head)
-                case["bound_ms"], case["bound_by"] = bound(
-                    2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops,
-                    "bf16" if dtype == torch.bfloat16 else "fp32")
+                case["bound_ms"], case["bound_by"] = attn_bound(
+                    2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops, dn)
                 case["tflops"] = flops / case["ms"] / 1e9
             cases.append(case)
     torch.cuda.synchronize()

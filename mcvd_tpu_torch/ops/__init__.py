@@ -4,9 +4,10 @@ version (counterpart of `mcvd_tpu/ops`, whose kernels are Pallas for the TPU).
   * `groupnorm`: GroupNorm(+affine)(+AdaGN)(+SiLU) in one launch, `gn_fused`,
     and its VJP `gn_fused_bwd`, CUDA C++ for sm_90a built by `_build` (a
     thread-block cluster per example);
-  * `attention`: softmax attention forward, `attention_fwd` (bf16 on the
-    tensor cores, fp32 on the CUDA cores), and its VJP `attention_bwd` (CUDA
-    cores), CUDA C++ for sm_90a;
+  * `attention`: softmax attention forward, `attention_fwd`, and its VJP
+    `attention_bwd` (two launches, no atomics), CUDA C++ for sm_90a on the
+    tensor cores in both dtypes: bf16 on `mma.sync` m16n8k16, fp32 as
+    3xTF32 on `mma.sync` m16n8k8 (fp32-class, not TF32);
   * `fused_act`: bias + LeakyReLU + scale, the Triton kernel
     `fused_leaky_relu`.
 

@@ -209,14 +209,22 @@ def test_attention_packed_matches_pallas(T, h, d):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
 
 
+def heads_of(t, h):
+    """(B, T, h*d) -> (B*h, T, d)."""
+    B, T, C = t.shape
+    return t.reshape(B, T, h, C // h).transpose(1, 2).reshape(B * h, T, C // h)
+
+
+def packed_of(t, B):
+    """(B*h, T, d) -> (B, T, h*d)."""
+    BH, T, d = t.shape
+    return t.reshape(B, BH // B, T, d).transpose(1, 2).reshape(B, T, BH // B * d)
+
+
 def packed_tc_emulation(qkv, h, scale):
     """`attention_tc_emulation` on the packed (B, T, 3C) layout."""
-    B, T, C3 = qkv.shape
-    C = C3 // 3
-    q, k, v = (t.reshape(B, T, h, C // h).transpose(1, 2).reshape(B * h, T, C // h)
-               for t in qkv.split(C, dim=-1))
-    o = ops.attention.attention_tc_emulation(q, k, v, scale)
-    return o.reshape(B, h, T, C // h).transpose(1, 2).reshape(B, T, C)
+    q, k, v = (heads_of(t, h) for t in qkv.split(qkv.shape[-1] // 3, dim=-1))
+    return packed_of(ops.attention.attention_tc_emulation(q, k, v, scale), qkv.shape[0])
 
 
 # The bf16 kernel's tolerance against a version that keeps p in fp32 (the
@@ -248,6 +256,81 @@ def test_attention_tc_numerics_match(T, against):
     bound = n_rounded * atol.numpy() + rtol * np.abs(want)
     err = np.abs(got.float().numpy() - want)
     assert (err <= bound).all(), f"max err {err.max()}, worst margin {(err / bound).max()}"
+
+
+def jax_packed_vjp(qkv, g, h, scale):
+    """d(qkv) of `fused_attention_packed` (interpret mode) in fp32, packed."""
+    q, k, v = (jnp.asarray(t) for t in np.split(qkv, 3, axis=-1))
+    _, vjp = jax.vjp(lambda q, k, v: fused_attention_packed(q, k, v, h, scale, interpret=True),
+                     q, k, v)
+    return np.concatenate([np.asarray(t) for t in vjp(jnp.asarray(g))], -1)
+
+
+# The bf16 backward kernels' arithmetic (p and ds rounded to bf16 as
+# operands, D from the forward's bf16 output), emulated in torch on bf16
+# inputs, per element within `bf16_bwd_tolerances`: against the plain VJP
+# (both round the gradients once) and against jax.vjp of the Pallas entry
+# point on the same values in fp32 (its gradients are not rounded: one
+# rounding, within the same rtol).
+@pytest.mark.parametrize("against", ["plain", "pallas"])
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("T", [64, 200])
+def test_attention_bwd_tc_numerics_match(T, h, against):
+    B, d = 2, 64
+    scale = d ** -0.5
+    rng = np.random.RandomState(17)
+    qkv = torch.from_numpy(rng.randn(B, T, 3 * h * d).astype(np.float32)).to(torch.bfloat16)
+    g = torch.from_numpy(rng.randn(B, T, h * d).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = (heads_of(t, h) for t in qkv.split(h * d, dim=-1))
+    grads = ops.attention.attention_bwd_tc_emulation(q, k, v, heads_of(g, h), scale)
+    got = torch.cat([packed_of(t, B) for t in grads], -1)
+    assert got.dtype == torch.bfloat16 and got.shape == qkv.shape
+    if against == "plain":
+        want = ops.attention.attention_packed_bwd_reference(qkv, g, h, scale).float().numpy()
+    else:
+        want = jax_packed_vjp(qkv.float().numpy(), g.float().numpy(), h, scale)
+    atol, rtol = ops.attention.bf16_bwd_tolerances(qkv, g, h, scale)["plain"]
+    bound = atol.numpy() + rtol * np.abs(want)
+    err = np.abs(got.float().numpy() - want)
+    assert (err <= bound).all(), f"max err {err.max()}, worst margin {(err / bound).max()}"
+
+
+# 3xTF32 keeps ~21-22 bits of each product: the emulated fp32 kernels'
+# products against the JAX fp32 forward and VJP (highest precision) at the
+# plain versions' atol 1e-5.
+@pytest.mark.parametrize("direction", ["fwd", "vjp"])
+@pytest.mark.parametrize("h", [1, 2])
+@pytest.mark.parametrize("T", [64, 200])
+def test_attention_tf32x3_matches_pallas(T, h, direction):
+    B, d = 2, 64
+    scale = d ** -0.5
+    rng = np.random.RandomState(18)
+    qkv = rng.randn(B, T, 3 * h * d).astype(np.float32)
+    q, k, v = (heads_of(torch.from_numpy(t), h) for t in np.split(qkv, 3, axis=-1))
+    if direction == "fwd":
+        got = packed_of(ops.attention.attention_tf32x3_emulation(q, k, v, scale), B)
+        want = np.asarray(fused_attention_packed(*(jnp.asarray(t) for t in
+                                                   np.split(qkv, 3, axis=-1)), h, scale))
+    else:
+        g = rng.randn(B, T, h * d).astype(np.float32)
+        grads = ops.attention.attention_bwd_tf32x3_emulation(
+            q, k, v, heads_of(torch.from_numpy(g), h), scale)
+        got = torch.cat([packed_of(t, B) for t in grads], -1)
+        want = jax_packed_vjp(qkv, g, h, scale)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("magnitude", [1e-30, 1.0, 3e4])
+def test_tf32_split_reconstructs(magnitude):
+    """hi is a tf32 value (13 low mantissa bits zero), lo too, and hi + lo
+    is x to within 2^-22 relative."""
+    x = torch.from_numpy(np.random.RandomState(19).randn(4096).astype(np.float32)) * magnitude
+    hi, lo = ops.attention.tf32_split(x)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    assert bool((hi - x).abs().le(2.0 ** -11 * x.abs()).all())
+    err = ((hi.double() + lo.double()) - x.double()).abs()
+    assert bool(err.le(2.0 ** -22 * x.double().abs()).all()), float((err / x.abs()).max())
 
 
 def test_reference_ops_restores_on_error():
@@ -373,6 +456,16 @@ def test_kernels_refuse_what_they_do_not_take(cuda, dtype):
     qkv = torch.zeros(1, 8, 3 * 32, device=cuda, dtype=dtype, requires_grad=True)
     with pytest.raises(ValueError, match="supported"):   # the autograd route checks too
         ops.attention.attention_packed(qkv, 1, 1.0)
+    # the kernels copy 16-byte chunks: a contiguous qkv one element off a
+    # 16-byte boundary is refused, with and without autograd
+    flat = torch.zeros(8 * 3 * 64 + 1, device=cuda, dtype=dtype)
+    odd = flat[1:].view(1, 8, 3 * 64)
+    assert odd.is_contiguous() and odd.data_ptr() % 16
+    with pytest.raises(ValueError, match="aligned"):
+        ops.attention.attention_packed(odd, 1, 0.125)
+    leaf = flat.clone().requires_grad_()
+    with pytest.raises(ValueError, match="aligned"):
+        ops.attention.attention_packed(leaf[1:].view(1, 8, 3 * 64), 1, 0.125)
     x = torch.zeros(1, 8, 4, 4, device=cuda, dtype=dtype, requires_grad=True)
     with pytest.raises(ValueError, match="channels_last"):
         ops.groupnorm.group_norm(x, 2, eps=1e-5)
@@ -566,3 +659,14 @@ def test_attention_bwd_kernel_matches_plain(cuda, dtype):
             a, b = (t[..., i * 64 * h:(i + 1) * 64 * h].float() for t in (got, want))
             err = float((a - b).abs().max())
             assert err <= rel * float(b.abs().max()), f"T={T} h={h} d{part}: max err {err}"
+        # no atomics: the kernel alone gives the same bits twice
+        qd = qkv.detach()
+        o, lse = ops.attention.attention_packed_fwd(qd, h, 0.125, True)
+        once = ops.attention.attention_packed_bwd(qd, o, lse, g, h, 0.125)
+        assert torch.equal(once, ops.attention.attention_packed_bwd(qd, o, lse, g, h, 0.125))
+        assert torch.equal(once, got)
+        if dtype == torch.bfloat16:   # per element, as chip_smoke
+            atol, rtol = ops.attention.bf16_bwd_tolerances(qd, g, h, 0.125)["plain"]
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= atol + rtol * want.float().abs()).all()), \
+                f"T={T} h={h}: per-element max err {float(err.max())}"
