@@ -16,8 +16,10 @@ line each:
                form of one flagship evaluation (read from the model by
                `tools.gn_calls`), with its plan (cluster, blocks, rows,
                threads, shared memory, clusters resident at once);
-               attention at the main path's T and a ragged T (bf16 on
-               mma.sync m16n8k16, fp32 as 3xTF32 on m16n8k8), the bf16
+               attention at the main path's T and a ragged T, and at the
+               head dims 96 and 128 of the shipped configs with wider heads
+               (`WIDE_ATTN_CASES`) (bf16 on mma.sync m16n8k16, fp32 as
+               3xTF32 on m16n8k8), the bf16
                route held per element to the bound of rounding p to bf16
                and, tighter, to a plain emulation of its own arithmetic
                (`ops.attention.bf16_tolerances`). Max abs error, median
@@ -36,7 +38,8 @@ line each:
                launch counts: device ms and host us per call of each line;
   5. slice     one flagship block (ngf=64, 10 steps + denoise, B=4, fp32)
                through the kernels and under `ops.reference_ops()`, same
-               weights and draws; the parameter count;
+               weights (passed to the sampler per call) and draws; the
+               parameter count;
   6. headline  the bench protocol: B=16, 100-step DDPM + denoise, 16 frames
                of 64x64 predicted in 4 blocks of 5 on 5 cond frames, bf16
                score network; one warm-up, 3 timed requests, frames/s, and
@@ -45,8 +48,9 @@ line each:
                fp32 (TF32 off) and bf16 at B=16: `gn_fused_bwd` at every
                GroupNorm shape and form of one flagship evaluation (and
                frames_last=2), through autograd with the inputs' and
-               parameters' gradients; `attention_bwd` at the main path's
-               (T, heads) and a ragged T, bf16 also per element within
+               parameters' gradients, at C=192 64x64 also with L2 flushed
+               before each call (`cold_ms`); `attention_bwd` at every
+               attention case of phase 3, bf16 also per element within
                `ops.attention.bf16_bwd_tolerances` of the plain backward
                and, tighter, of `attention_bwd_tc_emulation` on the
                kernel's own forward, and both dtypes bit-identical over two
@@ -61,7 +65,14 @@ line each:
                gradient (through Adam's first moment), the updated
                parameters and the EMA, and exact launch counts (67 GroupNorm
                and 10 attention calls, forward and backward);
-  9. train_headline  the yml's training config at full width, B=64, fp32 and
+  9. wide_heads  bair_big (D=96, 64 px) and cityscapes_big (D=128, 128 px)
+               at full width, random weights from a seed (zero-scale layers
+               redrawn): one fp32 network evaluation (B=4) and one fp32
+               training step (B=4) through the kernels against
+               `ops.reference_ops()` at train_slice's tolerances, with
+               exact launch counts (the model's GroupNorm and attention
+               calls) and the JAX init's parameter count;
+ 10. train_headline  the yml's training config at full width, B=64, fp32 and
                then bf16 compute: one warm-up step, 5 timed steps, ms per
                step, clips/s, peak memory and the launch counts per step.
 
@@ -86,6 +97,16 @@ import torch.nn.functional as F
 
 FLAGSHIP_PARAM_COUNT = 27_941_765   # jax.eval_shape of the JAX flagship init
 ATTN_SHAPES = [(1024, 2), (256, 3), (64, 4)]             # (T, heads), D=64, B=16
+# (T, heads, head dim) of the attention in the shipped configs with wider
+# heads, at 32, 16 and 8 px: bair_big and kth64_big (D=96, 2/3/4 heads),
+# ucf101 (D=96, 4/6/8 heads), cityscapes_big (D=128, 2/3/4 heads).
+WIDE_ATTN_CASES = [(1024, 2, 96), (256, 3, 96), (64, 4, 96), (1024, 4, 96), (256, 6, 96),
+                   (64, 8, 96), (1024, 2, 128), (256, 3, 128), (64, 4, 128)]
+# Every attention case: the main path's, a ragged T, and the wider heads.
+ATTN_CASES = [(T, h, 64) for T, h in ATTN_SHAPES] + [(100, 2, 64)] + WIDE_ATTN_CASES
+# The full-width configs with wider heads (`wide_heads` phase): name ->
+# (head dim, parameter count of jax.eval_shape of the JAX init).
+WIDE_CONFIGS = {"bair_big": (96, 62_844_975), "cityscapes_big": (128, 116_551_695)}
 GN_FORMS = {  # name: (eps, affine, adagn, act)
     "adagn_silu": (1e-5, False, True, True),
     "affine": (1e-6, True, False, False),
@@ -317,45 +338,46 @@ def phase_kernels(card):
                             gn_eval[k] += case["calls_per_eval"] * case[k]
                 cases.append(case)
 
-    attn_shapes = ATTN_SHAPES + [(100, 2)]   # and a ragged T
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
-            for T, h in attn_shapes:
-                qkv = torch.randn(B, T, 3 * h * 64, generator=g, device=dev).to(dtype)
-                got = A.attention_packed(qkv, h, 0.125)
+            for T, h, d in ATTN_CASES:
+                scale = d ** -0.5
+                qkv = torch.randn(B, T, 3 * h * d, generator=g, device=dev).to(dtype)
+                got = A.attention_packed(qkv, h, scale)
                 with ops.reference_ops():
-                    want = A.attention_packed(qkv, h, 0.125)
-                tols = (A.bf16_tolerances(qkv, h, 0.125) if dn == "bfloat16"
+                    want = A.attention_packed(qkv, h, scale)
+                tols = (A.bf16_tolerances(qkv, h, scale) if dn == "bfloat16"
                         else {"plain": TOL[dn]})
                 tol = tols["plain"]
                 err, ok = max_err(got, want, dn, tol)
-                check(ok, f"attention T={T} h={h} {dn}: max err {err}")
+                check(ok, f"attention T={T} h={h} D={d} {dn}: max err {err}")
                 record(summary, "attention_fwd", dn, err)
-                # (B*h, T, 64) views of q, k, v, made before timing
-                q, k, v = (t.reshape(B, T, h, 64).transpose(1, 2).reshape(B * h, T, 64)
-                           .contiguous() for t in qkv.split(h * 64, dim=-1))
-                case = dict(op="attention", B=B, T=T, heads=h, head_dim=64, dtype=dn,
+                # (B*h, T, d) views of q, k, v, made before timing
+                q, k, v = (t.reshape(B, T, h, d).transpose(1, 2).reshape(B * h, T, d)
+                           .contiguous() for t in qkv.split(h * d, dim=-1))
+                case = dict(op="attention", B=B, T=T, heads=h, head_dim=d, dtype=dn,
                             path=ATTN_PATH[dn],
                             max_abs_err=err, max_atol=float(torch.as_tensor(tol[0]).max()),
                             rtol=tol[1])
                 if dn == "bfloat16":   # the kernel's own arithmetic in plain torch
-                    emu = A.attention_tc_emulation(q, k, v, 0.125)
-                    emu = emu.reshape(B, h, T, 64).transpose(1, 2).reshape(B, T, h * 64)
+                    emu = A.attention_tc_emulation(q, k, v, scale)
+                    emu = emu.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, h * d)
                     e_err, e_ok = max_err(got, emu, dn, tols["emulation"])
-                    check(e_ok, f"attention T={T} h={h} bf16 vs its emulation: max err {e_err}")
+                    check(e_ok, f"attention T={T} h={h} D={d} bf16 vs its emulation: "
+                                f"max err {e_err}")
                     case.update(emulation_err=e_err,
                                 emulation_max_atol=float(tols["emulation"][0].max()),
                                 emulation_rtol=tols["emulation"][1])
-                if (T, h) in ATTN_SHAPES:
-                    case["ms"] = device_ms(lambda: A.attention_packed(qkv, h, 0.125))
+                if T != 100:   # every case but the ragged T is timed
+                    case["ms"] = device_ms(lambda: A.attention_packed(qkv, h, scale))
                     case["plain_ms"] = device_ms(
-                        lambda: A.attention_packed_reference(qkv, h, 0.125))
+                        lambda: A.attention_packed_reference(qkv, h, scale))
                     # the one PyTorch call, on (B, h, T, D)
-                    q4, k4, v4 = (t.view(B, h, T, 64) for t in (q, k, v))
+                    q4, k4, v4 = (t.view(B, h, T, d) for t in (q, k, v))
                     case["library_ms"] = device_ms(
-                        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=0.125))
-                    flops = 4 * B * h * T * T * 64
+                        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+                    flops = 4 * B * h * T * T * d
                     case["bound_ms"], case["bound_by"] = attn_bound(
                         nbytes(qkv) * 4 // 3, flops, dn)
                     case["tflops"] = flops / case["ms"] / 1e9
@@ -503,13 +525,14 @@ def phase_slice(card):
                     cond.permute(0, 3, 1, 2))
     eps_std = float(eps.float().std())
     check(eps_std > 0.05, f"eps std {eps_std}: the network output is degenerate")
+    params = dict(model.named_parameters())
     ops.reset_launches()
-    got = block(init, cond, step_noise=step_noise)
+    got = block(params, init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     check_launches(launches, {"gn_fused": 67 * 11, "attention_fwd": 10 * 11}, "slice")
     with ops.reference_ops():
-        want = block(init, cond, step_noise=step_noise)
+        want = block(params, init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
     diff = float((got - want).abs().max())
     check(bool(torch.isfinite(got).all()) and got.shape == (B, sz, sz, 5),
@@ -537,6 +560,7 @@ def phase_headline(card):
     model = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
     sched = make_schedule(config)
     block = make_block_sampler(config, model, sched)
+    params = dict(model.named_parameters())
     sz, F = config.data.image_size, config.data.num_frames
     n_blocks = ceil(n_pred / F)
     evals = n_blocks * (config.sampling.subsample + 1)
@@ -546,7 +570,8 @@ def phase_headline(card):
     def request():
         ops.reset_launches()
         t0 = time.perf_counter()
-        out = autoregressive_predict(config, block, cond, None, n_pred, 0, sched, generator=g)
+        out = autoregressive_predict(config, block, params, cond, None, n_pred, 0, sched,
+                                     generator=g)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0, dict(ops.LAUNCHES)
 
@@ -590,6 +615,7 @@ def phase_train_kernels(card, summary):
     from mcvd_tpu_torch.ops import groupnorm as GN
     from mcvd_tpu_torch.tools.gn_calls import form, group_norm_calls
     from mcvd_tpu_torch.tools.profile_gn2 import device_ms
+    from mcvd_tpu_torch.tools.profile_gn_bwd import cold_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -635,18 +661,36 @@ def phase_train_kernels(card, summary):
                 e, ok = grad_err(a, b, dn)
                 check(ok, f"gn_fused_bwd {fm} C={C} H={H} N={N} {dn} input {i}: max err {e}")
                 err = max(err, e)
-            record(summary, "gn_fused_bwd", dn, err)
             # the backward alone, from the forward's saved statistics
             xd = x.detach()
             pd = {k: None if v is None else v.detach() for k, v in prm.items()}
             _, stats = GN.group_norm_fwd(xd, G, eps, pd["gamma"], pd["beta"], pd["scale"],
                                          pd["shift"], N, act, want_stats=True)
             args = (xd, dy, stats, G, pd["gamma"], pd["beta"], pd["scale"], pd["shift"], N, act)
+            # both routes (cluster, split) and the plan bwd_plan picks: the
+            # plain backward's gradients, the same bits over two calls
+            picked = GN.bwd_plan(B, CN, H, H, dtype, G, N, affine)
+            for p in {picked, *GN.bwd_plans(B, CN, H, H, dtype, G, N)}:
+                route = "split" if p.split else "cluster"
+                once = GN.group_norm_bwd(*args, p=p)
+                check(all(torch.equal(a, b) for a, b in
+                          zip(once, GN.group_norm_bwd(*args, p=p)) if a is not None),
+                      f"gn_fused_bwd {route} {fm} C={C} H={H} N={N} {dn}: two calls differ")
+                mine = [once[0]] + ([torch.cat(once[3:], dim=1)] if adagn else list(once[1:3]))
+                for i, (a, b) in enumerate(zip(mine, want)):
+                    e, ok = grad_err(a, b, dn)
+                    check(ok, f"gn_fused_bwd {route} {fm} C={C} H={H} N={N} {dn} input {i}: "
+                              f"max err {e}")
+                    err = max(err, e)
+            record(summary, "gn_fused_bwd", dn, err)
             case = dict(op="group_norm_bwd", form=fm, B=B, C=C, H=H, frames_last=N, dtype=dn,
-                        max_abs_err=err, launches_per_call=2 if affine else 1,
+                        max_abs_err=err, route="split" if picked.split else "cluster",
+                        launches_per_call=2 if picked.split or affine else 1,
                         calls_per_step=per_eval.get((C, H, fm), 0) if N == 1 else 0)
             case["ms"] = device_ms(lambda: GN.group_norm_bwd(*args))
             gn_step[dn] += case["calls_per_step"] * case["ms"]
+            if (C, H) == (192, 64):   # and with L2 flushed before each call
+                case["cold_ms"] = cold_ms(lambda: GN.group_norm_bwd(*args))
             if dn == "bfloat16" or (C, H) == (192, 64):
                 case["plain_ms"] = device_ms(lambda: GN.group_norm_bwd_reference(
                     xd, dy, G, eps=eps, frames_last=N, act=act, **pd))
@@ -663,17 +707,17 @@ def phase_train_kernels(card, summary):
 
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for T, h in ATTN_SHAPES + [(100, 2)]:   # and a ragged T
-            C = h * 64
+        for T, h, d in ATTN_CASES:
+            C, scale = h * d, d ** -0.5
             qkv = torch.randn(B, T, 3 * C, generator=g, device=dev).to(dtype).requires_grad_()
             dy = torch.randn(B, T, C, generator=g, device=dev).to(dtype)
             before = dict(ops.LAUNCHES)
-            got, = torch.autograd.grad(A.attention_packed(qkv, h, 0.125), [qkv], dy)
+            got, = torch.autograd.grad(A.attention_packed(qkv, h, scale), [qkv], dy)
             check(ops.LAUNCHES["attention_fwd"] == before["attention_fwd"] + 1 and
                   ops.LAUNCHES["attention_bwd"] == before["attention_bwd"] + 1,
                   "attention_packed's backward did not run attention_bwd")
             with ops.reference_ops():
-                want, = torch.autograd.grad(A.attention_packed(qkv, h, 0.125), [qkv], dy)
+                want, = torch.autograd.grad(A.attention_packed(qkv, h, scale), [qkv], dy)
             rel = ATTN_BWD_REL[dn]
             err = 0.0
             for i, part in enumerate("qkv"):
@@ -681,46 +725,48 @@ def phase_train_kernels(card, summary):
                 check(bool(torch.isfinite(a).all()), "non-finite attention gradient")
                 e = float((a - b).abs().max())
                 check(e <= rel * float(b.abs().max()),
-                      f"attention_bwd T={T} h={h} {dn} d{part}: max err {e}")
+                      f"attention_bwd T={T} h={h} D={d} {dn} d{part}: max err {e}")
                 err = max(err, e)
             record(summary, "attention_bwd", dn, err)
-            case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=64, dtype=dn,
+            case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=d, dtype=dn,
                         path=ATTN_PATH[dn] + " (dq, then dk and dv)",
                         max_abs_err=err, rel_tol=rel, launches_per_call=2)
             # the kernel alone, from the forward's output and logsumexp: the
             # same bits twice (no atomics); bf16 per element
             qd = qkv.detach()
-            o, lse = A.attention_packed_fwd(qd, h, 0.125, True)
-            once = A.attention_packed_bwd(qd, o, lse, dy, h, 0.125)
-            check(torch.equal(once, A.attention_packed_bwd(qd, o, lse, dy, h, 0.125)),
-                  f"attention_bwd T={T} h={h} {dn}: two calls differ")
+            o, lse = A.attention_packed_fwd(qd, h, scale, True)
+            once = A.attention_packed_bwd(qd, o, lse, dy, h, scale)
+            check(torch.equal(once, A.attention_packed_bwd(qd, o, lse, dy, h, scale)),
+                  f"attention_bwd T={T} h={h} D={d} {dn}: two calls differ")
             case["deterministic"] = True
             if dn == "bfloat16":
-                tols = A.bf16_bwd_tolerances(qd, dy, h, 0.125)
+                tols = A.bf16_bwd_tolerances(qd, dy, h, scale)
                 p_err, p_ok = max_err(once, want, dn, tols["plain"])
-                check(p_ok, f"attention_bwd T={T} h={h} bf16 per element: max err {p_err}")
-                heads = [t.reshape(B, T, h, 64).transpose(1, 2).reshape(B * h, T, 64)
+                check(p_ok, f"attention_bwd T={T} h={h} D={d} bf16 per element: "
+                            f"max err {p_err}")
+                heads = [t.reshape(B, T, h, d).transpose(1, 2).reshape(B * h, T, d)
                          for t in (*qd.split(C, dim=-1), dy, o)]
-                emu = A.attention_bwd_tc_emulation(*heads[:4], 0.125, o=heads[4],
+                emu = A.attention_bwd_tc_emulation(*heads[:4], scale, o=heads[4],
                                                    lse=lse.reshape(B * h, T))
-                emu = torch.cat([t.reshape(B, h, T, 64).transpose(1, 2).reshape(B, T, C)
+                emu = torch.cat([t.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, C)
                                  for t in emu], dim=-1)
                 e_err, e_ok = max_err(once, emu, dn, tols["emulation"])
-                check(e_ok, f"attention_bwd T={T} h={h} bf16 vs its emulation: max err {e_err}")
+                check(e_ok, f"attention_bwd T={T} h={h} D={d} bf16 vs its emulation: "
+                            f"max err {e_err}")
                 case.update(per_element_err=p_err, max_atol=float(tols["plain"][0].max()),
                             emulation_err=e_err,
                             emulation_max_atol=float(tols["emulation"][0].max()))
-            if (T, h) in ATTN_SHAPES:
-                case["ms"] = device_ms(lambda: A.attention_packed_bwd(qd, o, lse, dy, h, 0.125))
+            if T != 100:   # every case but the ragged T is timed
+                case["ms"] = device_ms(lambda: A.attention_packed_bwd(qd, o, lse, dy, h, scale))
                 case["plain_ms"] = device_ms(
-                    lambda: A.attention_packed_bwd_reference(qd, dy, h, 0.125))
-                q4, k4, v4 = (t.reshape(B, T, h, 64).transpose(1, 2).contiguous()
+                    lambda: A.attention_packed_bwd_reference(qd, dy, h, scale))
+                q4, k4, v4 = (t.reshape(B, T, h, d).transpose(1, 2).contiguous()
                               .requires_grad_() for t in qd.split(C, dim=-1))
-                o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=0.125)
-                dy4 = dy.reshape(B, T, h, 64).transpose(1, 2)
+                o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+                dy4 = dy.reshape(B, T, h, d).transpose(1, 2)
                 case["library_ms"] = device_ms(lambda: torch.autograd.grad(
                     o4, [q4, k4, v4], dy4, retain_graph=True))
-                flops = 10 * B * h * T * T * 64   # 5 products of 2*T*T*64 per (b, head)
+                flops = 10 * B * h * T * T * d   # 5 products of 2*T*T*d per (b, head)
                 case["bound_ms"], case["bound_by"] = attn_bound(
                     2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops, dn)
                 case["tflops"] = flops / case["ms"] / 1e9
@@ -744,30 +790,36 @@ def _slice_model(config, seed):
     return model
 
 
-def phase_train_slice(card):
+def train_step_vs_plain(config, seed, B, want_launches, what):
+    """One fp32 training step of `config`'s model (zero-scale layers redrawn,
+    dropout 0, warmup 0) through the kernels and under `ops.reference_ops()`
+    from the same weights and draws: loss, grad_norm, every gradient
+    (through Adam's first moment), the updated parameters and the EMA held
+    to the train tolerances, and the kernels' exact launch counts. Returns
+    the phase's payload."""
     import contextlib
 
     from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.config import flagship_config
     from mcvd_tpu_torch.diffusion import make_schedule
     from mcvd_tpu_torch.train import create_train_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config = flagship_config()
     config.model.dropout = 0.0
     config.optim.warmup = 0   # with warmup the first update is exactly zero
     lr = config.optim.lr
-    model = _slice_model(config, 10)
+    model = _slice_model(config, seed)
     n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == FLAGSHIP_PARAM_COUNT, f"{n_params} params, JAX has {FLAGSHIP_PARAM_COUNT}")
     weights = {k: v.clone() for k, v in model.state_dict().items()}
     sched = make_schedule(config)
-    B, sz = 4, config.data.image_size
-    g = torch.Generator(device="cuda").manual_seed(12)
-    X = torch.rand(B, 10, sz, sz, 1, generator=g, device="cuda")
+    d = config.data
+    sz = d.image_size
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    X = torch.rand(B, d.num_frames_cond + d.num_frames, sz, sz, d.channels, generator=g,
+                   device="cuda")
     draws = {"labels": torch.randint(0, len(sched.alphas), (B,), generator=g, device="cuda"),
-             "z": torch.randn(B, sz, sz, 5, generator=g, device="cuda").permute(0, 3, 1, 2)}
+             "z": torch.randn(B, sz, sz, d.channels * d.num_frames, generator=g,
+                              device="cuda").permute(0, 3, 1, 2)}
 
     def run(reference):
         model.load_state_dict(weights)
@@ -785,12 +837,12 @@ def phase_train_slice(card):
         return snap, {k: float(v) for k, v in m.items()}, launches
 
     got, mk, launches = run(False)
-    check_launches(launches, TRAIN_LAUNCHES, "train_slice step")
+    check_launches(launches, want_launches, f"{what} step")
     want, mr, ref_launches = run(True)
-    check_launches(ref_launches, {}, "train_slice step under reference_ops")
+    check_launches(ref_launches, {}, f"{what} step under reference_ops")
     for k in ("loss", "grad_norm"):
         check(abs(mk[k] - mr[k]) <= TRAIN_RTOL * abs(mr[k]),
-              f"train_slice {k}: kernels {mk[k]}, plain {mr[k]}")
+              f"{what} {k}: kernels {mk[k]}, plain {mr[k]}")
     # gradients: mu after the first step is 0.1 * the clipped gradient
     gmax = max(float(t.abs().max()) for t in want["mu"].values()) / 0.1
     worst = {"grad": 0.0, "nu": 0.0, "param_over_tol": 0.0, "ema": 0.0}
@@ -799,20 +851,90 @@ def phase_train_slice(card):
                                  ("nu", 2 * TRAIN_GRAD_REL, 1e-3 * (1e-6 * gmax) ** 2)):
             a, b = got[slot][n], want[slot][n]
             e = float((a - b).abs().max()) / max(float(b.abs().max()), floor)
-            check(e <= rel, f"train_slice {slot} {n}: error {e} of its largest entry")
+            check(e <= rel, f"{what} {slot} {n}: error {e} of its largest entry")
             worst["grad" if slot == "mu" else "nu"] = max(worst["grad" if slot == "mu"
                                                                 else "nu"], e)
         mu = want["mu"][n]
         atol = torch.where(mu.abs() < 1e-2 * float(mu.abs().max()), 2 * lr, 0.1 * lr)
         e = float(((got["params"][n] - want["params"][n]).abs() / atol).max())
-        check(e <= 1.0, f"train_slice param {n}: {e} of its tolerance")
+        check(e <= 1.0, f"{what} param {n}: {e} of its tolerance")
         ema_e = float(((got["ema"][n] - want["ema"][n]).abs() / (1e-3 * atol + 1e-6)).max())
-        check(ema_e <= 1.0, f"train_slice ema {n}: {ema_e} of its tolerance")
+        check(ema_e <= 1.0, f"{what} ema {n}: {ema_e} of its tolerance")
         worst["param_over_tol"] = max(worst["param_over_tol"], e)
         worst["ema"] = max(worst["ema"], ema_e)
-    emit("train_slice", card=card, B=B, dtype="float32", params=n_params, lr=lr,
-         kernels=mk, plain=mr, loss_rtol=TRAIN_RTOL, grad_rel=TRAIN_GRAD_REL, worst=worst,
-         launches=launches)
+    return dict(B=B, dtype="float32", params=n_params, lr=lr, kernels=mk, plain=mr,
+                loss_rtol=TRAIN_RTOL, grad_rel=TRAIN_GRAD_REL, worst=worst, launches=launches)
+
+
+def phase_train_slice(card):
+    from mcvd_tpu_torch.config import flagship_config
+
+    out = train_step_vs_plain(flagship_config(), 10, 4, TRAIN_LAUNCHES, "train_slice")
+    check(out["params"] == FLAGSHIP_PARAM_COUNT,
+          f"{out['params']} params, JAX has {FLAGSHIP_PARAM_COUNT}")
+    emit("train_slice", card=card, **out)
+
+
+def phase_wide_heads(card):
+    """bair_big (D=96, 64 px) and cityscapes_big (D=128, 128 px) at full
+    width, random weights from a seed: one fp32 network evaluation and one
+    fp32 training step (B=4) through the kernels against `reference_ops()`,
+    with exact launch counts (the model's GroupNorm and attention calls)."""
+    from mcvd_tpu_torch import config as port_config
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.models.blocks import AttnBlock
+    from mcvd_tpu_torch.tools.gn_calls import group_norm_calls
+
+    launches = {}
+    for name, (head_dim, n_jax) in WIDE_CONFIGS.items():
+        config = getattr(port_config, f"{name}_config")()
+        B = 4
+        n_gn = len(group_norm_calls(config, batch=B))
+        model = _slice_model(config, 20)
+        attn = [m for m in model.modules() if isinstance(m, AttnBlock)]
+        n_attn = len(attn)
+        dims = {m.NIN_0.W.shape[0] // m.n_heads for m in attn}
+        check(dims == {head_dim}, f"{name}: attention head dims {dims}, want {head_dim}")
+        n_params = sum(p.numel() for p in model.parameters())
+        check(n_params == n_jax, f"{name}: {n_params} params, JAX has {n_jax}")
+        d = config.data
+        sz = d.image_size
+        g = torch.Generator(device="cuda").manual_seed(21)
+        x = torch.randn(B, sz, sz, d.channels * d.num_frames, generator=g, device="cuda")
+        cond = torch.rand(B, sz, sz, d.channels * d.num_frames_cond, generator=g,
+                          device="cuda") * 2 - 1
+        t = torch.randint(0, config.model.num_classes, (B,), generator=g, device="cuda")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        model.eval()
+        with torch.inference_mode():
+            ops.reset_launches()
+            got = model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
+            torch.cuda.synchronize()
+            eval_launches = dict(ops.LAUNCHES)
+            check_launches(eval_launches, {"gn_fused": n_gn, "attention_fwd": n_attn},
+                           f"{name} evaluation")
+            with ops.reference_ops():
+                want = model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"{name} evaluation output {tuple(got.shape)} not finite")
+        big = float(want.abs().max())
+        diff = float((got - want).abs().max())
+        check(diff <= TRAIN_GRAD_REL * big,
+              f"{name} evaluation: kernels vs plain max abs diff {diff}, largest {big}")
+        del model
+        torch.cuda.empty_cache()
+        want_launches = {"gn_fused": n_gn, "gn_fused_bwd": n_gn, "attention_fwd": n_attn,
+                         "attention_bwd": n_attn}
+        step = train_step_vs_plain(config, 20, B, want_launches, name)
+        launches[name] = step["launches"]
+        emit("wide_heads", card=card, config=name, head_dim=head_dim, image_size=sz,
+             heads=sorted({m.n_heads for m in attn}), params=n_params,
+             eval=dict(B=B, dtype="float32", max_abs_diff=diff, largest=big,
+                       rel_tol=TRAIN_GRAD_REL, launches=eval_launches),
+             train_step=step)
+        torch.cuda.empty_cache()
+    return launches
 
 
 def phase_train_headline(card):
@@ -878,6 +1000,7 @@ def main():
     launches = phase_headline(card)
     train_cases = phase_train_kernels(card, summary)
     phase_train_slice(card)
+    phase_wide_heads(card)
     train_launches = phase_train_headline(card)
     check("jax" not in sys.modules, "jax was imported")
 
@@ -886,7 +1009,7 @@ def main():
     gn_big = next(c for c in cases if c["op"] == "group_norm" and c["dtype"] == "bfloat16"
                   and (c["C"], c["H"], c["form"]) == (192, 64, "adagn_silu"))
     attn_big = next(c for c in cases if c["op"] == "attention" and c["dtype"] == "bfloat16"
-                    and c["T"] == 1024)
+                    and (c["T"], c["head_dim"]) == (1024, 64))
     timing["gn_fused"] = dict(ms=gn_big["ms"], plain_ms=gn_big["plain_ms"],
                               library_ms=None,   # no one call does GroupNorm + AdaGN + SiLU
                               bound=(gn_big["bound_ms"], gn_big["bound_by"]),
@@ -896,8 +1019,8 @@ def main():
                                    bound=(attn_big["bound_ms"], attn_big["bound_by"]))
     # the backward kernels at the same shapes, in the training config's fp32
     for name, op, key in (("gn_fused_bwd", "group_norm_bwd", ("C", "H", "form")),
-                          ("attention_bwd", "attention_bwd", ("T",))):
-        want = (192, 64, "adagn_silu") if name == "gn_fused_bwd" else (1024,)
+                          ("attention_bwd", "attention_bwd", ("T", "head_dim"))):
+        want = (192, 64, "adagn_silu") if name == "gn_fused_bwd" else (1024, 64)
         c = next(c for c in train_cases if c["op"] == op and c["dtype"] == "float32"
                  and tuple(c[k] for k in key) == want)
         timing[name] = dict(ms=c["ms"], plain_ms=c["plain_ms"], library_ms=c["library_ms"],

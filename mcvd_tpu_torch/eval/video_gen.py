@@ -18,6 +18,7 @@ from math import ceil
 from typing import Optional, Sequence
 
 import torch
+from torch.func import functional_call
 
 from ..data.transforms import data_transform
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -28,15 +29,27 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 
 
 def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule):
-    """One reverse-diffusion block: block(init, cond, cond_mask=None, *,
-    generator=None, inj_noise=None, step_noise=None) -> (B, H, W, F*C).
+    """One reverse-diffusion block: block(params, init, cond, cond_mask=None,
+    *, generator=None, inj_noise=None, step_noise=None) -> (B, H, W, F*C),
+    the JAX sampler's `block(params, key, init, cond, cond_mask)` less the
+    key.
+
+    `params` is a state dict (name -> tensor) of `model`, for example
+    `dict(model.named_parameters())` or `model.state_dict()`, taken at each
+    call: the network runs through `torch.func.functional_call` on a copy of
+    `model` that the sampler holds in eval mode (dropout off) under
+    torch.inference_mode(), so one sampler serves every snapshot of the
+    weights and neither building nor calling it touches `model` or its
+    `training` flag. Names missing from `params` (the schedule buffers, say)
+    come from that copy.
 
     `sampling.compute_dtype: bfloat16` runs the score network in bf16 (its
     weights, the input, cond and the timestep embedding) while the chain
-    math (x0 clip, posterior mean, noise add) stays fp32. The sampler then
-    holds a bf16 copy of the model's weights, made here. The network runs in
-    eval mode (dropout off) under torch.inference_mode(). The ensemble mode
-    is not ported yet (ROADMAP Queue 1 item 5)."""
+    math (x0 clip, posterior mean, noise add) stays fp32. The weights are
+    cast at each call; a cast is reused while its source is the same tensor
+    object at the same `_version`, so an in-place update of a weight (an
+    optimizer step) is seen at the next call. The ensemble mode is not
+    ported yet (ROADMAP Queue 1 item 5)."""
     version = getattr(config.model, "version", "DDPM").upper()
     sampler = samplers_mod.get_sampler(version)
     sampling = config.sampling
@@ -49,18 +62,26 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule)
         gamma=getattr(config.model, "gamma", False),
     )
     comp_dtype = _DTYPES[getattr(sampling, "compute_dtype", "float32")]
-    net = model
-    if next(model.parameters()).dtype != comp_dtype:
-        net = copy.deepcopy(model).to(comp_dtype)
-    net.eval()
+    net = copy.deepcopy(model).to(comp_dtype).eval()
+    casts = {}   # name -> (source tensor, its _version, the cast)
 
-    def block(init, cond, cond_mask=None, *, generator=None, inj_noise=None,
+    def cast(name, t):
+        if not t.is_floating_point() or t.dtype == comp_dtype:
+            return t
+        hit = casts.get(name)
+        if hit is None or hit[0] is not t or hit[1] != t._version:
+            hit = casts[name] = (t, t._version, t.detach().to(comp_dtype))
+        return hit[2]
+
+    def block(params, init, cond, cond_mask=None, *, generator=None, inj_noise=None,
               step_noise=None):
         with torch.inference_mode():
+            weights = {k: cast(k, v) for k, v in params.items()}
             cond_c = None if cond is None else cond.permute(0, 3, 1, 2).to(comp_dtype)
 
             def eps_fn(x, labels):
-                out = net(x.permute(0, 3, 1, 2).to(comp_dtype), labels, cond_c, cond_mask)
+                out = functional_call(net, weights, (x.permute(0, 3, 1, 2).to(comp_dtype),
+                                                     labels, cond_c, cond_mask))
                 return out.permute(0, 2, 3, 1)
 
             return sampler(init, eps_fn, sched, generator=generator,
@@ -102,13 +123,14 @@ def slide_cond_window(config, cond, gen, future: int, one_frame: bool):
                       gen[..., C * max(0, F - Fc):], cond[..., -future * C:]], dim=-1)
 
 
-def autoregressive_predict(config, block_sampler, cond, cond_mask,
+def autoregressive_predict(config, block_sampler, params, cond, cond_mask,
                            num_frames_pred: int, future: int, sched: DiffusionSchedule,
                            *, generator: Optional[torch.Generator] = None,
                            draws: Optional[Sequence[dict]] = None,
                            unmask_after_first: bool = False):
-    """Blockwise generation of num_frames_pred frames; returns folded
-    (B, H, W, num_frames_pred*C) in model (transformed) space.
+    """Blockwise generation of num_frames_pred frames with the weights
+    `params` (passed to each `block_sampler` call, see `make_block_sampler`);
+    returns folded (B, H, W, num_frames_pred*C) in model (transformed) space.
 
     `draws[i]` may hold block i's explicit draws: "init" (its init noise),
     "inj_noise" and "step_noise" (see `ddpm_sampler`); what it lacks comes
@@ -133,7 +155,7 @@ def autoregressive_predict(config, block_sampler, cond, cond_mask,
                                   device=cond.device)
         else:
             init = gen
-        gen = block_sampler(init, cond, cond_mask, generator=generator,
+        gen = block_sampler(params, init, cond, cond_mask, generator=generator,
                             inj_noise=d.get("inj_noise"), step_noise=d.get("step_noise"))
         preds.append(gen)
         if i_frame == n_iter - 1:

@@ -18,10 +18,12 @@ its arithmetic on the CPU). fp32 (m16n8k8) runs 3xTF32: each operand is
 split into two tf32 parts and a product takes three tf32 products, which
 keeps ~21-22 bits of each (fp32-class, not TF32; `tf32_split` and
 `tf32x3_matmul` emulate it). Scores and softmax are fp32 on both (online
-softmax over key tiles). D=64 only; other head dims raise, and so do
-pointers or strides that are not 16-byte aligned (the kernels copy 16-byte
-chunks). The T>2048 einsum fallback of the Pallas version is not carried
-over: the kernel tiles keys and has no length limit.
+softmax over key tiles). Head dims 64, 96 and 128 (`SUPPORTED_HEAD_DIMS`,
+one instantiation of each kernel per dim); other head dims raise on a CUDA
+tensor, and so do pointers or strides that are not 16-byte aligned (the
+kernels copy 16-byte chunks). The T>2048 einsum fallback of the Pallas
+version is not carried over: the kernel tiles keys and has no length
+limit.
 
 Gradients: when autograd needs them the entry points run through
 `torch.autograd.Function`s. On the card the forward also writes each row's
@@ -49,7 +51,7 @@ import torch
 
 from . import count_launch, use_kernel
 
-SUPPORTED_HEAD_DIMS = (64,)
+SUPPORTED_HEAD_DIMS = (64, 96, 128)
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_KEYS_PER_TILE = 64
 # bf16's unit roundoff: rounding p to bf16 moves sum_j p_j v_j / l by at
@@ -342,7 +344,8 @@ def _check(name, ts):
 def _check_head_dim(name, d):
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not supported by the kernel "
-                         f"(supported: {SUPPORTED_HEAD_DIMS})")
+                         f"(supported: {SUPPORTED_HEAD_DIMS}; other head dims are ROADMAP "
+                         f"Queue 3 F1, D=192 with SPADE, Queue 1 item 13)")
 
 
 def _needs_grad(*ts) -> bool:

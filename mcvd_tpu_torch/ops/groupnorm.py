@@ -23,11 +23,16 @@ The plain version is `models.layers.group_norm_folded`.
 Gradients: when autograd needs them, `group_norm` runs through the
 `torch.autograd.Function` `_GroupNorm`. On the card its forward also writes
 the (B, G) mean and rstd, and its backward is `gn_fused_bwd`, the closed
-form of the JAX package's custom VJP `_fgn_bwd` (`groupnorm.py:160`) on the
-forward's cluster plan (see the kernel's note). On CPU tensors, and under
-`reference_ops()`, forward and backward are the plain versions
-(`group_norm_folded`, `group_norm_bwd_reference`, which follows `_fgn_bwd`
-line by line). With no input needing a gradient the forward saves nothing.
+form of the JAX package's custom VJP `_fgn_bwd` (`groupnorm.py:160`), on
+one of two routes that `bwd_plan` picks by the call's size and form: a
+cluster per example in one launch (small calls, and the affine forms up to
+24 MiB), or two launches over (chunk of rows, example) blocks with
+per-chunk sums in an fp32 scratch (larger calls; see the kernel's note).
+On CPU
+tensors, and under `reference_ops()`, forward and backward are the plain
+versions (`group_norm_folded`, `group_norm_bwd_reference`, which follows
+`_fgn_bwd` line by line). With no input needing a gradient the forward
+saves nothing.
 
 Bound on the card: bytes. The host side of a forward is one `torch.empty`
 and one ctypes call: the 67 calls of one model evaluation are host-bound
@@ -47,19 +52,48 @@ _DTYPES = (torch.float32, torch.bfloat16)
 SMEM_LIMIT = 232_448   # bytes of shared memory one H100 block may opt in to (227 KB)
 MAX_CLUSTER = 8        # the portable thread-block cluster size
 MAX_THREADS = 512
+# gn_fused_bwd's routes, as measured on an H100 (PERF.md). The split route:
+# blocks of up to 256 threads, two waves of two an SM on the H100's 132 SMs
+# (one wave ran the 64x64 shapes 10-25% slower), each thread at least one
+# loop of BWD_UNROLL rows (`csrc/groupnorm.cu::kBwdUnroll`); it takes the
+# calls whose x and dy together pass SPLIT_BYTES, or AFFINE_SPLIT_BYTES with
+# gamma (whose dgamma, dbeta take a third launch there). The cluster route
+# takes the rest: the calls up to SPLIT_BYTES on the forward's clusters of
+# 8, the larger affine calls on clusters of BWD_CLUSTER (4 beat 1, 2 and 8
+# there).
+BWD_THREADS = 256
+BWD_BLOCKS = 2 * 2 * 132
+BWD_UNROLL = 4
+BWD_CLUSTER = 4
+SPLIT_BYTES = 5 * 2**18          # 1.25 MiB
+AFFINE_SPLIT_BYTES = 24 * 2**20
 
 
 @dataclass(frozen=True)
 class Plan:
     """How `gn_fused` runs one shape: `cluster` blocks per example, each
     owning `rows` rows of H*W (the last block possibly fewer), with
-    `threads` threads and `smem` bytes of dynamic shared memory (`bwd_smem`
-    for `gn_fused_bwd`, which runs on the same plan)."""
+    `threads` threads and `smem` bytes of dynamic shared memory."""
     cluster: int
     rows: int
     threads: int
     smem: int
-    bwd_smem: int
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """How `gn_fused_bwd` runs one shape: a grid of (`blocks`, B) blocks,
+    block (k, b) owning rows [k*rows, (k+1)*rows) of example b's H*W (the
+    last possibly fewer), with `threads` threads and `smem` bytes of dynamic
+    shared memory; the `blocks` of an example are one cluster (at most 8) in
+    one launch, or with `split` the chunks of two launches. `ws_floats` is
+    the fp32 scratch the wrapper allocates (`bwd_workspace`)."""
+    split: bool
+    blocks: int
+    rows: int
+    threads: int
+    smem: int
+    ws_floats: int
 
 
 def smem_bytes(threads: int, vec: int, CN: int, G: int) -> int:
@@ -70,9 +104,20 @@ def smem_bytes(threads: int, vec: int, CN: int, G: int) -> int:
 
 def bwd_smem_bytes(threads: int, vec: int, CN: int, G: int) -> int:
     """`gn_fused_bwd`'s layout (`csrc/groupnorm.cu::bwd_smem_layout`):
-    per-thread partials, this block's and the example's per-channel sums,
-    the per-group means m1, m2."""
+    per-thread partials, a block's and its example's per-channel sums, the
+    per-group means m1, m2."""
     return 4 * (threads * vec + 4 * CN + 2 * G)
+
+
+def bwd_workspace(B: int, CN: int, G: int, C: int, chunks: int) -> dict:
+    """Offsets, in floats, of the parts of `gn_fused_bwd`'s fp32 scratch
+    (`csrc/groupnorm.cu::gn_fused_bwd`): the split route's per-chunk channel
+    sums (B, chunks, 2, CN) and group shares (B, chunks, 2, G) (`chunks` 0
+    on the cluster route), [d_scale | d_shift] (B, 2CN), the per-example
+    parameter sums (B, 2CN), [dgamma | dbeta] (2C), and the total."""
+    d_ss = B * chunks * 2 * (CN + G)
+    dgb = d_ss + 4 * B * CN
+    return {"d_ss": d_ss, "dgb": dgb, "total": dgb + 2 * C}
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,8 +139,60 @@ def plan(CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int) -> Plan:
     rows = -(-S // min(MAX_CLUSTER, S))
     cluster = -(-S // rows)
     threads = nv * max(1, min(MAX_THREADS // nv, rows))
-    return Plan(cluster, rows, threads, smem_bytes(threads, vec, CN, num_groups),
-                bwd_smem_bytes(threads, vec, CN, num_groups))
+    return Plan(cluster, rows, threads, smem_bytes(threads, vec, CN, num_groups))
+
+
+def cluster_bwd_plan(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int,
+                     frames_last: int = 1, size: int = BWD_CLUSTER) -> BwdPlan:
+    """`gn_fused_bwd`'s cluster route with clusters of up to `size` blocks
+    per example (at most `MAX_CLUSTER`), sized as the forward's plan sizes
+    its clusters of 8; `tools.profile_gn_bwd` times other sizes."""
+    plan(CN, H, W, dtype, num_groups)   # the forward's checks of the shape
+    vec = 16 // dtype.itemsize
+    nv = CN // vec
+    S = H * W
+    rows = -(-S // min(size, S))
+    threads = nv * max(1, min(MAX_THREADS // nv, rows))
+    return BwdPlan(False, -(-S // rows), rows, threads,
+                   bwd_smem_bytes(threads, vec, CN, num_groups),
+                   bwd_workspace(B, CN, num_groups, CN // frames_last, 0)["total"])
+
+
+def bwd_plans(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int,
+              frames_last: int = 1) -> tuple:
+    """Both candidate plans of `gn_fused_bwd` for x (B, CN, H, W) of
+    `dtype`, (cluster, split): the cluster route (`cluster_bwd_plan`); the
+    split route with one thread per 16-byte channel vector per row, up to
+    `BWD_THREADS` threads (more only where one row has more vectors), and
+    about `BWD_BLOCKS` blocks over the B examples where every thread gets
+    `BWD_UNROLL` rows, fewer where not, with no empty block. `bwd_plan`
+    picks one; `tools.profile_gn_bwd` times both."""
+    cluster = cluster_bwd_plan(B, CN, H, W, dtype, num_groups, frames_last)
+    vec = 16 // dtype.itemsize
+    nv = CN // vec
+    C = CN // frames_last
+    threads = nv * max(1, BWD_THREADS // nv)
+    S = H * W
+    chunks = max(1, min(-(-BWD_BLOCKS // B), -(-S // (BWD_UNROLL * threads // nv))))
+    rows = -(-S // chunks)
+    chunks = -(-S // rows)
+    split = BwdPlan(True, chunks, rows, threads, bwd_smem_bytes(threads, vec, CN, num_groups),
+                    bwd_workspace(B, CN, num_groups, C, chunks)["total"])
+    return cluster, split
+
+
+@functools.lru_cache(maxsize=None)
+def bwd_plan(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int,
+             frames_last: int = 1, affine: bool = False) -> BwdPlan:
+    """The launch plan of `gn_fused_bwd`: up to `SPLIT_BYTES` of x and dy
+    together, the cluster route with clusters of 8; with gamma (`affine`)
+    up to `AFFINE_SPLIT_BYTES`, the cluster route with clusters of
+    `BWD_CLUSTER`; else the split route (`bwd_plans`)."""
+    cluster, split = bwd_plans(B, CN, H, W, dtype, num_groups, frames_last)
+    nbytes = 2 * B * CN * H * W * dtype.itemsize
+    if nbytes <= SPLIT_BYTES:
+        return cluster_bwd_plan(B, CN, H, W, dtype, num_groups, frames_last, MAX_CLUSTER)
+    return cluster if affine and nbytes <= AFFINE_SPLIT_BYTES else split
 
 
 def _check_x(x: torch.Tensor, name: str) -> None:
@@ -245,10 +342,12 @@ def group_norm_bwd_reference(x, g, num_groups, *, eps, gamma=None, beta=None, sc
     return dx, d_gamma, d_beta, d_scale, d_shift
 
 
-def group_norm_bwd(x, g, stats, num_groups, gamma, beta, scale, shift, frames_last, act):
+def group_norm_bwd(x, g, stats, num_groups, gamma, beta, scale, shift, frames_last, act,
+                   p=None):
     """`gn_fused_bwd` on CUDA tensors, from the forward's `stats`: (dx,
     dgamma, dbeta, dscale, dshift), dx in x's dtype and channels_last, the
-    others fp32 (None where the input is None)."""
+    others fp32 (None where the input is None). `p` is `bwd_plan`'s plan
+    unless given (one of `bwd_plans`, as the timing tool passes)."""
     from ._build import check_launch, load_library
 
     if not x.is_cuda or stats is None:
@@ -257,24 +356,23 @@ def group_norm_bwd(x, g, stats, num_groups, gamma, beta, scale, shift, frames_la
     B, CN, H, W = x.shape
     N = frames_last
     C = CN // N
-    p = plan(CN, H, W, x.dtype, num_groups)
+    p = p or bwd_plan(B, CN, H, W, x.dtype, num_groups, N, gamma is not None)
     g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
     if g.data_ptr() % 16:   # a view at an odd offset: the kernel reads 16-byte vectors
         g = g.clone(memory_format=torch.channels_last)
     g_ptr, b_ptr, s_ptr, h_ptr, ss_stride, gb_bf16, ss_bf16 = _params(
         x, gamma, beta, scale, shift, frames_last)
     dx = torch.empty_like(x)
-    # fp32 workspace: [d_scale | d_shift] (B, 2CN), the per-example sums of
-    # dgamma | dbeta over H*W (B, 2CN), then dgamma | dbeta (2C)
-    ws = torch.empty(4 * B * CN + 2 * C, device=x.device, dtype=torch.float32)
-    d_ss = ws[:2 * B * CN].view(B, 2 * CN)
-    d_gb = ws[4 * B * CN:]
+    at = bwd_workspace(B, CN, num_groups, C, p.blocks if p.split else 0)
+    ws = torch.empty(p.ws_floats, device=x.device, dtype=torch.float32)
+    d_ss = ws[at["d_ss"]:at["d_ss"] + 2 * B * CN].view(B, 2 * CN)
+    d_gb = ws[at["dgb"]:at["dgb"] + 2 * C]
     lib = load_library()
     with torch.cuda.device(x.device):
         err = lib.gn_fused_bwd(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), stats.data_ptr(), g_ptr, b_ptr, s_ptr,
             h_ptr, ss_stride, gb_bf16, ss_bf16, int(x.dtype == torch.bfloat16), B, H * W, CN,
-            num_groups, N, p.rows, p.cluster, p.threads, p.bwd_smem,
+            num_groups, N, p.rows, p.blocks, p.threads, p.smem, int(p.split),
             H * W * (CN // num_groups), int(bool(act)), ws.data_ptr(), C,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(lib, "gn_fused_bwd", err)

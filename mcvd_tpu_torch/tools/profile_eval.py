@@ -37,9 +37,9 @@ from ..train import create_train_state, make_train_step
 from .profile_gn2 import nvidia_smi
 
 # kind of kernel: the first pattern found in its name (lower case)
-KINDS = [("gn_fused_bwd", "groupnorm backward"), ("gn_bwd_params", "groupnorm backward"),
-         ("gn_fused", "groupnorm"), ("attention_bwd", "attention backward"),
-         ("attention_fwd", "attention"), ("multi_tensor_apply", "optimizer"),
+KINDS = [("gn_bwd_", "groupnorm backward"), ("gn_fused", "groupnorm"),
+         ("attention_bwd", "attention backward"), ("attention_fwd", "attention"),
+         ("multi_tensor_apply", "optimizer"),
          ("conv2d_grouped_direct", "FIR depthwise conv"), ("conv", "conv"),
          ("xmma", "conv"), ("cudnn", "conv"), ("gemm", "matmul"), ("cutlass", "matmul"),
          ("elementwise", "elementwise"), ("vectorized", "elementwise"),
@@ -104,8 +104,9 @@ def measure(batch: int = 16) -> dict:
     g = torch.Generator(device="cuda").manual_seed(6)
     cond = torch.randn(batch, sz, sz, d.num_frames_cond, generator=g, device="cuda")
     init = torch.randn(batch, sz, sz, d.num_frames, generator=g, device="cuda")
-    block(init, cond, generator=g)   # warm-up
-    out = {"sampler_block": profile(lambda: block(init, cond, generator=g), 11)}
+    params = dict(model.named_parameters())
+    block(params, init, cond, generator=g)   # warm-up
+    out = {"sampler_block": profile(lambda: block(params, init, cond, generator=g), 11)}
 
     net = model.to(torch.bfloat16).eval()
     x = init.permute(0, 3, 1, 2).to(torch.bfloat16)

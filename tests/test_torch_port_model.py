@@ -23,6 +23,7 @@ from mcvd_tpu_torch.config import dict2namespace, flagship_config
 from mcvd_tpu_torch.models import blocks, get_model, resample
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # Counted once from jax.eval_shape(model.init) of the flagship config
 # (__graft_entry__._flagship_config()); chip_smoke.py asserts the same count.
@@ -70,6 +71,36 @@ def test_flagship_config_matches_jax():
 
     for kw in ({}, {"tiny": True}, {"image_size": 32, "ngf": 32}):
         assert to_dict(flagship_config(**kw)) == to_dict(__graft_entry__._flagship_config(**kw))
+
+
+@pytest.mark.parametrize("name,head_dim", [("bair_big", 96), ("cityscapes_big", 128)])
+def test_big_config_copies_match_jax(name, head_dim):
+    """The port's copies of two shipped configs equal `configs/<name>.yml`
+    as the JAX package loads it; the port's get_model builds each with
+    attention heads `head_dim` wide and the JAX init's parameter count
+    (jax.eval_shape, no compile)."""
+    from mcvd_tpu.config import load_config, namespace2dict
+
+    from mcvd_tpu_torch import config as port_config
+
+    def to_dict(ns):
+        return {k: to_dict(v) if hasattr(v, "__dict__") else v for k, v in vars(ns).items()}
+
+    config = getattr(port_config, f"{name}_config")()
+    jconfig = load_config(os.path.join(REPO, "configs", f"{name}.yml"))
+    assert to_dict(config) == namespace2dict(jconfig)
+    sz = jconfig.data.image_size
+    ch = jconfig.data.channels
+    x = jax.ShapeDtypeStruct((1, sz, sz, ch * jconfig.data.num_frames), jnp.float32)
+    c = jax.ShapeDtypeStruct((1, sz, sz, ch * jconfig.data.num_frames_cond), jnp.float32)
+    shapes = jax.eval_shape(jax_get_model(jconfig).init, jax.random.PRNGKey(0), x,
+                            jax.ShapeDtypeStruct((1,), jnp.int32), c)["params"]
+    want = sum(int(np.prod(leaf.shape)) for leaf in jax.tree_util.tree_leaves(shapes))
+    model = get_model(config, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == want
+    attn = [m for m in model.modules() if isinstance(m, blocks.AttnBlock)]
+    assert attn and {m.NIN_0.W.shape[0] // m.n_heads for m in attn} == {head_dim}
+    assert sorted({m.n_heads for m in attn}) == [2, 3, 4]
 
 
 @pytest.fixture(scope="module")
@@ -170,7 +201,8 @@ def _block_parity(jmod, tmod, args_np, seed):
     np.testing.assert_allclose(nchw_to_nhwc(got), want, **BLOCK_TOL)
 
 
-@pytest.mark.parametrize("C,n_head_channels", [(16, 8), (24, 8), (16, -1)])
+@pytest.mark.parametrize("C,n_head_channels", [(16, 8), (24, 8), (16, -1), (192, 96),
+                                               (256, 128)])
 def test_attn_block_matches_jax(C, n_head_channels):
     x = np.random.RandomState(2).randn(2, 8, 8, C).astype(np.float32)
     jmod = jax_blocks.AttnBlock(channels=C, n_head_channels=n_head_channels)

@@ -178,6 +178,59 @@ def test_gn_plan_covers_flagship_calls(dtype, H):
         assert p.smem == smem_bytes(p.threads, vec, CN, G) <= SMEM_LIMIT, where
 
 
+@pytest.mark.parametrize("B", [16, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gn_bwd_plan_covers_flagship_calls(dtype, B):
+    """`bwd_plans()` at every GroupNorm call of one flagship evaluation (and
+    frames_last=2), at the kernel tests' B and the training step's. Both
+    routes: the row runs cover H*W exactly with none empty, a thread always
+    sees the same 16-byte channel vector, shared memory matches the
+    kernels' layout and fits in 227 KB, and the scratch holds the split
+    route's per-chunk sums (none on the cluster route) and the outputs. The
+    cluster route has clusters of `BWD_CLUSTER`; the split route has every thread a
+    row and about `BWD_BLOCKS` blocks where every thread gets `BWD_UNROLL`
+    rows (rounding the rows up may drop up to half the chunks). `bwd_plan`
+    takes the split route exactly where x and dy pass `SPLIT_BYTES`
+    (`AFFINE_SPLIT_BYTES` with gamma), and clusters of 8 up to
+    `SPLIT_BYTES`."""
+    from mcvd_tpu_torch.ops.groupnorm import (AFFINE_SPLIT_BYTES, BWD_BLOCKS, BWD_CLUSTER,
+                                              BWD_THREADS, BWD_UNROLL, SMEM_LIMIT,
+                                              SPLIT_BYTES, bwd_plan, bwd_plans,
+                                              bwd_smem_bytes, bwd_workspace)
+
+    cases = {(c["C"], c["H"], c["num_groups"], 1, c["affine"])
+             for c in map(dict, flagship_gn_calls())}
+    cases.add((128, 32, 16, 2, False))   # frames_last=2: C*N = 128
+    vec = 16 // dtype.itemsize
+    routes = set()
+    for CN, H, G, N, affine in sorted(cases):
+        cluster, split = bwd_plans(B, CN, H, H, dtype, G, N)
+        S, nv = H * H, CN // vec
+        for p in (cluster, split):
+            where = f"C={CN} H={H} N={N} {dtype} B={B}: {p}"
+            assert p.rows * p.blocks >= S and p.rows * (p.blocks - 1) < S, where
+            assert p.threads % nv == 0, where
+            assert p.smem == bwd_smem_bytes(p.threads, vec, CN, G) <= SMEM_LIMIT, where
+            at = bwd_workspace(B, CN, G, CN // N, p.blocks if p.split else 0)
+            assert at["d_ss"] == (B * p.blocks * 2 * (CN + G) if p.split else 0), where
+            assert at["dgb"] == at["d_ss"] + 4 * B * CN, where
+            assert p.ws_floats == at["total"] == at["dgb"] + 2 * (CN // N), where
+        assert not cluster.split and cluster.blocks <= min(BWD_CLUSTER, S)
+        assert cluster.threads <= 512 and cluster.threads // nv <= cluster.rows
+        assert split.split and split.threads <= BWD_THREADS and split.threads // nv <= split.rows
+        want = min(-(-BWD_BLOCKS // B), -(-S // (BWD_UNROLL * split.threads // nv)))
+        assert want // 2 < split.blocks <= want, split
+        nbytes = 2 * B * CN * S * dtype.itemsize
+        big = nbytes > (AFFINE_SPLIT_BYTES if affine else SPLIT_BYTES)
+        picked = bwd_plan(B, CN, H, H, dtype, G, N, affine)
+        if nbytes <= SPLIT_BYTES:   # the forward's clusters of 8
+            assert (picked.split, picked.blocks) == (False, min(8, S))
+        else:
+            assert picked == (split if big else cluster)
+        routes.add(big)
+    assert routes == {False, True}   # the small affine forms take the cluster route
+
+
 def attn_inputs(seed, shape):
     rng = np.random.RandomState(seed)
     return [rng.randn(*shape).astype(np.float32) for _ in range(3)]
@@ -238,7 +291,20 @@ def test_attention_tc_numerics_match(T, against):
     """The tensor-core kernel's arithmetic (online softmax over 64-key tiles,
     unnormalised p rounded to bf16, fp32 accumulation), emulated in torch on
     bf16 inputs, against the plain version and the JAX Pallas kernel."""
-    B, h, d = 2, 2, 64
+    check_tc_numerics(T, 2, 64, against)
+
+
+# The same at the wider head dims of bair_big/kth64_big/ucf101 (96) and
+# cityscapes_big (128), two heads.
+@pytest.mark.parametrize("against", ["plain", "pallas"])
+@pytest.mark.parametrize("T", [64, 128])
+@pytest.mark.parametrize("d", [96, 128])
+def test_attention_wide_heads_tc_numerics_match(d, T, against):
+    check_tc_numerics(T, 2, d, against)
+
+
+def check_tc_numerics(T, h, d, against):
+    B = 2
     q, k, v = (a.astype(np.float32) for a in attn_inputs(9, (B, T, h * d)))
     qkv = torch.from_numpy(np.concatenate([q, k, v], -1)).to(torch.bfloat16)
     got = packed_tc_emulation(qkv, h, d ** -0.5)
@@ -276,7 +342,18 @@ def jax_packed_vjp(qkv, g, h, scale):
 @pytest.mark.parametrize("h", [1, 2])
 @pytest.mark.parametrize("T", [64, 200])
 def test_attention_bwd_tc_numerics_match(T, h, against):
-    B, d = 2, 64
+    check_bwd_tc_numerics(T, h, 64, against)
+
+
+@pytest.mark.parametrize("against", ["plain", "pallas"])
+@pytest.mark.parametrize("T", [64, 128])
+@pytest.mark.parametrize("d", [96, 128])
+def test_attention_wide_heads_bwd_tc_numerics_match(d, T, against):
+    check_bwd_tc_numerics(T, 2, d, against)
+
+
+def check_bwd_tc_numerics(T, h, d, against):
+    B = 2
     scale = d ** -0.5
     rng = np.random.RandomState(17)
     qkv = torch.from_numpy(rng.randn(B, T, 3 * h * d).astype(np.float32)).to(torch.bfloat16)
@@ -302,7 +379,36 @@ def test_attention_bwd_tc_numerics_match(T, h, against):
 @pytest.mark.parametrize("h", [1, 2])
 @pytest.mark.parametrize("T", [64, 200])
 def test_attention_tf32x3_matches_pallas(T, h, direction):
-    B, d = 2, 64
+    check_tf32x3(T, h, 64, direction)
+
+
+@pytest.mark.parametrize("direction", ["fwd", "vjp"])
+@pytest.mark.parametrize("T", [64, 128])
+@pytest.mark.parametrize("d", [96, 128])
+def test_attention_wide_heads_tf32x3_matches_pallas(d, T, direction):
+    check_tf32x3(T, 2, d, direction)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_tf32x3_matmul_wide_heads_matches_jax(d):
+    """q k^T (d-term sums) and p v as the fp32 kernels' 3xTF32 products at
+    the wider head dims, against JAX's fp32 matmul at highest precision, per
+    element within 2^-19 * (|a| @ |b|): each 3xTF32 product keeps ~21 bits
+    (the dropped lo*lo term and the rounded lo, 2^-21 each), and both sides'
+    fp32 sums run in another order (2^-24 per term)."""
+    rng = np.random.RandomState(20)
+    q, k = (rng.randn(2, 128, d).astype(np.float32) for _ in range(2))
+    p = rng.rand(2, 128, 128).astype(np.float32)
+    with jax.default_matmul_precision("highest"):
+        for a, b in ((q, k.transpose(0, 2, 1)), (p, k)):
+            want = np.asarray(jnp.matmul(jnp.asarray(a), jnp.asarray(b)))
+            got = ops.attention.tf32x3_matmul(torch.from_numpy(a), torch.from_numpy(b))
+            bound = 2.0 ** -19 * (np.abs(a) @ np.abs(b))
+            assert (np.abs(got.numpy() - want) <= bound).all()
+
+
+def check_tf32x3(T, h, d, direction):
+    B = 2
     scale = d ** -0.5
     rng = np.random.RandomState(18)
     qkv = rng.randn(B, T, 3 * h * d).astype(np.float32)
@@ -331,6 +437,16 @@ def test_tf32_split_reconstructs(magnitude):
     assert bool((hi - x).abs().le(2.0 ** -11 * x.abs()).all())
     err = ((hi.double() + lo.double()) - x.double()).abs()
     assert bool(err.le(2.0 ** -22 * x.double().abs()).all()), float((err / x.abs()).max())
+
+
+def test_check_head_dim_takes_the_kernels_dims():
+    """The wrappers take head dims 64, 96 and 128 (one kernel instantiation
+    each) and refuse the rest, naming the ROADMAP item."""
+    for d in (64, 96, 128):
+        ops.attention._check_head_dim("attention", d)
+    for d in (32, 192):
+        with pytest.raises(ValueError, match="supported.*F1"):
+            ops.attention._check_head_dim("attention", d)
 
 
 def test_reference_ops_restores_on_error():

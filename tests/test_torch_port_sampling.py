@@ -2,6 +2,7 @@
 against the JAX package, with the JAX random draws replayed into the port
 (split the keys as the JAX code does, draw in JAX, hand the arrays over)."""
 
+import copy
 import glob
 import os
 import re
@@ -21,7 +22,7 @@ from mcvd_tpu.diffusion import samplers as jax_samplers
 from mcvd_tpu.diffusion.schedules import subsample_schedule as jax_subsample
 from mcvd_tpu.eval import video_gen as jax_video_gen
 from mcvd_tpu.models import get_model as jax_get_model
-from mcvd_tpu_torch.compat import load_flax_params
+from mcvd_tpu_torch.compat import load_flax_params, torch_state_dict_from_flax
 from mcvd_tpu_torch.data import data_transform, inverse_data_transform
 from mcvd_tpu_torch.diffusion import make_schedule, samplers
 from mcvd_tpu_torch.diffusion.schedules import subsample_schedule
@@ -211,10 +212,61 @@ def test_autoregressive_predict_matches_jax(tiny_models):
         draws.append({"init": torch.from_numpy(np.array(jax.random.normal(k_init, shape))),
                       "inj_noise": inj, "step_noise": step})
     block = video_gen.make_block_sampler(config, model, sched)
-    got = video_gen.autoregressive_predict(config, block, torch.from_numpy(cond), None,
-                                           n_pred, 0, sched, draws=draws)
+    got = video_gen.autoregressive_predict(config, block, port_params(params),
+                                           torch.from_numpy(cond), None, n_pred, 0, sched,
+                                           draws=draws)
     assert got.shape == want.shape == (2, 16, 16, 5)
     np.testing.assert_allclose(got.numpy(), want, **CHAIN_TOL)
+
+
+def port_params(params):
+    """The JAX params as the port's state dict (name -> tensor)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in torch_state_dict_from_flax(params).items()}
+
+
+def sampler_inputs(config, seed):
+    rng = np.random.RandomState(seed)
+    shape = (2, 16, 16, 2)
+    init, cond = (torch.from_numpy(rng.randn(*shape).astype(np.float32)) for _ in range(2))
+    step = torch.from_numpy(rng.randn(config.sampling.subsample, *shape).astype(np.float32))
+    return init, cond, step
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_sampler_takes_weights_per_call(tiny_models, dtype):
+    """One sampler called with two sets of weights gives what a fresh sampler
+    gives on each, and an in-place change of the weights between two calls
+    reaches the next call (in bf16 through the cast cache); building and
+    calling the sampler leave the caller's model and its training flag
+    alone."""
+    config, _, params, model = tiny_models
+    sched = make_schedule(config)
+    cfg = copy.deepcopy(config)
+    cfg.sampling.compute_dtype = dtype
+    init, cond, step = sampler_inputs(cfg, 8)
+    w1 = port_params(params)
+    w2 = {k: v * 1.01 if v.is_floating_point() else v for k, v in w1.items()}
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    model.train()
+    one = video_gen.make_block_sampler(cfg, model, sched)
+    got = [one(w, init, cond, step_noise=step) for w in (w1, w2)]
+    for w, g in zip((w1, w2), got):
+        fresh = video_gen.make_block_sampler(cfg, model, sched)
+        assert torch.equal(g, fresh(w, init, cond, step_noise=step))
+    assert not torch.equal(got[0], got[1])
+    # an optimizer-style in-place update of the same tensors
+    live = {k: v.clone() for k, v in w1.items()}
+    a = one(live, init, cond, step_noise=step)
+    assert torch.equal(a, got[0])
+    with torch.no_grad():
+        for k, v in live.items():
+            if v.is_floating_point():
+                v.mul_(1.01)
+    assert torch.equal(one(live, init, cond, step_noise=step), got[1])
+    assert model.training
+    model.eval()
+    assert all(torch.equal(v, before[k]) for k, v in model.state_dict().items())
 
 
 @pytest.mark.parametrize("future,one_frame", [(0, False), (0, True), (1, False), (1, True)])
