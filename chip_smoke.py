@@ -17,8 +17,8 @@ line each:
                `tools.gn_calls`), with its plan (cluster, blocks, rows,
                threads, shared memory, clusters resident at once);
                attention at the main path's T and a ragged T, and at the
-               head dims 96 and 128 of the shipped configs with wider heads
-               (`WIDE_ATTN_CASES`) (bf16 on mma.sync m16n8k16, fp32 as
+               head dims 96, 128 and 192 of the shipped configs with wider
+               heads (`WIDE_ATTN_CASES`) (bf16 on mma.sync m16n8k16, fp32 as
                3xTF32 on m16n8k8), the bf16
                route held per element to the bound of rounding p to bf16
                and, tighter, to a plain emulation of its own arithmetic
@@ -74,7 +74,22 @@ line each:
                calls) and the JAX init's parameter count;
  10. train_headline  the yml's training config at full width, B=64, fp32 and
                then bf16 compute: one warm-up step, 5 timed steps, ms per
-               step, clips/s, peak memory and the launch counts per step.
+               step, clips/s, peak memory and the launch counts per step;
+ 11. cli       the port's command line as a user runs it, in subprocesses,
+               on configs/smmnist_DDPM_big5.yml at full width (ngf 64, B=64,
+               fp32 as the yml says), changing only cadence and traffic
+               (`CLI_MODS`): --train to step 6 (checkpoints at 3 and 6, the
+               validation loss at 3 and 6, a snapshot with its in-training
+               video_gen at 6), --resume_training to step 9, then
+               --video_gen --ckpt 6 (one batch of 16 clips, 20 frames in 4
+               blocks of 100 steps + denoise). Checks: the steps continue
+               6 -> 9, checkpoint_6 loads bit-equal into a fresh state here,
+               best_metrics.yml and vid_metrics.yml hold finite mse, psnr
+               and ssim, and each run's kernel launch counts are exact
+               (`CLI_LAUNCHES`). Emits the loop's ms per step (each step
+               timed alone by the runner's log, the first of each process
+               apart as warm-up) beside train_headline's fp32 step, and the
+               video_gen harness's seconds.
 
 Then the per-kernel summary line of the seven kernels (with each kernel's
 bound: the larger of its bytes over the HBM rate and its operations over the
@@ -86,8 +101,12 @@ is not printed.
 """
 
 import json
+import os
+import re
 import statistics
+import subprocess
 import sys
+import tempfile
 import time
 from math import ceil
 
@@ -99,9 +118,11 @@ FLAGSHIP_PARAM_COUNT = 27_941_765   # jax.eval_shape of the JAX flagship init
 ATTN_SHAPES = [(1024, 2), (256, 3), (64, 4)]             # (T, heads), D=64, B=16
 # (T, heads, head dim) of the attention in the shipped configs with wider
 # heads, at 32, 16 and 8 px: bair_big and kth64_big (D=96, 2/3/4 heads),
-# ucf101 (D=96, 4/6/8 heads), cityscapes_big (D=128, 2/3/4 heads).
+# ucf101 (D=96, 4/6/8 heads), cityscapes_big (D=128, 2/3/4 heads),
+# cityscapes_big_spade (D=192, 2/3/4 heads).
 WIDE_ATTN_CASES = [(1024, 2, 96), (256, 3, 96), (64, 4, 96), (1024, 4, 96), (256, 6, 96),
-                   (64, 8, 96), (1024, 2, 128), (256, 3, 128), (64, 4, 128)]
+                   (64, 8, 96), (1024, 2, 128), (256, 3, 128), (64, 4, 128),
+                   (1024, 2, 192), (256, 3, 192), (64, 4, 192)]
 # Every attention case: the main path's, a ragged T, and the wider heads.
 ATTN_CASES = [(T, h, 64) for T, h in ATTN_SHAPES] + [(100, 2, 64)] + WIDE_ATTN_CASES
 # The full-width configs with wider heads (`wide_heads` phase): name ->
@@ -152,6 +173,27 @@ ATTN_BWD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # else 2*lr, the update's own bound; EMA 1e-3 of that plus 1e-6.
 TRAIN_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3
+# The cli phase: the shipped yml as a user runs it, with only the cadence
+# and the traffic cut to a few steps and one evaluation batch.
+CLI_CONFIG = "configs/smmnist_DDPM_big5.yml"
+CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=6", "training.val_freq=3",
+            "training.log_freq=1", "sampling.subsample=100", "sampling.batch_size=16",
+            "sampling.max_data_iter=1"]
+
+
+def _cli_launches(steps, evals):
+    """67 GroupNorm and 10 attention calls a network evaluation, forward, and
+    as many backward a training step."""
+    return {"gn_fused": 67 * (steps + evals), "gn_fused_bwd": 67 * steps,
+            "attention_fwd": 10 * (steps + evals), "attention_bwd": 10 * steps}
+
+
+# Each cli run's launches: --train to 6 (6 steps, 2 validation losses, one
+# in-training video_gen of 4 blocks x (100 steps + denoise) = 404
+# evaluations), --resume_training to 9 (3 steps, 1 validation loss),
+# --video_gen (404 evaluations).
+CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 404), "resume": _cli_launches(3, 1),
+                "video_gen": _cli_launches(0, 404)}
 
 
 def emit(phase, **payload):
@@ -946,7 +988,7 @@ def phase_train_headline(card):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    launches = {}
+    launches, step_ms = {}, {}
     for dn in ("float32", "bfloat16"):
         config = flagship_config()
         config.training.batch_size = B = 64   # smmnist_DDPM_big5.yml's
@@ -976,13 +1018,108 @@ def phase_train_headline(card):
             check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
                   f"train step {dn}: loss {losses[-1]}")
         ms = statistics.median(times)
+        step_ms[dn] = ms
         emit("train_headline", card=card, B=B, dtype=dn, steps=5, warmup_s=warm_s,
              ms_per_step=ms, ms_all=times, clips_per_s=1e3 * B / ms,
              peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches[dn],
              loss=losses, grad_norm=float(m["grad_norm"]), step=state.step)
         del model, state, step, m
         torch.cuda.empty_cache()
-    return launches["float32"]
+    return launches["float32"], step_ms
+
+
+def run_cli(exp, n_iters, *flags):
+    """One run of `python -m mcvd_tpu_torch.main` in a subprocess from the
+    repo's root: (its log, the kernel launch counts it logged at its end,
+    its wall seconds). The process starts with every count at 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "mcvd_tpu_torch.main", "--config", CLI_CONFIG, "--exp", exp,
+           "--data_path", os.path.join(exp, "data"), "--ni", *flags, "--config_mod",
+           *CLI_MODS, f"training.n_iters={n_iters}"]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
+    wall_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"cli {flags}: exit {out.returncode}\n{out.stderr[-4000:]}")
+    counts = re.findall(r"kernel launches: (\{.*\})", out.stderr)
+    check(len(counts) == 1, f"cli {flags}: no launch count line")
+    return out.stderr, json.loads(counts[0]), wall_s
+
+
+def _steps(log):
+    """{step: ms} of the runner's log lines (log_freq 1: each step alone)."""
+    return {int(a): float(b) for a, b in
+            re.findall(r"step (\d+) \| loss \S+ \| grad \S+ \| \S+ steps/s \| "
+                       r"([\d.]+) ms/step", log)}
+
+
+def _finite_metrics(d, what):
+    out = {}
+    for k in ("mse", "psnr", "ssim"):
+        v = d[k]["value"] if isinstance(d[k], dict) else d[k]
+        check(isinstance(v, float) and np.isfinite(v), f"{what}: {k} = {v}")
+        out[k] = v
+    return out
+
+
+def phase_cli(card, headline_ms):
+    from mcvd_tpu_torch.compat import yaml_subset
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.models import get_model
+    from mcvd_tpu_torch.train import checkpoints, create_train_state
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="mcvd_cli_") as exp:
+        runs = {}
+        for name, n_iters, flags in (("train", 6, ["--train"]),
+                                     ("resume", 9, ["--train", "--resume_training"]),
+                                     ("video_gen", 9, ["--video_gen", "--ckpt", "6"])):
+            log, launches, wall_s = run_cli(exp, n_iters, *flags)
+            check_launches(launches, CLI_LAUNCHES[name], f"cli {name}")
+            runs[name] = dict(log=log, launches=launches, wall_s=wall_s)
+        t1, t2 = _steps(runs["train"]["log"]), _steps(runs["resume"]["log"])
+        check(sorted(t1) == [1, 2, 3, 4, 5, 6] and "training done at step 6" in
+              runs["train"]["log"], f"cli train: steps {sorted(t1)}")
+        check("resumed from step 6" in runs["resume"]["log"] and sorted(t2) == [7, 8, 9]
+              and "training done at step 9" in runs["resume"]["log"],
+              f"cli resume: steps {sorted(t2)}")
+        # checkpoint_6 into a fresh state (other weights), here: the same bits
+        logs = os.path.join(exp, "logs")
+        config = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                          CLI_CONFIG), CLI_MODS)
+        model = get_model(config, generator=torch.Generator().manual_seed(99), device="cuda")
+        state = checkpoints.load_checkpoint(
+            logs, name="checkpoint_6", target=create_train_state(config, model, device="cuda"))
+        saved = torch.load(os.path.join(logs, "checkpoint_6"), map_location="cpu",
+                           weights_only=True)
+        check(state.step == saved["step"] == 6, f"checkpoint_6 at step {state.step}")
+        pairs = [(saved["params"], dict(model.named_parameters())),
+                 (saved["ema_params"], state.ema_params)]
+        pairs += [(saved["opt_state"][k], state.opt_state[k]) for k in ("mu", "nu")]
+        n_tensors = 0
+        for want, got in pairs:
+            check(want.keys() == got.keys(), "checkpoint_6: other tensors")
+            for k, t in want.items():
+                check(torch.equal(got[k].detach().cpu(), t), f"checkpoint_6: {k} differs")
+                n_tensors += 1
+        del model, state, saved, pairs
+        torch.cuda.empty_cache()
+        best = _finite_metrics(
+            yaml_subset.load_file(os.path.join(logs, "best_metrics.yml")), "best_metrics.yml")
+        vid = _finite_metrics(yaml_subset.load_file(
+            os.path.join(exp, "video_samples", "videos", "vid_metrics.yml")), "vid_metrics.yml")
+        vg = re.findall(r"video_gen: ([\d.]+) s for the harness", runs["video_gen"]["log"])
+        check(len(vg) == 1, "cli video_gen: no harness time")
+    steady = {s: ms for s, ms in {**t1, **t2}.items() if s not in (1, 7)}
+    loop_ms = statistics.median(steady.values())
+    emit("cli", card=card, config=CLI_CONFIG, config_mod=CLI_MODS, B=64, dtype="float32",
+         loop_ms_per_step=loop_ms, loop_ms_by_step={**t1, **t2},
+         warmup_s={"train step 1": t1[1] / 1e3, "resume step 7": t2[7] / 1e3},
+         train_headline_fp32_ms=headline_ms["float32"],
+         loop_minus_headline_ms=loop_ms - headline_ms["float32"],
+         video_gen_harness_s=float(vg[0]), wall_s={k: r["wall_s"] for k, r in runs.items()},
+         launches={k: r["launches"] for k, r in runs.items()},
+         checkpoint_tensors_bit_equal=n_tensors, best_metrics=best, vid_metrics=vid)
+    return {k: r["launches"] for k, r in runs.items()}
 
 
 def main():
@@ -1001,7 +1138,8 @@ def main():
     train_cases = phase_train_kernels(card, summary)
     phase_train_slice(card)
     phase_wide_heads(card)
-    train_launches = phase_train_headline(card)
+    train_launches, headline_ms = phase_train_headline(card)
+    phase_cli(card, headline_ms)
     check("jax" not in sys.modules, "jax was imported")
 
     # times of the GroupNorm and attention kernels at the heaviest main-path

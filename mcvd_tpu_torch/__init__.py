@@ -9,10 +9,12 @@ each beside a plain PyTorch version that CPU tensors use.
 Slices ported so far, with the NCSN++ (`arch: unetmore`, 2D, concat
 conditioning) score network: DDPM autoregressive video prediction —
 `models.get_model` -> `eval.video_gen.make_block_sampler` ->
-`eval.video_gen.autoregressive_predict` — and its training step —
+`eval.video_gen.autoregressive_predict` — its training step —
 `train.create_train_state` -> `train.make_train_step` (transform,
 conditioning, DSM loss, gradients through the kernels' backward passes,
-clip, optimizer, EMA).
+clip, optimizer, EMA) — and the command line's `--train` and `--video_gen`
+(`python -m mcvd_tpu_torch.main`: `runners.runner.Runner`, checkpoints,
+the SMMNIST data path, the SSIM/MSE harness `eval.video_gen.run_video_gen`).
 """
 
 __version__ = "0.1.0"

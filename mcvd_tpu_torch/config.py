@@ -1,15 +1,23 @@
-"""Config namespaces (counterpart of `mcvd_tpu/config.py`).
+"""Config system (counterpart of `mcvd_tpu/config.py`): YAML -> nested
+`argparse.Namespace`, with `--config_mod section.key=value` overrides.
 
-YAML loading waits for the CLI port; this module builds the same nested
-`argparse.Namespace` from dicts, and carries the flagship configuration the
-main path runs (`__graft_entry__._flagship_config` in the JAX package) and
-copies of two shipped configs whose attention heads are not 64 wide
+YAML goes through the port's own reader and writer of the subset the
+repository uses (`compat.yaml_subset`; the card machine has no PyYAML). The
+module also carries the flagship configuration the main path runs
+(`__graft_entry__._flagship_config` in the JAX package) and copies of two
+shipped configs whose attention heads are not 64 wide
 (`configs/bair_big.yml`, D=96; `configs/cityscapes_big.yml`, D=128).
 """
 
 from __future__ import annotations
 
 import argparse
+import ast
+import copy
+import os
+from typing import Any, List, Optional
+
+from .compat import yaml_subset
 
 
 def dict2namespace(d: dict) -> argparse.Namespace:
@@ -17,6 +25,82 @@ def dict2namespace(d: dict) -> argparse.Namespace:
     for key, value in d.items():
         setattr(ns, key, dict2namespace(value) if isinstance(value, dict) else value)
     return ns
+
+
+def namespace2dict(ns: Any) -> Any:
+    if isinstance(ns, argparse.Namespace):
+        return {k: namespace2dict(v) for k, v in vars(ns).items()}
+    return ns
+
+
+def _parse_value(raw: str) -> Any:
+    """Typed parse of a config_mod value: literals eval'd, bare words stay
+    strings."""
+    try:
+        return ast.literal_eval(raw)
+    except (ValueError, SyntaxError):
+        return raw
+
+
+def apply_config_mods(config: argparse.Namespace,
+                      mods: Optional[List[str]]) -> argparse.Namespace:
+    """Apply `section.key=value` overrides in place. Dotted paths descend into
+    nested namespaces; missing sections are created, so new keys can be
+    given on the command line."""
+    if not mods:
+        return config
+    for mod in mods:
+        if "=" not in mod:
+            raise ValueError(f"config_mod must look like section.key=value, got: {mod}")
+        path, raw = mod.split("=", 1)
+        keys = path.strip().split(".")
+        node = config
+        for key in keys[:-1]:
+            if not hasattr(node, key):
+                setattr(node, key, argparse.Namespace())
+            node = getattr(node, key)
+        setattr(node, keys[-1], _parse_value(raw.strip()))
+    return config
+
+
+def load_config(path: str, config_mods: Optional[List[str]] = None) -> argparse.Namespace:
+    return apply_config_mods(dict2namespace(yaml_subset.load_file(path)), config_mods)
+
+
+def save_config(config: argparse.Namespace, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    yaml_subset.dump_file(namespace2dict(config), path)
+
+
+def getattr_nested(config: Any, dotted: str, default: Any = None) -> Any:
+    node = config
+    for key in dotted.split("."):
+        if not hasattr(node, key):
+            return default
+        node = getattr(node, key)
+    return node
+
+
+def clone_config(config: argparse.Namespace) -> argparse.Namespace:
+    return copy.deepcopy(config)
+
+
+def validate_config(config: argparse.Namespace) -> argparse.Namespace:
+    """Post-parse checks and overrides (upstream main.py:94-127): raises
+    ValueError where the JAX package asserts."""
+    data = config.data
+    if getattr(data, "prob_mask_sync", False) and (
+            getattr(data, "prob_mask_cond", 0.0) != getattr(data, "prob_mask_future", 0.0)):
+        raise ValueError("prob_mask_sync requires prob_mask_cond == prob_mask_future")
+    if getattr(config.model, "cond_emb", False) and not getattr(data, "prob_mask_cond",
+                                                                0.0) > 0.0:
+        raise ValueError("cond_emb requires prob_mask_cond > 0")
+    # FVD needs at least 10 predicted frames to feed I3D (upstream main.py:107-109)
+    sampling = getattr(config, "sampling", None)
+    if sampling is not None and getattr(sampling, "fvd", False):
+        if getattr(sampling, "num_frames_pred", 0) < 10:
+            sampling.fvd = False
+    return config
 
 
 def flagship_config(image_size: int = 64, ngf: int = 64, tiny: bool = False):

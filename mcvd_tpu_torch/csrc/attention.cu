@@ -1,4 +1,4 @@
-// Softmax attention for NVIDIA Hopper (sm_90a), head dims 64, 96 and 128, on
+// Softmax attention for NVIDIA Hopper (sm_90a), head dims 64, 96, 128 and 192, on
 // the tensor cores: the forward attention_fwd and its VJP attention_bwd (two
 // launches, see "backward" below), each in bf16 and fp32. Every kernel is a
 // template over the element type and the head dim D; the C entry points
@@ -29,7 +29,18 @@
 // need ~320 at D = 128), so there the own rows keep tiles of their own
 // (six tiles) and each product reads its A fragments from them as it goes
 // (fp32 splits them as read), at a quarter more shared-memory reads than
-// the walked tile alone. Each product runs on
+// the walked tile alone. At D = 192 two more limits bind:
+//   registers: a 16 x 192 fp32 accumulator is 96 a thread, so the forward
+//   reads Q from its tile as the backward reads its own rows, and each
+//   backward block owns half of the D output columns (kColSplit; a block
+//   pair shares its 64 rows and repeats the S and dP products, which take
+//   all of D), so dK and dV are two 16 x 96 accumulators, as at D = 96;
+//   shared memory: a 64 x 196 fp32 tile is 49 KB, so five (forward) or six
+//   (backward) pass the 227 KB a block may opt in to; fp32 at D = 192
+//   walks its tiles through one stage instead of a 2-stage ring (kStages:
+//   the copy of tile j + 1 waits for tile j's math), three tiles forward
+//   and four backward.
+// Each product runs on
 // mma.sync with fp32 accumulators, and an accumulator (scores, p or ds) is
 // reused from registers as the A operand of the next product, so no
 // (64, 64) block of p or ds passes through shared memory. wgmma with
@@ -39,7 +50,8 @@
 //
 // bf16 on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Tiles are [64][D]
 // bf16 with each row's 16-byte chunks permuted by chunk ^ (row % 8) at D =
-// 64 and 128, so ldmatrix's eight row reads (eight rows, one chunk) hit
+// 64, 128 and 192 (24 chunks: the permutation stays within each group of
+// eight), so ldmatrix's eight row reads (eight rows, one chunk) hit
 // eight distinct bank groups; a 96-wide row's last four chunks have no such
 // permutation within the row, so at D = 96 rows are padded to 13 chunks, an
 // odd count, which spreads eight rows over the eight groups as well (the
@@ -210,8 +222,9 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 //       takes its two small terms in the other order, so that C^T = B A^T
 //       takes the same products in the same order as C = A B^T and gives
 //       the same bits (bf16 takes one product, the same either way);
-//   mma_pb(c, p, tile, lane)   c += P tile: P (16 x 64) in accumulator
-//       layout, its 64 columns the tile's rows (the k side);
+//   mma_pb(c, p, tile, lane, c0)  c += P tile[:, c0:c0 + 8 NB]: P (16 x
+//       64) in accumulator layout, its 64 columns the tile's rows (the k
+//       side), c NB blocks of 8 output columns;
 //   store2(ptr, a, b)          two adjacent outputs.
 template <typename T, int D> struct Tile;
 
@@ -285,8 +298,9 @@ template <int D> struct Tile<bf16, D> {
       }
     }
   }
-  static __device__ __forceinline__ void mma_pb(float (&c)[D / 8][4], const float (&p)[8][4],
-                                                const bf16* t, int lane) {
+  template <int NB>
+  static __device__ __forceinline__ void mma_pb(float (&c)[NB][4], const float (&p)[8][4],
+                                                const bf16* t, int lane, int c0) {
     const int mi = lane >> 3;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -295,10 +309,10 @@ template <int D> struct Tile<bf16, D> {
                               pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
                               pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < NB / 2; ++dp) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4_trans(smem_u32(t + at(kk * 16 + (lane & 7) + (mi & 1) * 8,
-                                      dp * 16 + (mi >> 1) * 8)),
+                                      c0 + dp * 16 + (mi >> 1) * 8)),
                       b0, b1, b2, b3);
         mma_bf16(c[2 * dp], pa, b0, b1);
         mma_bf16(c[2 * dp + 1], pa, b2, b3);
@@ -376,9 +390,10 @@ template <int D> struct Tile<float, D> {
   }
   // k permuted within each slice of 8: position t is column 2t of P, t + 4
   // is 2t + 1, so P's accumulator is the A operand as it stands.
-  static __device__ __forceinline__ void mma_pb(float (&c)[D / 8][4], const float (&p)[8][4],
-                                                const float* t, int lane) {
-    const float* r = t + 2 * (lane & 3) * kPitch + (lane >> 2);
+  template <int NB>
+  static __device__ __forceinline__ void mma_pb(float (&c)[NB][4], const float (&p)[8][4],
+                                                const float* t, int lane, int c0) {
+    const float* r = t + 2 * (lane & 3) * kPitch + (lane >> 2) + c0;
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       uint32_t ah[4], al[4];
@@ -388,7 +403,7 @@ template <int D> struct Tile<float, D> {
       split_tf32(p[kk][3], ah[3], al[3]);
       const float* rk = r + kk * 8 * kPitch;
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn)
+      for (int dn = 0; dn < NB; ++dn)
         mma_3xtf32<false>(c[dn], ah, al, rk[dn * 8], rk[kPitch + dn * 8]);
     }
   }
@@ -397,12 +412,59 @@ template <int D> struct Tile<float, D> {
   }
 };
 
-// The backward holds its own rows' fragments in registers only at D = 64
-// (see the note at the top); above, it reads them from their tiles.
+// The backward holds its own rows' fragments in registers only at D = 64,
+// the forward its Q up to D = 128 (see the note at the top); above, they
+// are read from their tiles.
 template <int D> constexpr bool kHeldRows = D == 64;
 template <typename T, int D>
 using OwnRows = std::conditional_t<kHeldRows<D>, typename Tile<T, D>::Held,
                                    typename Tile<T, D>::Staged>;
+template <typename T, int D>
+using QRows = std::conditional_t<(D <= 128), typename Tile<T, D>::Held,
+                                 typename Tile<T, D>::Staged>;
+
+constexpr int kSmemLimit = 232448;   // 227 KB, the most a block may opt in to
+template <typename T, int D> constexpr int kTileBytes = Tile<T, D>::kElems * (int)sizeof(T);
+// Stages of the walked tiles' ring: two where the backward's tiles (four
+// with held rows, else six) and its row values fit, else one.
+template <typename T, int D>
+constexpr int kStages =
+    (kHeldRows<D> ? 4 : 6) * kTileBytes<T, D> + 4 * kRows * 4 <= kSmemLimit ? 2 : 1;
+// Tiles of shared memory a backward block takes: its ring's stages, and two
+// tiles of its own rows where it does not hold them in registers.
+template <typename T, int D>
+constexpr int kBwdTiles = kHeldRows<D> ? 4 : 2 * kStages<T, D> + 2;
+static_assert(!kHeldRows<64> || (kStages<bf16, 64> == 2 && kStages<float, 64> == 2),
+              "held rows pass through the rings' second stages");
+// Blocks that share a backward block's rows, each owning D / kColSplit of
+// the output columns.
+template <int D> constexpr int kColSplit = D > 128 ? 2 : 1;
+
+// Brings tile j of a walk into its ring stage and returns the stage; tile 0
+// was issued before the walk, and load(stage, tile) issues a tile's copies.
+// Two stages: tile j + 1's copy is issued first, so it overlaps tile j's
+// math. One: tile j's copy is issued now, after the walk's __syncthreads()
+// has seen the stage read out.
+template <int kSt, class F>
+__device__ __forceinline__ int ring_next(int j, int n_tiles, const F& load) {
+  if constexpr (kSt == 2) {
+    if (j + 1 < n_tiles) {
+      load((j + 1) & 1, j + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    return j & 1;
+  } else {
+    if (j > 0) {
+      load(0, j);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    return 0;
+  }
+}
 
 template <int N>
 __device__ __forceinline__ void zero(float (&c)[N][4]) {
@@ -430,10 +492,11 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int T_len, int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts,
                      int64_t o_bs, int64_t o_ts, float scale_log2) {
   using Tl = Tile<T, D>;
+  constexpr int kSt = kStages<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);   // [tile]
-  T* sK = sQ + Tl::kElems;              // [2][tile]
-  T* sV = sK + 2 * Tl::kElems;          // [2][tile]
+  T* sK = sQ + Tl::kElems;              // [kSt][tile]
+  T* sV = sK + kSt * Tl::kElems;        // [kSt][tile]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * kRows;
@@ -444,29 +507,24 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vb = v + b * kv_bs + h_off;
   T* ob = o + b * o_bs + h_off;
   const int n_tiles = (T_len + kRows - 1) / kRows;
+  const auto load_kv = [&](int st, int j) {
+    Tl::load(sK + st * Tl::kElems, kb, j * kRows, T_len, kv_ts, tid);
+    Tl::load(sV + st * Tl::kElems, vb, j * kRows, T_len, kv_ts, tid);
+  };
 
   // Q has a tile of its own, so tile 1's copy starts before Q has landed
   Tl::load(sQ, qb, m0, T_len, q_ts, tid);
-  Tl::load(sK, kb, 0, T_len, kv_ts, tid);
-  Tl::load(sV, vb, 0, T_len, kv_ts, tid);
+  load_kv(0, 0);
   cp_async_commit();
 
-  typename Tl::Held qf;   // this warp's 16 query rows, read after tile 0 lands
+  QRows<T, D> qf;         // this warp's 16 query rows, read after tile 0 lands
   float acc[D / 8][4];    // O: 16 rows x D
   float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (scaled)
   float l_r[2] = {0.f, 0.f};              // this thread's share of the running sums
   zero(acc);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {  // the next tile's copy overlaps this tile's math
-      Tl::load(sK + (st ^ 1) * Tl::kElems, kb, (j + 1) * kRows, T_len, kv_ts, tid);
-      Tl::load(sV + (st ^ 1) * Tl::kElems, vb, (j + 1) * kRows, T_len, kv_ts, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int st = ring_next<kSt>(j, n_tiles, load_kv);
     __syncthreads();
     if (j == 0) qf.load(sQ, warp * 16, lane);
     const T* tK = sK + st * Tl::kElems;
@@ -508,7 +566,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    Tl::mma_pb(acc, s, tV, lane);   // O += P V, P from the score registers
+    Tl::mma_pb(acc, s, tV, lane, 0);   // O += P V, P from the score registers
     __syncthreads();  // this stage is read out before the next copy into it
   }
 
@@ -580,23 +638,21 @@ struct BwdArgs {
   float scale;
 };
 
-// Tiles of shared memory a backward block takes: two 2-stage rings, and two
-// tiles of its own rows where it does not hold them in registers.
-template <int D> constexpr int kBwdTiles = kHeldRows<D> ? 4 : 6;
-
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
   using Tl = Tile<T, D>;
+  constexpr int kSt = kStages<T, D>, kSplit = kColSplit<D>, NB = D / 8 / kSplit;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);                        // [2][tile]
-  T* sV = sK + 2 * Tl::kElems;                               // [2][tile]
+  T* sK = reinterpret_cast<T*>(smem);                        // [kSt][tile]
+  T* sV = sK + kSt * Tl::kElems;                             // [kSt][tile]
   // Q and dO: the rings' second stages when held, else tiles of their own
-  T* sQ = kHeldRows<D> ? sK + Tl::kElems : sV + 2 * Tl::kElems;
+  T* sQ = kHeldRows<D> ? sK + Tl::kElems : sV + kSt * Tl::kElems;
   T* sG = kHeldRows<D> ? sV + Tl::kElems : sQ + Tl::kElems;
-  float* sD = reinterpret_cast<float*>(sK + kBwdTiles<D> * Tl::kElems);   // [64]: row terms
+  float* sD = reinterpret_cast<float*>(sK + kBwdTiles<T, D> * Tl::kElems);   // [64]: row terms
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = blockIdx.x * kRows;
+  const int m0 = (blockIdx.x / kSplit) * kRows;
+  const int c0 = (blockIdx.x % kSplit) * (D / kSplit);   // this block's dQ columns
   const int64_t h_off = (int64_t)blockIdx.y * D;
   const int64_t b = blockIdx.z;
   const int64_t bh = b * gridDim.y + blockIdx.y;
@@ -608,11 +664,14 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   const int T_len = a.T_len;
   const float sl2 = a.scale * kLog2e;
   const int n_tiles = (T_len + kRows - 1) / kRows;
+  const auto load_kv = [&](int st, int j) {
+    Tl::load(sK + st * Tl::kElems, kb, j * kRows, T_len, a.ts, tid);
+    Tl::load(sV + st * Tl::kElems, vb, j * kRows, T_len, a.ts, tid);
+  };
 
   Tl::load(sQ, qb, m0, T_len, a.ts, tid);
   Tl::load(sG, gb, m0, T_len, a.o_ts, tid);
-  Tl::load(sK, kb, 0, T_len, a.ts, tid);
-  Tl::load(sV, vb, 0, T_len, a.ts, tid);
+  load_kv(0, 0);
   cp_async_commit();
 
   {  // D = rowsum(dO * O) of the block's rows while the copies fly: two threads a row
@@ -642,19 +701,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   }
   __syncthreads();   // held Q and dO are read out before tile 1 is copied over them
 
-  float dq[D / 8][4];
+  float dq[NB][4];
   float pdp[2] = {0.f, 0.f};   // this thread's share of rowsum(p * dp), rows g, g + 8
   zero(dq);
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      Tl::load(sK + (st ^ 1) * Tl::kElems, kb, (j + 1) * kRows, T_len, a.ts, tid);
-      Tl::load(sV + (st ^ 1) * Tl::kElems, vb, (j + 1) * kRows, T_len, a.ts, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int st = ring_next<kSt>(j, n_tiles, load_kv);
     __syncthreads();
     const T* tK = sK + st * Tl::kElems;
     const T* tV = sV + st * Tl::kElems;
@@ -675,7 +726,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
         pdp[r] = fmaf(p, dp[nb][e], pdp[r]);
         s[nb][e] = p * (dp[nb][e] - Dr[r]);   // ds
       }
-    Tl::mma_pb(dq, s, tK, lane);     // dQ += dS K
+    Tl::mma_pb(dq, s, tK, lane, c0);   // dQ += dS K
     __syncthreads();  // this stage is read out before the next copy into it
   }
 
@@ -686,11 +737,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
     float d = pdp[r];   // the four lanes of a row
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     d += __shfl_xor_sync(0xffffffffu, d, 2);
-    if (row < T_len) {
-      if ((lane & 3) == 0) a.delta[bh * T_len + row] = d;
-      T* out = dqb + (int64_t)row * a.ts + (lane & 3) * 2;
+    if (row < T_len) {   // a block pair's S and dP, and so d, are the same bits
+      if ((lane & 3) == 0 && c0 == 0) a.delta[bh * T_len + row] = d;
+      T* out = dqb + (int64_t)row * a.ts + c0 + (lane & 3) * 2;
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb)
+      for (int nb = 0; nb < NB; ++nb)
         Tl::store2(out + nb * 8, dq[nb][2 * r] * a.scale, dq[nb][2 * r + 1] * a.scale);
     }
   }
@@ -699,17 +750,19 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
   using Tl = Tile<T, D>;
+  constexpr int kSt = kStages<T, D>, kSplit = kColSplit<D>, NB = D / 8 / kSplit;
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);                          // [2][tile]
-  T* sG = sQ + 2 * Tl::kElems;                                 // [2][tile]: dO
+  T* sQ = reinterpret_cast<T*>(smem);                          // [kSt][tile]
+  T* sG = sQ + kSt * Tl::kElems;                               // [kSt][tile]: dO
   // K and V: the rings' second stages when held, else tiles of their own
-  T* sK = kHeldRows<D> ? sQ + Tl::kElems : sG + 2 * Tl::kElems;
+  T* sK = kHeldRows<D> ? sQ + Tl::kElems : sG + kSt * Tl::kElems;
   T* sV = kHeldRows<D> ? sG + Tl::kElems : sK + Tl::kElems;
-  float* sL = reinterpret_cast<float*>(sQ + kBwdTiles<D> * Tl::kElems);   // [2][64]: lse
+  float* sL = reinterpret_cast<float*>(sQ + kBwdTiles<T, D> * Tl::kElems);   // [2][64]: lse
   float* sDq = sL + 2 * kRows;                                 // [2][64]: D
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = blockIdx.x * kRows;
+  const int k0 = (blockIdx.x / kSplit) * kRows;
+  const int c0 = (blockIdx.x % kSplit) * (D / kSplit);   // this block's dK, dV columns
   const int64_t h_off = (int64_t)blockIdx.y * D;
   const int64_t b = blockIdx.z;
   const int64_t bh = b * gridDim.y + blockIdx.y;
@@ -721,8 +774,9 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   const float sl2 = a.scale * kLog2e;
   const int n_tiles = (T_len + kRows - 1) / kRows;
 
-  // a query tile: Q and dO rows, and the tile's lse and D (one thread each)
-  auto load_queries = [&](int st, int i0) {
+  // query tile j: Q and dO rows, and the tile's lse and D (one thread each)
+  const auto load_queries = [&](int st, int j) {
+    const int i0 = j * kRows;
     Tl::load(sQ + st * Tl::kElems, qb, i0, T_len, a.ts, tid);
     Tl::load(sG + st * Tl::kElems, gb, i0, T_len, a.o_ts, tid);
     const int c = tid & (kRows - 1), i = i0 + c;
@@ -745,18 +799,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   for (int r = 0; r < 2; ++r) key_ok[r] = k0 + warp * 16 + (lane >> 2) + 8 * r < T_len;
   __syncthreads();   // held K and V are read out before tile 1 is copied over them
 
-  float dk[D / 8][4], dv[D / 8][4];
+  float dk[NB][4], dv[NB][4];
   zero(dk);
   zero(dv);
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_queries(st ^ 1, (j + 1) * kRows);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int st = ring_next<kSt>(j, n_tiles, load_queries);
     __syncthreads();
     const T* tQ = sQ + st * Tl::kElems;
     const T* tG = sG + st * Tl::kElems;
@@ -775,7 +822,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
         s[nb][e] = key_ok[e >> 1] && i0 + c < T_len
                        ? exp2f(fmaf(s[nb][e], sl2, -(L[c] * kLog2e))) : 0.f;
       }
-    Tl::mma_pb(dv, s, tG, lane);     // dV += P^T dO
+    Tl::mma_pb(dv, s, tG, lane, c0);   // dV += P^T dO
     float dp[8][4];  // dP^T, then dS^T
     zero(dp);
     Tl::template mma_abt<true>(dp, vf, tG, lane);   // dP^T = V dO^T
@@ -783,11 +830,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[nb][e] = s[nb][e] * (dp[nb][e] - Dq[acc_col(lane, nb, e)]);
-    Tl::mma_pb(dk, dp, tQ, lane);    // dK += dS^T Q
+    Tl::mma_pb(dk, dp, tQ, lane, c0);  // dK += dS^T Q
     __syncthreads();  // this stage is read out before the next copy into it
   }
 
-  const int64_t out0 = b * a.bs + h_off;
+  const int64_t out0 = b * a.bs + h_off + c0;
   T* dkb = static_cast<T*>(a.dk) + out0;
   T* dvb = static_cast<T*>(a.dv) + out0;
 #pragma unroll
@@ -795,7 +842,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     if (!key_ok[r]) continue;
     const int64_t off = (int64_t)(k0 + warp * 16 + (lane >> 2) + 8 * r) * a.ts + (lane & 3) * 2;
 #pragma unroll
-    for (int nb = 0; nb < D / 8; ++nb) {
+    for (int nb = 0; nb < NB; ++nb) {
       Tl::store2(dkb + off + nb * 8, dk[nb][2 * r] * a.scale, dk[nb][2 * r + 1] * a.scale);
       Tl::store2(dvb + off + nb * 8, dv[nb][2 * r], dv[nb][2 * r + 1]);
     }
@@ -804,22 +851,23 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
 
 // ------------------------------------------------------------------ launch
 
-// Dynamic shared memory of each kernel, in bytes: the forward's five tiles
-// (Q and the K and V rings), the backward's four or six and its row values.
-template <typename T, int D> constexpr int kTileBytes = Tile<T, D>::kElems * (int)sizeof(T);
-template <typename T, int D> constexpr int kFwdSmem = 5 * kTileBytes<T, D>;
+// Dynamic shared memory of each kernel, in bytes: the forward's tiles (Q
+// and the K and V rings), the backward's (kBwdTiles) and its row values.
 template <typename T, int D>
-constexpr int kDqSmem = kBwdTiles<D> * kTileBytes<T, D> + kRows * 4;
+constexpr int kFwdSmem = (1 + 2 * kStages<T, D>) * kTileBytes<T, D>;
 template <typename T, int D>
-constexpr int kDkvSmem = kBwdTiles<D> * kTileBytes<T, D> + 4 * kRows * 4;
-constexpr int kSmemLimit = 232448;   // 227 KB, the most a block may opt in to
-static_assert(kFwdSmem<float, 128> <= kSmemLimit && kDqSmem<float, 128> <= kSmemLimit &&
-                  kDkvSmem<float, 128> <= kSmemLimit,
-              "fp32 at D = 128 must fit one block's shared memory");
+constexpr int kDqSmem = kBwdTiles<T, D> * kTileBytes<T, D> + kRows * 4;
+template <typename T, int D>
+constexpr int kDkvSmem = kBwdTiles<T, D> * kTileBytes<T, D> + 4 * kRows * 4;
+template <typename T, int D>
+constexpr bool kFits =
+    kFwdSmem<T, D> <= kSmemLimit && kDqSmem<T, D> <= kSmemLimit && kDkvSmem<T, D> <= kSmemLimit;
+static_assert(kFits<float, 128> && kFits<float, 192> && kFits<bf16, 192>,
+              "every instantiation must fit one block's shared memory");
 
 bool bad_shape(int B, int H, int T_len, int D) {
-  return (D != 64 && D != 96 && D != 128) || B <= 0 || H <= 0 || T_len <= 0 || B > 65535 ||
-         H > 65535;
+  return (D != 64 && D != 96 && D != 128 && D != 192) || B <= 0 || H <= 0 || T_len <= 0 ||
+         B > 65535 || H > 65535;
 }
 
 // 16-byte copies: every pointer 16-byte aligned, every stride a multiple of
@@ -886,15 +934,19 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
     return (int)cudaErrorInvalidValue;
   const FwdArgs f{q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale};
   const cudaStream_t s = (cudaStream_t)stream;
-  return D == 64 ? launch_fwd_d<T, 64>(f, s)
-                 : D == 96 ? launch_fwd_d<T, 96>(f, s) : launch_fwd_d<T, 128>(f, s);
+  switch (D) {
+    case 64: return launch_fwd_d<T, 64>(f, s);
+    case 96: return launch_fwd_d<T, 96>(f, s);
+    case 128: return launch_fwd_d<T, 128>(f, s);
+    default: return launch_fwd_d<T, 192>(f, s);
+  }
 }
 
 template <typename T, int D>
 int launch_bwd_d(const BwdArgs& a, int B, int H, cudaStream_t stream) {
   cudaError_t err = set_attributes<T, D>();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.T_len + kRows - 1) / kRows, H, B);
+  const dim3 grid((a.T_len + kRows - 1) / kRows * kColSplit<D>, H, B);
   attention_bwd_dq_kernel<T, D><<<grid, kThreads, kDqSmem<T, D>, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -912,8 +964,12 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, delta, T_len, bs, ts, o_bs, o_ts, scale};
   const cudaStream_t s = (cudaStream_t)stream;
-  return D == 64 ? launch_bwd_d<T, 64>(a, B, H, s)
-                 : D == 96 ? launch_bwd_d<T, 96>(a, B, H, s) : launch_bwd_d<T, 128>(a, B, H, s);
+  switch (D) {
+    case 64: return launch_bwd_d<T, 64>(a, B, H, s);
+    case 96: return launch_bwd_d<T, 96>(a, B, H, s);
+    case 128: return launch_bwd_d<T, 128>(a, B, H, s);
+    default: return launch_bwd_d<T, 192>(a, B, H, s);
+  }
 }
 
 }  // namespace

@@ -294,11 +294,11 @@ def test_attention_tc_numerics_match(T, against):
     check_tc_numerics(T, 2, 64, against)
 
 
-# The same at the wider head dims of bair_big/kth64_big/ucf101 (96) and
-# cityscapes_big (128), two heads.
+# The same at the wider head dims of bair_big/kth64_big/ucf101 (96),
+# cityscapes_big (128) and cityscapes_big_spade (192), two heads.
 @pytest.mark.parametrize("against", ["plain", "pallas"])
 @pytest.mark.parametrize("T", [64, 128])
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192])
 def test_attention_wide_heads_tc_numerics_match(d, T, against):
     check_tc_numerics(T, 2, d, against)
 
@@ -347,7 +347,7 @@ def test_attention_bwd_tc_numerics_match(T, h, against):
 
 @pytest.mark.parametrize("against", ["plain", "pallas"])
 @pytest.mark.parametrize("T", [64, 128])
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192])
 def test_attention_wide_heads_bwd_tc_numerics_match(d, T, against):
     check_bwd_tc_numerics(T, 2, d, against)
 
@@ -384,12 +384,12 @@ def test_attention_tf32x3_matches_pallas(T, h, direction):
 
 @pytest.mark.parametrize("direction", ["fwd", "vjp"])
 @pytest.mark.parametrize("T", [64, 128])
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192])
 def test_attention_wide_heads_tf32x3_matches_pallas(d, T, direction):
     check_tf32x3(T, 2, d, direction)
 
 
-@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("d", [96, 128, 192])
 def test_tf32x3_matmul_wide_heads_matches_jax(d):
     """q k^T (d-term sums) and p v as the fp32 kernels' 3xTF32 products at
     the wider head dims, against JAX's fp32 matmul at highest precision, per
@@ -440,12 +440,12 @@ def test_tf32_split_reconstructs(magnitude):
 
 
 def test_check_head_dim_takes_the_kernels_dims():
-    """The wrappers take head dims 64, 96 and 128 (one kernel instantiation
-    each) and refuse the rest, naming the ROADMAP item."""
-    for d in (64, 96, 128):
+    """The wrappers take head dims 64, 96, 128 and 192 (one kernel
+    instantiation each) and refuse the rest, naming where one is added."""
+    for d in (64, 96, 128, 192):
         ops.attention._check_head_dim("attention", d)
-    for d in (32, 192):
-        with pytest.raises(ValueError, match="supported.*F1"):
+    for d in (32, 256):
+        with pytest.raises(ValueError, match="supported.*csrc/attention.cu"):
             ops.attention._check_head_dim("attention", d)
 
 
