@@ -176,7 +176,7 @@ TRAIN_GRAD_REL = 1e-3
 # The cli phase: the shipped yml as a user runs it, with only the cadence
 # and the traffic cut to a few steps and one evaluation batch.
 CLI_CONFIG = "configs/smmnist_DDPM_big5.yml"
-CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=6", "training.val_freq=3",
+CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=3", "training.val_freq=3",
             "training.log_freq=1", "sampling.subsample=100", "sampling.batch_size=16",
             "sampling.max_data_iter=1"]
 
@@ -188,12 +188,45 @@ def _cli_launches(steps, evals):
             "attention_fwd": 10 * (steps + evals), "attention_bwd": 10 * steps}
 
 
-# Each cli run's launches: --train to 6 (6 steps, 2 validation losses, one
-# in-training video_gen of 4 blocks x (100 steps + denoise) = 404
-# evaluations), --resume_training to 9 (3 steps, 1 validation loss),
-# --video_gen (404 evaluations).
-CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 404), "resume": _cli_launches(3, 1),
-                "video_gen": _cli_launches(0, 404)}
+# The cli phase's runs, in order: (name, n_iters, flags, config mods beside
+# CLI_MODS). The evaluation modes' traffic is cut too: 32 videos for the FID
+# sample dump (2 shards of 16), 80 frames of one batch of 16 clips per
+# checkpoint for fast_fid. "{w}" is the directory of the stand-in metric
+# weights the phase writes, "{feats}" fast_fid's real-feature cache.
+FID_FLAGS = ["--fast_fid", "--ckpt", "6", "--fid_num_samples", "80", "--fid_batch_size", "16",
+             "--feats_dir", "{feats}"]
+CLI_RUNS = [
+    ("train", 6, ["--train"], []),
+    ("resume", 9, ["--train", "--resume_training"], []),
+    ("video_gen", 9, ["--video_gen", "--ckpt", "6"],
+     ["eval.i3d_weights={w}/i3d_torchscript.pt", "eval.lpips_weights={w}/lpips_alex_lin.pth",
+      "eval.lpips_alexnet_weights={w}/alexnet.pth"]),
+    ("test", 9, ["--test"], []),
+    ("sample", 9, ["--sample", "--ckpt", "9"], []),
+    ("sample_fid", 9, ["--sample", "--ckpt", "9"],
+     ["sampling.fid=true", "sampling.num_samples4fid=32"]),
+    ("fast_fid", 9, FID_FLAGS, ["eval.inception_weights={w}/inception.pt"]),
+    ("fast_fid_ensemble", 9, FID_FLAGS,
+     ["eval.inception_weights={w}/inception.pt", "fast_fid.ensemble=true"]),
+    ("fast_fid_cached", 9, FID_FLAGS, ["eval.inception_weights={w}/inception.pt"]),
+]
+# Each run's launches (a sampler block is 100 steps + denoise = 101
+# evaluations): --train to 6 (6 steps, 2 validation losses, in-training
+# video_gens at 3 and 6 of 4 blocks each), --resume_training to 9 (3 steps,
+# 1 validation loss, the video_gen at 9), --video_gen (4 blocks), --test
+# (checkpoints 3, 6, 9, 2 batches of 100 each), --sample (1 block), the FID
+# dump (2 blocks), fast_fid (checkpoints 6 and 9, 1 block each; the ensemble
+# samples 9 with 2 checkpoints: 2 evaluations a step), the cached rerun
+# (none).
+CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 404), "resume": _cli_launches(3, 1 + 404),
+                "video_gen": _cli_launches(0, 404), "test": _cli_launches(0, 3 * 2),
+                "sample": _cli_launches(0, 101), "sample_fid": _cli_launches(0, 2 * 101),
+                "fast_fid": _cli_launches(0, 2 * 101),
+                "fast_fid_ensemble": _cli_launches(0, 101 + 2 * 101),
+                "fast_fid_cached": _cli_launches(0, 0)}
+# The metric networks on the card against the same modules on the CPU, fp32
+# with TF32 off: within this share of the largest output.
+EVAL_NET_REL = 1e-4
 
 
 def emit(phase, **payload):
@@ -1028,14 +1061,76 @@ def phase_train_headline(card):
     return launches["float32"], step_ms
 
 
-def run_cli(exp, n_iters, *flags):
+def phase_eval_nets(card):
+    """The metric networks from seeded random weights in the real files'
+    schemas, on the card against the same module on the CPU (fp32, TF32
+    off): I3D on 2 videos of 16 frames (64 px, resized to 224), NCDHW and
+    channels_last_3d; LPIPS on 64 frame pairs of 128 px; the simple 2d
+    Inception and the TorchScript stand-in on 64 frames of 64 px. Device ms
+    per video, frame pair or image."""
+    import copy
+
+    from mcvd_tpu_torch.eval import i3d as I3D
+    from mcvd_tpu_torch.eval import lpips as LP
+    from mcvd_tpu_torch.eval import standins
+    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.RandomState(0)
+    videos = torch.from_numpy(rng.rand(2, 16, 64, 64, 1).astype(np.float32))
+    frames = [torch.from_numpy(rng.rand(64, 3, 128, 128).astype(np.float32)) * 2 - 1
+              for _ in range(2)]
+    images = torch.from_numpy(rng.rand(64, 3, 64, 64).astype(np.float32))
+    lpips_net = LP.LPIPSAlex()
+    lpips_net.load_state_dict(LP.convert_lpips_weights(
+        standins.alexnet_features_state_dict(2), standins.lpips_lin_state_dict(1)))
+    i3d = (I3D.build_embedder_from_state_dict(standins.i3d_state_dict(0)),
+           [I3D.preprocess_videos(videos)], 2, "video")
+    nets = {   # name: (CPU module, CPU inputs, items per call, unit, layout on the card)
+        "i3d": (*i3d, None),
+        "i3d_channels_last_3d": (*i3d, torch.channels_last_3d),
+        "lpips": (lpips_net.eval(), frames, 64, "frame pair", None),
+        "inception_simple2d": (I3D.build_embedder_from_state_dict(
+            standins.simple_state_dict(3, 2, feat_dim=2048)), [images], 64, "image", None),
+        "inception_torchscript": (standins.tiny_inception(3), [images], 64, "image", None),
+    }
+    out = {}
+    with torch.inference_mode():
+        pre_gpu = I3D.preprocess_videos(videos.cuda())
+        err = float((pre_gpu.cpu() - nets["i3d"][1][0]).abs().max())
+        check(err <= 1e-5, f"preprocess_videos on the card: {err}")
+        out["i3d_preprocess"] = dict(max_abs_err=err, ms_per_video=device_ms(
+            lambda: I3D.preprocess_videos(videos.cuda()), n=3, reps=3) / 2)
+        for name, (net, inputs, per, unit, fmt) in nets.items():
+            want = net(*inputs)
+            gnet = copy.deepcopy(net).cuda()
+            ginp = [x.cuda() for x in inputs]
+            if fmt is not None:
+                gnet = gnet.to(memory_format=fmt)
+                ginp = [x.contiguous(memory_format=fmt) for x in ginp]
+            got = gnet(*ginp).cpu()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            check(bool(torch.isfinite(got).all()) and err <= EVAL_NET_REL * scale,
+                  f"{name} on the card: max abs err {err}, largest output {scale}")
+            ms = device_ms(lambda: gnet(*ginp), n=3, reps=3)
+            out[name] = {"max_abs_err": err, "largest_output": scale, "out_shape": list(got.shape),
+                         "items_per_call": per, f"ms_per_{unit.replace(' ', '_')}": ms / per,
+                         "ms_per_call": ms}
+            del gnet, ginp
+    torch.cuda.empty_cache()
+    emit("eval_nets", card=card, rel_tol=EVAL_NET_REL, nets=out)
+
+
+def run_cli(exp, n_iters, *flags, mods=()):
     """One run of `python -m mcvd_tpu_torch.main` in a subprocess from the
     repo's root: (its log, the kernel launch counts it logged at its end,
     its wall seconds). The process starts with every count at 0."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "mcvd_tpu_torch.main", "--config", CLI_CONFIG, "--exp", exp,
            "--data_path", os.path.join(exp, "data"), "--ni", *flags, "--config_mod",
-           *CLI_MODS, f"training.n_iters={n_iters}"]
+           *CLI_MODS, f"training.n_iters={n_iters}", *mods]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
     wall_s = time.perf_counter() - t0
@@ -1061,21 +1156,83 @@ def _finite_metrics(d, what):
     return out
 
 
+def _finite(v, what):
+    check(isinstance(v, float) and np.isfinite(v), f"{what} = {v}")
+    return v
+
+
+def _eval_modes(exp, runs):
+    """The checks of the evaluation modes' runs (their files, finite
+    metrics); returns what the cli line reports of them."""
+    from mcvd_tpu_torch.compat import yaml_subset
+
+    logs, images = os.path.join(exp, "logs"), os.path.join(exp, "image_samples", "images")
+    out = {}
+    vid = yaml_subset.load_file(os.path.join(exp, "video_samples", "videos", "vid_metrics.yml"))
+    out["video_gen"] = {k: _finite(vid.get(k), f"vid_metrics.yml {k}")
+                        for k in ("mse", "psnr", "ssim", "lpips", "fvd")}
+    check(out["video_gen"]["lpips"] > 0, "video_gen: lpips is 0")
+    log = runs["video_gen"]["log"]
+    check("FVD: I3D from" in log and "LPIPS: lin heads" in log and "metric left out" not in log,
+          "video_gen: FVD or LPIPS was not built")
+    losses = runs["test"]["yml"]
+    check(sorted(losses) == [3, 6, 9], f"test_losses.yml checkpoints {sorted(losses)}")
+    out["test"] = {k: _finite(v, f"test loss of {k}") for k, v in losses.items()}
+    npz = np.load(os.path.join(images, "samples_9.npz"), allow_pickle=True)
+    shapes = {k: npz[k].shape for k in ("samples", "real", "cond")}
+    check(all(v == (16, 64, 64, 5) for v in shapes.values()), f"samples_9.npz {shapes}")
+    check(np.isfinite(npz["samples"]).all() and 0 <= npz["samples"].min()
+          and npz["samples"].max() <= 1, "samples_9.npz: samples outside [0, 1]")
+    out["sample"] = {k: list(v) for k, v in shapes.items()}
+    shards = sorted(f for f in os.listdir(images) if f.startswith("fid_samples_9_"))
+    check(shards == ["fid_samples_9_00000.npz", "fid_samples_9_00001.npz"],
+          f"FID sample shards {shards}")
+    for f in shards:
+        a = np.load(os.path.join(images, f))["samples"]
+        check(a.shape == (16, 64, 64, 5) and np.isfinite(a).all(), f"{f}: {a.shape}")
+    out["sample_fid_shards"] = len(shards)
+    for name, tags in (("fast_fid", ["6", "9"]), ("fast_fid_ensemble", ["6_ens1", "9_ens2"])):
+        fids = runs[name]["yml"]
+        check(sorted(fids) == [6, 9], f"{name}: fids.yml checkpoints {sorted(fids)}")
+        out[name] = {k: {m: _finite(v[m], f"{name} {k} {m}")
+                         for m in ("fid", "precision", "recall")} for k, v in fids.items()}
+        for t in tags:
+            feats = np.load(os.path.join(images, f"feats_{t}.npy"))
+            imgs = np.load(os.path.join(images, f"samples_{t}.npy"))
+            check(feats.shape == (80, 64) and imgs.shape == (80, 64, 64, 1),
+                  f"{name}: caches of {t}: {feats.shape}, {imgs.shape}")
+    check(runs["fast_fid_cached"]["yml"] == runs["fast_fid"]["yml"],
+          "fast_fid from its caches gave other numbers")
+    check(runs["fast_fid_cached"]["log"].count("features read from") == 2
+          and "loaded real features" in runs["fast_fid_ensemble"]["log"],
+          "fast_fid did not read its caches")
+    check("ensemble" in runs["fast_fid_ensemble"]["log"], "fast_fid ensemble: no ensemble")
+    return out
+
+
 def phase_cli(card, headline_ms):
     from mcvd_tpu_torch.compat import yaml_subset
     from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.eval import standins
     from mcvd_tpu_torch.models import get_model
     from mcvd_tpu_torch.train import checkpoints, create_train_state
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mcvd_cli_") as exp:
+        wdir = os.path.join(exp, "weights")
+        standins.write_standins(wdir, seed=0)
+        fill = {"w": wdir, "feats": os.path.join(exp, "feats")}
+        logs = os.path.join(exp, "logs")
+        yml_of = {"test": "test_losses.yml", "fast_fid": "fids.yml",
+                  "fast_fid_ensemble": "fids.yml", "fast_fid_cached": "fids.yml"}
         runs = {}
-        for name, n_iters, flags in (("train", 6, ["--train"]),
-                                     ("resume", 9, ["--train", "--resume_training"]),
-                                     ("video_gen", 9, ["--video_gen", "--ckpt", "6"])):
-            log, launches, wall_s = run_cli(exp, n_iters, *flags)
+        for name, n_iters, flags, mods in CLI_RUNS:
+            log, launches, wall_s = run_cli(exp, n_iters, *[f.format(**fill) for f in flags],
+                                            mods=[m.format(**fill) for m in mods])
             check_launches(launches, CLI_LAUNCHES[name], f"cli {name}")
             runs[name] = dict(log=log, launches=launches, wall_s=wall_s)
+            if name in yml_of:   # read before the next run rewrites it
+                runs[name]["yml"] = yaml_subset.load_file(os.path.join(logs, yml_of[name]))
         t1, t2 = _steps(runs["train"]["log"]), _steps(runs["resume"]["log"])
         check(sorted(t1) == [1, 2, 3, 4, 5, 6] and "training done at step 6" in
               runs["train"]["log"], f"cli train: steps {sorted(t1)}")
@@ -1083,7 +1240,6 @@ def phase_cli(card, headline_ms):
               and "training done at step 9" in runs["resume"]["log"],
               f"cli resume: steps {sorted(t2)}")
         # checkpoint_6 into a fresh state (other weights), here: the same bits
-        logs = os.path.join(exp, "logs")
         config = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                           CLI_CONFIG), CLI_MODS)
         model = get_model(config, generator=torch.Generator().manual_seed(99), device="cuda")
@@ -1105,20 +1261,20 @@ def phase_cli(card, headline_ms):
         torch.cuda.empty_cache()
         best = _finite_metrics(
             yaml_subset.load_file(os.path.join(logs, "best_metrics.yml")), "best_metrics.yml")
-        vid = _finite_metrics(yaml_subset.load_file(
-            os.path.join(exp, "video_samples", "videos", "vid_metrics.yml")), "vid_metrics.yml")
         vg = re.findall(r"video_gen: ([\d.]+) s for the harness", runs["video_gen"]["log"])
         check(len(vg) == 1, "cli video_gen: no harness time")
+        evals = _eval_modes(exp, runs)
     steady = {s: ms for s, ms in {**t1, **t2}.items() if s not in (1, 7)}
     loop_ms = statistics.median(steady.values())
-    emit("cli", card=card, config=CLI_CONFIG, config_mod=CLI_MODS, B=64, dtype="float32",
+    emit("cli", card=card, config=CLI_CONFIG, config_mod=CLI_MODS,
+         runs=[(n, f, m) for n, _, f, m in CLI_RUNS], B=64, dtype="float32",
          loop_ms_per_step=loop_ms, loop_ms_by_step={**t1, **t2},
          warmup_s={"train step 1": t1[1] / 1e3, "resume step 7": t2[7] / 1e3},
          train_headline_fp32_ms=headline_ms["float32"],
          loop_minus_headline_ms=loop_ms - headline_ms["float32"],
          video_gen_harness_s=float(vg[0]), wall_s={k: r["wall_s"] for k, r in runs.items()},
          launches={k: r["launches"] for k, r in runs.items()},
-         checkpoint_tensors_bit_equal=n_tensors, best_metrics=best, vid_metrics=vid)
+         checkpoint_tensors_bit_equal=n_tensors, best_metrics=best, eval_modes=evals)
     return {k: r["launches"] for k, r in runs.items()}
 
 
@@ -1139,6 +1295,7 @@ def main():
     phase_train_slice(card)
     phase_wide_heads(card)
     train_launches, headline_ms = phase_train_headline(card)
+    phase_eval_nets(card)
     phase_cli(card, headline_ms)
     check("jax" not in sys.modules, "jax was imported")
 

@@ -9,9 +9,9 @@ channels_last tensor with no copy, which is what the network takes.
 
 Random draws come either explicitly (the tests replay the JAX draws) or from
 a `torch.Generator`. The harness's metrics run on host numpy, as the JAX
-package's; LPIPS and FVD are callables that are None until their networks
-are ported (ROADMAP Queue 1 item 14), and are then skipped, as the JAX
-package skips them without weights.
+package's; LPIPS and FVD are callables (`eval/lpips.py`, `eval/i3d.py`),
+skipped where they are None, as the JAX package skips them without
+weights.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ logger = logging.getLogger(__name__)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
 
 
-def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule):
+def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
+                       ensemble: bool = False):
     """One reverse-diffusion block: block(params, init, cond, cond_mask=None,
     *, generator=None, inj_noise=None, step_noise=None) -> (B, H, W, F*C),
     the JAX sampler's `block(params, key, init, cond, cond_mask)` less the
@@ -58,8 +59,13 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule)
     math (x0 clip, posterior mean, noise add) stays fp32. The weights are
     cast at each call; a cast is reused while its source is the same tensor
     object at the same `_version`, so an in-place update of a weight (an
-    optimizer step) is seen at the next call. The ensemble mode is not
-    ported yet (ROADMAP Queue 1 item 5)."""
+    optimizer step) is seen at the next call.
+
+    With `ensemble=True`, `params` is a list of state dicts (checkpoints of
+    one model) and eps is the mean of the network's outputs over them, in
+    list order, at every step: upstream fast_ensemble_fid's
+    sum(scorenets[i](x, ...)) / num_ckpts (ncsn_runner.py:2624-2626), not an
+    average of metrics."""
     version = getattr(config.model, "version", "DDPM").upper()
     sampler = samplers_mod.get_sampler(version)
     sampling = config.sampling
@@ -73,25 +79,31 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule)
     )
     comp_dtype = _DTYPES[getattr(sampling, "compute_dtype", "float32")]
     net = copy.deepcopy(model).to(comp_dtype).eval()
-    casts = {}   # name -> (source tensor, its _version, the cast)
+    casts = {}   # (member, name) -> (source tensor, its _version, the cast)
 
-    def cast(name, t):
+    def cast(key, t):
         if not t.is_floating_point() or t.dtype == comp_dtype:
             return t
-        hit = casts.get(name)
+        hit = casts.get(key)
         if hit is None or hit[0] is not t or hit[1] != t._version:
-            hit = casts[name] = (t, t._version, t.detach().to(comp_dtype))
+            hit = casts[key] = (t, t._version, t.detach().to(comp_dtype))
         return hit[2]
 
     def block(params, init, cond, cond_mask=None, *, generator=None, inj_noise=None,
               step_noise=None):
         with torch.inference_mode():
-            weights = {k: cast(k, v) for k, v in params.items()}
+            members = params if ensemble else [params]
+            if ensemble and not members:
+                raise ValueError("ensemble block sampler: no state dicts")
+            weights = [{k: cast((i, k), v) for k, v in p.items()}
+                       for i, p in enumerate(members)]
             cond_c = None if cond is None else cond.permute(0, 3, 1, 2).to(comp_dtype)
 
             def eps_fn(x, labels):
-                out = functional_call(net, weights, (x.permute(0, 3, 1, 2).to(comp_dtype),
-                                                     labels, cond_c, cond_mask))
+                x_c = x.permute(0, 3, 1, 2).to(comp_dtype)
+                outs = [functional_call(net, w, (x_c, labels, cond_c, cond_mask))
+                        for w in weights]
+                out = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
                 return out.permute(0, 2, 3, 1)
 
             return sampler(init, eps_fn, sched, generator=generator,
@@ -186,17 +198,30 @@ def _metric_stats(values: np.ndarray):
     return avg, std, conf95
 
 
+def frechet_from_stats(mu1, sigma1, mu2, sigma2, eps: Optional[float] = None) -> float:
+    """The Frechet distance of two Gaussians, |mu1 - mu2|^2 + tr(sigma1 +
+    sigma2 - 2 sqrt(sigma1 sigma2)), the one copy of this math in the port.
+    With `eps`, a square root that is not finite is taken again with eps*I
+    added to both covariances (FID's rule, upstream fid_PR.py:53-100); without,
+    it stays as scipy gives it (FVD's, upstream models/fvd/fvd.py:275-287).
+    `sqrtm` is called without `disp`, which newer scipy releases dropped."""
+    from scipy.linalg import sqrtm
+
+    covmean = sqrtm(sigma1 @ sigma2)
+    if eps is not None and not np.isfinite(covmean).all():
+        offset = np.eye(sigma1.shape[0]) * eps
+        covmean = sqrtm((sigma1 + offset) @ (sigma2 + offset))
+    diff = mu1 - mu2
+    return float(diff @ diff + np.trace(sigma1) + np.trace(sigma2)
+                 - 2 * np.trace(covmean.real))
+
+
 def frechet_distance(x1: np.ndarray, x2: np.ndarray) -> float:
     """FVD/FID Frechet distance between feature sets (upstream
     models/fvd/fvd.py:275-287)."""
-    from scipy.linalg import sqrtm
-
     x1, x2 = x1.astype(np.float64), x2.astype(np.float64)
-    m1, m2 = x1.mean(axis=0), x2.mean(axis=0)
-    sigma1 = np.cov(x1, rowvar=False)
-    sigma2 = np.cov(x2, rowvar=False)
-    cs, _ = sqrtm(sigma1 @ sigma2, disp=False)
-    return float(np.sum((m1 - m2) ** 2) + np.trace(sigma1 + sigma2 - 2 * cs.real))
+    return frechet_from_stats(x1.mean(axis=0), np.cov(x1, rowvar=False),
+                              x2.mean(axis=0), np.cov(x2, rowvar=False))
 
 
 def _host(config, folded: torch.Tensor) -> np.ndarray:

@@ -3,15 +3,18 @@ flags it takes; upstream main.py:20-70):
 
     python -m mcvd_tpu_torch.main --config configs/smmnist_DDPM_big5.yml \\
         --exp EXP --train [--resume_training] | --video_gen [--ckpt N] \\
+        | --sample [--ckpt N] | --test [--ckpt B --end_ckpt E --freq K] \\
+        | --fast_fid [--ckpt B --end_ckpt E --freq K --feats_dir D --no_pr] \\
         [--config_mod section.key=value ...] [--device cuda|cpu]
 
 Config YAML -> nested namespace (the port's own YAML reader), typed
 `--config_mod` overrides, the experiment directory with the config and
 argument snapshots, and one process on one device: the card unless
 `--device cpu` (no card raises). TF32 is off: `compute_dtype: float32` runs
-fp32 convolutions and matmuls. `--sample`, `--test` and `--fast_fid` are
-not ported yet (ROADMAP Queue 1 item 11). At the end the kernels' launch
-counts of the run are logged ("kernel launches: {...}").
+fp32 convolutions and matmuls. The metric networks (FVD's I3D, LPIPS,
+fast_fid's Inception) take their weight files from `eval.*` or the default
+directories (`mcvd_tpu_torch/eval/weights.py`). At the end the kernels'
+launch counts of the run are logged ("kernel launches: {...}").
 """
 
 import argparse
@@ -26,9 +29,6 @@ import traceback
 # The port is imported inside the functions: a process that the training
 # loop spawns to draw its curves imports this module as its main, and should
 # not import torch for that.
-
-NOT_PORTED = ("sample", "test", "fast_fid")
-
 
 def parse_args_and_config(argv=None):
     from mcvd_tpu_torch.compat import yaml_subset
@@ -142,10 +142,6 @@ def snapshot_code(exp_dir: str) -> str:
 def main(argv=None):
     args, config = parse_args_and_config(argv)
     logging.info("args: %s", vars(args))
-    for mode in NOT_PORTED:
-        if getattr(args, mode):
-            raise NotImplementedError(f"--{mode}: not ported yet (ROADMAP Queue 1 item 11); "
-                                      f"the port runs --train and --video_gen")
 
     import torch
 
@@ -158,11 +154,17 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     try:
-        if not args.video_gen:
+        if not (args.video_gen or args.sample or args.test or args.fast_fid):
             logging.info("code snapshot: %s", snapshot_code(args.exp))
         runner = Runner(args, config)
         if args.video_gen:
             runner.video_gen(ckpt=args.ckpt)
+        elif args.sample:
+            runner.sample(ckpt=args.ckpt)
+        elif args.test:
+            runner.test(begin_ckpt=args.ckpt, end_ckpt=args.end_ckpt, freq=args.freq)
+        elif args.fast_fid:
+            runner.fast_fid()
         else:
             runner.train()
     except Exception:

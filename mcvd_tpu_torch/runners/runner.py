@@ -1,10 +1,15 @@
 """Training and evaluation orchestration (counterpart of
 `mcvd_tpu/runners/runner.py`; upstream NCSNRunner, runners/ncsn_runner.py).
 
-Modes ported: `train` (the loop, validation loss, rolling and numbered
-checkpoints, meters and plots, in-training video_gen at each snapshot) and
-`video_gen` (the three-pass metric harness from a checkpoint). `sample`,
-`test` and `fast_fid` wait for ROADMAP Queue 1 item 11.
+Modes: `train` (the loop, validation loss, rolling and numbered
+checkpoints, meters and plots, in-training video_gen at each snapshot),
+`video_gen` (the three-pass metric harness from a checkpoint, with FVD and
+LPIPS where their weight files are found), `sample` (a conditional batch, or
+the FID sample dump), `test` (the mean DSM loss over the test split per
+checkpoint) and `fast_fid` (FID and kNN precision/recall per checkpoint,
+plain or with an ensemble of checkpoints). The metric networks run on the
+runner's device. `sample`'s SMLD inpainting and interpolation branches wait
+for ROADMAP Queue 1 item 12.
 
 One process on one device: the card unless `args.device` is "cpu". The
 score network's GroupNorm and attention run through the port's kernels on
@@ -38,10 +43,11 @@ import torch
 
 from ..compat import yaml_subset
 from ..config import getattr_nested
-from ..data import DataLoader, get_dataset, prefetch_to_device
+from ..data import (DataLoader, conditioning_fn, data_transform, get_dataset,
+                    inverse_data_transform, prefetch_to_device)
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..diffusion import make_schedule
-from ..eval.video_gen import make_block_sampler, run_video_gen
+from ..eval.video_gen import init_noise, make_block_sampler, run_video_gen
 from ..models import get_model
 from ..train import checkpoints, create_train_state, make_eval_loss_step, make_train_step
 from . import meters as meters_mod
@@ -82,7 +88,7 @@ class Runner:
         self.sched = make_schedule(config)
         self.model = get_model(config, generator=torch.Generator().manual_seed(self.seed),
                                device=self.device)
-        self._block = None
+        self._blocks = {}
 
     # ------------------------------------------------------------------ utils
 
@@ -225,18 +231,23 @@ class Runner:
     # -------------------------------------------------------------- video_gen
 
     def _load_eval_params(self, ckpt: Optional[int] = None):
+        """(params, step) of checkpoint `ckpt` (the rolling one if None): the
+        EMA where model.ema is set, else the model's own tensors, which the
+        next load overwrites."""
         state = self._init_state()
         name = f"checkpoint_{ckpt}" if ckpt else "checkpoint"
         state = checkpoints.load_checkpoint(self._ckpt_dir(), name=name, target=state)
         params = state.ema_params if getattr(self.config.model, "ema", False) else state.params
         return params, state.step
 
-    def _guarded_block_sampler(self):
-        """The one block sampler of every evaluation, built once: it takes
-        the weights per call, so each snapshot reuses it."""
-        if self._block is None:
-            self._block = make_block_sampler(self.config, self.model, self.sched)
-        return self._block
+    def _guarded_block_sampler(self, ensemble: bool = False):
+        """The block sampler of every evaluation (one plain, one ensemble),
+        each built once: it takes the weights per call, so each snapshot and
+        checkpoint reuses it."""
+        if ensemble not in self._blocks:
+            self._blocks[ensemble] = make_block_sampler(self.config, self.model, self.sched,
+                                                        ensemble=ensemble)
+        return self._blocks[ensemble]
 
     def _video_gen_inner(self, state, test_ds, train: bool, ckpt: int,
                          lpips_fn=None, i3d_embedder=None):
@@ -294,26 +305,277 @@ class Runner:
         return vm
 
     def _metric_providers(self):
-        """LPIPS and FVD feature extractors: None, None. Their networks are
-        not ported (ROADMAP Queue 1 item 14); a config that names their
-        weights raises, so the metric does not go missing in silence."""
-        for key in ("eval.i3d_weights", "eval.lpips_weights"):
-            if getattr_nested(self.config, key):
-                raise NotImplementedError(
-                    f"{key} is set, but the port has no LPIPS or I3D network yet "
-                    f"(ROADMAP Queue 1 item 14); unset it to run without the metric")
-        return None, None
+        """(lpips_fn, i3d_embedder) on the runner's device, each built where
+        its weight files are found (`eval/weights.py`: the config's path, then
+        the default directories) and None where one is absent; the log names
+        each metric left out and why. A config path that is not a file, and
+        a file that is found but does not load, raise: a metric is never
+        dropped in silence, and never moved to the CPU."""
+        from ..eval import weights as W
+        from ..eval.i3d import make_i3d_embedder
+        from ..eval.lpips import make_lpips_fn
 
-    # -------------------------------------------------- modes not ported yet
+        def find(key, filename):
+            return W.find_weights(getattr_nested(self.config, key), filename)
+
+        i3d_embedder = lpips_fn = None
+        missing = []
+        i3d_path = find("eval.i3d_weights", W.I3D)
+        if i3d_path:
+            i3d_embedder = make_i3d_embedder(i3d_path, device=self.device)
+            logger.info("FVD: I3D from %s on %s", i3d_path, self.device)
+        else:
+            missing.append(f"FVD (no eval.i3d_weights, no {W.I3D} in {W.default_dirs()})")
+        lpips_path = find("eval.lpips_weights", W.LPIPS_LIN)
+        alex_path = find("eval.lpips_alexnet_weights", W.ALEXNET)
+        if lpips_path and alex_path:
+            lpips_fn = make_lpips_fn(lpips_path, alex_path, device=self.device)
+            logger.info("LPIPS: lin heads %s, AlexNet %s on %s", lpips_path, alex_path,
+                        self.device)
+        else:
+            why = [f"no eval.{k} and no {f} in {W.default_dirs()}" for k, f, p in
+                   (("lpips_weights", W.LPIPS_LIN, lpips_path),
+                    ("lpips_alexnet_weights", W.ALEXNET, alex_path)) if not p]
+            missing.append(f"LPIPS ({'; '.join(why)})")
+        for m in missing:
+            logger.info("metric left out: %s", m)
+        return lpips_fn, i3d_embedder
+
+    # ------------------------------------------------------------------ sample
+
+    def _test_split(self):
+        _, test_ds = get_dataset(self.args.data_path, self.config,
+                                 video_frames_pred=self.config.data.num_frames)
+        return test_ds
+
+    def _generate(self, block, params, X, generator):
+        """One block sampled on the cond of raw clips X, fully conditioned:
+        (gen, real, cond) in [0, 1] numpy, folded (B, H, W, F*C)."""
+        config = self.config
+        Xt = data_transform(config, torch.from_numpy(X).to(self.device))
+        real, cond, cond_mask = conditioning_fn(
+            config, Xt, num_frames_pred=config.data.num_frames, prob_mask_cond=0.0,
+            prob_mask_future=0.0, conditional=config.data.num_frames_cond > 0,
+            generator=generator)
+        C, F, sz = config.data.channels, config.data.num_frames, config.data.image_size
+        init = init_noise(config, self.sched, (X.shape[0], sz, sz, C * F),
+                          generator=generator, device=self.device)
+        cond = None if cond is None else cond.permute(0, 2, 3, 1)
+        gen = block(params, init, cond, cond_mask, generator=generator)
+        host = (lambda t: None if t is None else
+                inverse_data_transform(config, t).float().cpu().numpy())
+        return host(gen), host(real.permute(0, 2, 3, 1)), host(cond)
 
     def sample(self, ckpt: Optional[int] = None):
-        raise NotImplementedError("sample: not ported yet (ROADMAP Queue 1 item 11)")
+        """A conditional batch sampled from checkpoint `ckpt` into
+        `samples_{ckpt}.npz` (keys samples, real, cond: folded (B, H, W,
+        F*C) in [0, 1]; upstream `sample`, ncsn_runner.py:914-1301). With
+        sampling.fid, the FID sample dump instead."""
+        args, config = self.args, self.config
+        for opt in ("inpainting", "interpolation"):
+            if getattr(config.sampling, opt, False):
+                raise NotImplementedError(
+                    f"sample with sampling.{opt}: the SMLD Langevin branch is not ported "
+                    f"yet (ROADMAP Queue 1 item 12)")
+        if getattr(config.sampling, "fid", False):
+            return self._sample_fid_loop(ckpt)
+        params, step = self._load_eval_params(ckpt)
+        test_ds = self._test_split()
+        bs = self._eval_batch_size(getattr(config.sampling, "batch_size", 16), len(test_ds),
+                                   "sample()")
+        X, _ = next(iter(DataLoader(test_ds, batch_size=bs, shuffle=False, drop_last=True)))
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        samples, real, cond = self._generate(self._guarded_block_sampler(), params, X, gen)
+        out_dir = getattr(args, "image_folder", args.log_path)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, f"samples_{ckpt or step}.npz")
+        np.savez(path, samples=samples, real=real, cond=cond)
+        logger.info("wrote samples %s to %s", samples.shape, path)
+        return samples
 
-    def test(self, begin_ckpt=None, end_ckpt=None, freq=None):
-        raise NotImplementedError("test: not ported yet (ROADMAP Queue 1 item 11)")
+    def _sample_fid_loop(self, ckpt: Optional[int] = None):
+        """sampling.num_samples4fid videos for an offline FID, in batches
+        conditioned on shuffled test clips, as `fid_samples_{ckpt}_{i:05d}.npz`
+        shards (upstream ncsn_runner.py:1190-1301)."""
+        args, config = self.args, self.config
+        params, step = self._load_eval_params(ckpt)
+        total = getattr(config.sampling, "num_samples4fid", 10000)
+        test_ds = self._test_split()
+        bs = self._eval_batch_size(getattr(config.sampling, "batch_size", 16), len(test_ds),
+                                   "sample fid loop")
+        n_rounds = max(1, -(-total // bs))   # never undershoot
+        data_iter = iter(DataLoader(test_ds, batch_size=bs, shuffle=True, seed=self.seed,
+                                    repeat=True, drop_last=True))
+        block = self._guarded_block_sampler()
+        out_dir = getattr(args, "image_folder", args.log_path)
+        os.makedirs(out_dir, exist_ok=True)
+        gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        n_written = 0
+        for i in range(n_rounds):
+            X, _ = next(data_iter)
+            samples, _, _ = self._generate(block, params, X, gen)
+            np.savez(os.path.join(out_dir, f"fid_samples_{ckpt or step}_{i:05d}.npz"),
+                     samples=samples)
+            n_written += len(samples)
+        logger.info("wrote %d FID sample batches (%d videos) to %s", n_rounds, n_written,
+                    out_dir)
+        return n_written
+
+    # ------------------------------------------------------------------ test
+
+    def _sweep(self, begin=None, end=None, freq=None):
+        """The numbered checkpoints in [begin, end], thinned by checkpoint
+        number to every `freq`-th from the first (upstream range(begin, end,
+        freq), ncsn_runner.py:2370); [None] (the rolling checkpoint) if none."""
+        steps = [s for s in self._agreed_ckpt_steps(self._ckpt_dir())
+                 if (begin is None or s >= begin) and (end is None or s <= end)]
+        if freq and len(steps) > 1:
+            base = begin if begin is not None else steps[0]
+            steps = [s for s in steps if (s - base) % freq == 0]
+        return steps or [None]
+
+    def test(self, begin_ckpt: Optional[int] = None, end_ckpt: Optional[int] = None,
+             freq: Optional[int] = None):
+        """The mean DSM loss over the test split (`test.max_batches` caps the
+        batches) of each checkpoint of the sweep, into test_losses.yml
+        (upstream ncsn_runner.py:2370-2430). Every checkpoint sees the same
+        clips (a loader of its own, at epoch 0: the SMMNIST clips depend on
+        the epoch), and batch i draws its noise levels and noise from a
+        generator seeded with i, so the checkpoints differ only in their
+        weights."""
+        args, config = self.args, self.config
+        test_ds = self._test_split()
+        bs = self._eval_batch_size(config.test.batch_size, len(test_ds), "test()")
+        n_batches = len(test_ds) // bs
+        max_batches = getattr(config.test, "max_batches", None)
+        if max_batches is not None:
+            n_batches = min(n_batches, int(max_batches))
+        eval_fn = make_eval_loss_step(self.model, self.sched, config)
+        results = {}
+        for s in self._sweep(begin_ckpt, end_ckpt, freq):
+            params, loaded_step = self._load_eval_params(s)
+            losses = []
+            loader = DataLoader(test_ds, batch_size=bs, shuffle=False, drop_last=True)
+            for i, (X, _) in enumerate(loader):
+                if i >= n_batches:
+                    break
+                gen = torch.Generator(device=self.device).manual_seed(i)
+                losses.append(float(eval_fn(params, torch.from_numpy(X).to(self.device),
+                                            generator=gen)))
+            results[s or loaded_step] = float(np.mean(losses))
+            logger.info("ckpt %s: test DSM loss %.6f over %d batches", s or loaded_step,
+                        results[s or loaded_step], len(losses))
+        yaml_subset.dump_file(results, os.path.join(args.log_path, "test_losses.yml"))
+        return results
+
+    # ---------------------------------------------------------------- fast_fid
 
     def fast_fid(self):
-        raise NotImplementedError("fast_fid: not ported yet (ROADMAP Queue 1 item 11)")
+        """FID (with kNN precision/recall unless --no_pr) of each checkpoint
+        of the sweep, into fids.yml (upstream ncsn_runner.py:2432-2586):
+        fast_fid.num_samples frames sampled on the cond of test clips,
+        embedded by the Inception network on the runner's device, against
+        the test split's frames (embedded, or read from --feats_dir).
+        Samples and features are cached per checkpoint (`samples_{tag}.npy`,
+        `feats_{tag}.npy`) and read back on a later run. With
+        fast_fid.ensemble, each checkpoint samples with the score network's
+        outputs averaged over a trailing window of up to
+        fast_fid.num_ensembles checkpoints (upstream fast_ensemble_fid,
+        ncsn_runner.py:2588-2700)."""
+        from ..eval import weights as W
+        from ..eval.fid import (activation_statistics, calculate_frechet_distance,
+                                get_fid_pr, make_inception_embedder)
+
+        args, config = self.args, self.config
+        ff = config.fast_fid
+        inc_path = W.find_weights(getattr_nested(config, "eval.inception_weights"),
+                                  W.INCEPTION)
+        if not inc_path:
+            raise FileNotFoundError(
+                f"fast_fid needs Inception feature weights: set eval.inception_weights or put "
+                f"{W.INCEPTION} in one of {W.default_dirs()} (upstream downloads pt_inception)")
+        embed = make_inception_embedder(inc_path, device=self.device)
+        logger.info("FID: Inception from %s on %s", inc_path, self.device)
+
+        test_ds = self._test_split()
+        num_samples = getattr(ff, "num_samples", 1000)
+        bs = self._eval_batch_size(min(getattr(ff, "batch_size", 100), num_samples),
+                                   len(test_ds), "fast_fid")
+        k = getattr(ff, "pr_nn_k", 3)
+        no_pr = bool(getattr(args, "no_pr", False))
+        C, F = config.data.channels, config.data.num_frames
+
+        # real features: precomputed (--feats_dir, upstream fid_PR.py's
+        # feats-path registry) or embedded from the test split and cached
+        feat_r = None
+        feats_dir = getattr(args, "feats_dir", None)
+        real_cache = (os.path.join(feats_dir, f"{getattr(config.data, 'dataset', 'data')}"
+                                              f"_feats.npy") if feats_dir else None)
+        if real_cache and os.path.isfile(real_cache):
+            feat_r = np.load(real_cache)
+            logger.info("loaded real features from %s", real_cache)
+        if feat_r is None:
+            reals, n = [], 0
+            for X, _ in DataLoader(test_ds, batch_size=bs, shuffle=False):
+                reals.append(X.reshape(-1, *X.shape[2:]))
+                n += len(reals[-1])
+                if n >= num_samples:
+                    break
+            feat_r = embed(np.concatenate(reals)[:num_samples])
+            if real_cache:
+                os.makedirs(feats_dir, exist_ok=True)
+                np.save(real_cache, feat_r)
+
+        cache_dir = getattr(args, "image_folder", args.log_path)
+        os.makedirs(cache_dir, exist_ok=True)
+        ensemble = bool(getattr(ff, "ensemble", False))
+        num_ensembles = int(getattr(ff, "num_ensembles", 5))
+        block = self._guarded_block_sampler(ensemble=ensemble)
+        begin = getattr(args, "ckpt", None) or getattr(ff, "begin_ckpt", 0)
+        end = getattr(args, "end_ckpt", None) or getattr(ff, "end_ckpt", 10 ** 12)
+        eligible = self._sweep(begin, end, getattr(args, "freq", None))
+        fids = {}
+        for idx, s in enumerate(eligible):
+            params, loaded = self._load_eval_params(s)
+            tag = s or loaded
+            if ensemble:
+                # a trailing window of up to num_ensembles checkpoints ending
+                # at s; copies, as the next load may overwrite what a load gave
+                window = eligible[max(0, idx - (num_ensembles - 1)):idx + 1]
+                params = [{k: v.detach().clone() for k, v in self._load_eval_params(w)[0].items()}
+                          for w in window[:-1]] + [params]
+                tag = f"{tag}_ens{len(params)}"
+            feats_cache = os.path.join(cache_dir, f"feats_{tag}.npy")
+            if os.path.isfile(feats_cache):
+                feat_g = np.load(feats_cache)
+                logger.info("ckpt %s: features read from %s", tag, feats_cache)
+            else:
+                gen = torch.Generator(device=self.device).manual_seed(self.seed)
+                loader = iter(DataLoader(test_ds, batch_size=bs, shuffle=False, repeat=True,
+                                         drop_last=True))
+                samples, n = [], 0
+                while n < num_samples:
+                    X, _ = next(loader)
+                    g, _, _ = self._generate(block, params, X, gen)
+                    B, H, W_, _ = g.shape   # frames as images (B*F, H, W, C)
+                    samples.append(g.reshape(B, H, W_, F, C).transpose(0, 3, 1, 2, 4)
+                                   .reshape(B * F, H, W_, C))
+                    n += len(samples[-1])
+                sample_imgs = np.concatenate(samples)[:num_samples]
+                feat_g = embed(sample_imgs)
+                np.save(os.path.join(cache_dir, f"samples_{tag}.npy"), sample_imgs)
+                np.save(feats_cache, feat_g)
+            if no_pr:
+                mu_r, sig_r = activation_statistics(feat_r)
+                mu_g, sig_g = activation_statistics(feat_g)
+                res = {"fid": calculate_frechet_distance(mu_r, sig_r, mu_g, sig_g)}
+            else:
+                res = get_fid_pr(feat_r, feat_g, k=k)
+            fids[s or loaded] = res
+            logger.info("ckpt %s%s: %s", s or loaded, " (ensemble)" if ensemble else "", res)
+        out = {int(kk): {m: float(v) for m, v in vv.items()} for kk, vv in fids.items()}
+        yaml_subset.dump_file(out, os.path.join(args.log_path, "fids.yml"))
+        return out
 
 
 def _host_mem_gb() -> float:

@@ -313,6 +313,9 @@ sd = torch_state_dict_from_flax({"all_modules_0": {"kernel": np.zeros((2, 3)),
                                                    "bias": np.zeros(3)}})
 assert sorted(sd) == ["all_modules.0.bias", "all_modules.0.weight"], sorted(sd)
 assert "mcvd_tpu_torch.tools.profile_gn2" in sys.modules
+for m in ("eval.i3d", "eval.lpips", "eval.fid", "eval.weights", "eval.standins",
+          "load_model_from_ckpt", "quick_sample", "main"):
+    assert f"mcvd_tpu_torch.{m}" in sys.modules, m
 print(sorted(m for m in sys.modules if m in ("jax", "flax", "yaml", "mcvd_tpu")
              or m.startswith(("jax.", "flax.", "mcvd_tpu."))))
 """
@@ -328,6 +331,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
     files = sorted(glob.glob(os.path.join(REPO, "mcvd_tpu_torch", "**", "*.py"),
                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
+    for m in ("eval/i3d.py", "eval/lpips.py", "eval/fid.py", "eval/weights.py",
+              "eval/standins.py", "load_model_from_ckpt.py", "quick_sample.py"):
+        assert os.path.join(REPO, "mcvd_tpu_torch", m) in files, m
     hits = [(f, m.group(0).strip()) for f in files
             for m in bad.finditer(open(f, encoding="utf-8").read())]
     assert hits == []
