@@ -127,12 +127,21 @@ WIDE_ATTN_CASES = [(1024, 2, 96), (256, 3, 96), (64, 4, 96), (1024, 4, 96), (256
 ATTN_CASES = [(T, h, 64) for T, h in ATTN_SHAPES] + [(100, 2, 64)] + WIDE_ATTN_CASES
 # The full-width configs with wider heads (`wide_heads` phase): name ->
 # (head dim, parameter count of jax.eval_shape of the JAX init).
-WIDE_CONFIGS = {"bair_big": (96, 62_844_975), "cityscapes_big": (128, 116_551_695)}
-GN_FORMS = {  # name: (eps, affine, adagn, act)
-    "adagn_silu": (1e-5, False, True, True),
-    "affine": (1e-6, True, False, False),
-    "affine_silu": (1e-5, True, False, True),
+WIDE_CONFIGS = {"bair_big": (96, 62_844_975), "cityscapes_big": (128, 116_551_695),
+                "bair_big_spade": (96, 101_760_303),
+                "cityscapes_big_spade": (192, 432_180_623)}
+# The SPADE flagship (`spade` phase): configs/smmnist_DDPM_big5_spade.yml at
+# full width, and its parameter count (jax.eval_shape of the JAX init).
+SPADE_CONFIG = "configs/smmnist_DDPM_big5_spade.yml"
+SPADE_PARAM_COUNT = 53_953_989
+GN_FORMS = {  # name: (affine, adagn, act); each call's eps comes with its shape
+    "adagn_silu": (False, True, True),      # BigGAN resblocks' AdaGN (eps 1e-5)
+    "affine": (True, False, False),          # attention blocks (eps 1e-6)
+    "affine_silu": (True, False, True),      # output head (1e-5), DDPM resblocks (1e-6)
+    "plain": (False, False, False),          # SPADE's norm (eps 1e-6)
 }
+# GroupNorm calls of one evaluation of each model the kernel phases read.
+GN_CALLS = {"flagship": 67, "spade": 67, "ddpm_resblock": 55}
 # Kernel vs plain, both computing in fp32. fp32: the sums run in another
 # order (1e-4 over up to 4096*192 terms). bf16: both round the same fp32
 # value once to bf16, so they differ by at most one rounding step where the
@@ -155,6 +164,13 @@ ATTN_PATH = {"bfloat16": "mma.sync m16n8k16 bf16", "float32": "mma.sync m16n8k8 
 # whose sums run in another order; the first steps divide eps by
 # sqrt(alpha) ~ 0.0067 before the x0 clip.
 SLICE_ATOL = 5e-3
+# A 100-step DDIM block (eta 0: no noise along the chain) may end further
+# apart than SLICE_ATOL; its witness is the plain chain run again from an
+# init moved by WITNESS_REL of its largest value (about one evaluation's
+# rounding, 1.4e-5 of its largest output on the card). The kernels' chain
+# must end no further from the plain chain than WITNESS_FACTOR times that.
+WITNESS_REL = 1e-5
+WITNESS_FACTOR = 10.0
 # The training phases: each kernel once per GroupNorm and attention call of
 # one step, forward and backward.
 TRAIN_LAUNCHES = {"gn_fused": 67, "gn_fused_bwd": 67, "attention_fwd": 10, "attention_bwd": 10}
@@ -195,7 +211,7 @@ def _cli_launches(steps, evals):
 # weights the phase writes, "{feats}" fast_fid's real-feature cache.
 FID_FLAGS = ["--fast_fid", "--ckpt", "6", "--fid_num_samples", "80", "--fid_batch_size", "16",
              "--feats_dir", "{feats}"]
-CLI_RUNS = [
+CLI_RUNS = [   # on CLI_CONFIG
     ("train", 6, ["--train"], []),
     ("resume", 9, ["--train", "--resume_training"], []),
     ("video_gen", 9, ["--video_gen", "--ckpt", "6"],
@@ -223,7 +239,15 @@ CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 404), "resume": _cli_launches(
                 "sample": _cli_launches(0, 101), "sample_fid": _cli_launches(0, 2 * 101),
                 "fast_fid": _cli_launches(0, 2 * 101),
                 "fast_fid_ensemble": _cli_launches(0, 101 + 2 * 101),
-                "fast_fid_cached": _cli_launches(0, 0)}
+                "fast_fid_cached": _cli_launches(0, 0),
+                "spade_train": _cli_launches(3, 1 + 404),
+                "spade_video_gen_ddim": _cli_launches(0, 404)}
+# The SPADE runs, on SPADE_CONFIG in an experiment of their own: --train to 3
+# (3 steps, the validation loss and the in-training video_gen at 3, 4 blocks),
+# then --video_gen --ckpt 3 with DDIM (4 blocks of 100 steps + denoise).
+CLI_SPADE_RUNS = [("spade_train", 3, ["--train"], []),
+                  ("spade_video_gen_ddim", 3, ["--video_gen", "--ckpt", "3"],
+                   ["model.version=DDIM"])]
 # The metric networks on the card against the same modules on the CPU, fp32
 # with TF32 off: within this share of the largest output.
 EVAL_NET_REL = 1e-4
@@ -285,6 +309,48 @@ def record(summary, kernel, dtype_name, err):
         s["max_abs_err_fp32"] = max(s["max_abs_err_fp32"], err)
 
 
+def repo_path(rel):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def ddpm_resblock_config():
+    """The flagship with `model.resblock_type: ddpm` (DDPM resblocks, the
+    fused FIR up/down convs): no shipped config uses it; the JAX package
+    tests it."""
+    from mcvd_tpu_torch.config import flagship_config
+
+    config = flagship_config()
+    config.model.resblock_type = "ddpm"
+    return config
+
+
+def gn_cases(B):
+    """Every GroupNorm shape and form of one evaluation of the flagship, the
+    SPADE flagship and the DDPM-resblock flagship, read from the models by
+    `tools.gn_calls`, plus frames_last=2: (C, H, frames_last, form,
+    num_groups, eps, {model: calls per evaluation})."""
+    from collections import Counter, defaultdict
+
+    from mcvd_tpu_torch.config import flagship_config, load_config
+    from mcvd_tpu_torch.tools.gn_calls import form, group_norm_calls
+
+    models = {"flagship": flagship_config(), "spade": load_config(repo_path(SPADE_CONFIG)),
+              "ddpm_resblock": ddpm_resblock_config()}
+    per, groups = defaultdict(Counter), {}
+    for name, config in models.items():
+        calls = group_norm_calls(config, batch=B)
+        check(len(calls) == GN_CALLS[name],
+              f"{name}: {len(calls)} GroupNorm calls per evaluation, want {GN_CALLS[name]}")
+        for c in calls:
+            key = (c["C"], c["H"], form(c), c["eps"])
+            per[key][name] += 1
+            groups[key] = c["num_groups"]
+    cases = [(C, H, 1, f, groups[C, H, f, e], e, dict(per[C, H, f, e]))
+             for C, H, f, e in sorted(per)]
+    cases.append((64, 32, 2, "adagn_silu", 16, 1e-5, {}))   # frames_last=2: C*N = 128
+    return cases
+
+
 def phase_env():
     from mcvd_tpu_torch.tools.profile_gn2 import nvidia_smi
 
@@ -342,13 +408,10 @@ def host_us(fn, n=100, reps=3):
 
 
 def phase_kernels(card):
-    from collections import Counter
-
     from mcvd_tpu_torch import ops
     from mcvd_tpu_torch.tools.profile_gn2 import device_ms
     from mcvd_tpu_torch.ops import attention as A
     from mcvd_tpu_torch.ops import groupnorm as GN
-    from mcvd_tpu_torch.tools.gn_calls import form, group_norm_calls
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -358,20 +421,16 @@ def phase_kernels(card):
     cases = []
     summary = {k: {"max_abs_err": 0.0, "max_abs_err_fp32": 0.0} for k in ops.LAUNCHES}
 
-    # every GroupNorm shape and form of one flagship evaluation, read from the
-    # model; plus frames_last=2
-    calls = group_norm_calls(batch=B)
-    check(len(calls) == 67, f"{len(calls)} GroupNorm calls per evaluation, want 67")
-    per_eval = Counter((c["C"], c["H"], form(c)) for c in calls)
-    groups = {(c["C"], c["H"], form(c)): c["num_groups"] for c in calls}
-    gn_cases = [(C, H, 1, f, groups[C, H, f]) for C, H, f in sorted(per_eval)]
-    gn_cases.append((64, 32, 2, "adagn_silu", 16))   # frames_last=2: C*N = 128
-    gn_eval = {"ms": 0.0, "plain_ms": 0.0, "host_us": 0.0, "plain_host_us": 0.0}
+    # every GroupNorm shape and form of one evaluation of the three models,
+    # read from the models; plus frames_last=2
+    gn_eval = {m: {"ms": 0.0, "plain_ms": 0.0, "host_us": 0.0, "plain_host_us": 0.0}
+               for m in GN_CALLS}
+    shapes = gn_cases(B)
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
-            for C, H, N, fm, G in gn_cases:
-                eps, affine, adagn, act = GN_FORMS[fm]
+            for C, H, N, fm, G, eps, per_eval in shapes:
+                affine, adagn, act = GN_FORMS[fm]
                 CN = C * N
                 x = (torch.randn(B, H, H, CN, generator=g, device=dev) * 2 + 0.5).to(dtype)
                 x = x.permute(0, 3, 1, 2)   # channels_last NCHW
@@ -389,13 +448,13 @@ def phase_kernels(card):
                 with ops.reference_ops():
                     want = GN.group_norm(x, G, **kw)
                 err, ok = max_err(got, want, dn)
-                check(ok, f"group_norm {fm} C={C} H={H} N={N} {dn}: max err {err}")
+                check(ok, f"group_norm {fm} eps={eps} C={C} H={H} N={N} {dn}: max err {err}")
                 record(summary, "gn_fused", dn, err)
-                case = dict(op="group_norm", form=fm, B=B, C=C, H=H, frames_last=N, dtype=dn,
-                            max_abs_err=err, cluster=p.cluster,
+                case = dict(op="group_norm", form=fm, eps=eps, B=B, C=C, H=H, frames_last=N,
+                            dtype=dn, max_abs_err=err, cluster=p.cluster,
                             blocks=p.cluster * B, rows_per_block=p.rows, threads=p.threads,
                             smem=p.smem, max_active_clusters=GN.max_active_clusters(x, p, G),
-                            calls_per_eval=per_eval.get((C, H, fm), 0) if N == 1 else 0)
+                            calls_per_eval=per_eval)
                 case["ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
                 if dn == "bfloat16" or (C, H) == (192, 64):
                     case["host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
@@ -408,9 +467,12 @@ def phase_kernels(card):
                     if fm == "affine":   # one PyTorch call computes it, for comparison
                         w, b = kw["gamma"].to(dtype), kw["beta"].to(dtype)
                         case["library_ms"] = device_ms(lambda: F.group_norm(x, G, w, b, eps))
-                    if dn == "bfloat16" and N == 1:
-                        for k in gn_eval:
-                            gn_eval[k] += case["calls_per_eval"] * case[k]
+                    elif fm == "plain":
+                        case["library_ms"] = device_ms(lambda: F.group_norm(x, G, eps=eps))
+                    if dn == "bfloat16":
+                        for m, n in per_eval.items():
+                            for k in gn_eval[m]:
+                                gn_eval[m][k] += n * case[k]
                 cases.append(case)
 
     with torch.inference_mode():
@@ -458,7 +520,7 @@ def phase_kernels(card):
                     case["tflops"] = flops / case["ms"] / 1e9
                 cases.append(case)
     torch.cuda.synchronize()
-    emit("kernels", card=card, cases=cases, gn_per_eval_bf16=gn_eval)
+    emit("kernels", card=card, cases=cases, gn_per_eval_bf16_by_model=gn_eval)
     return cases, summary
 
 
@@ -565,69 +627,146 @@ def phase_profile_gn2(card, summary):
     return timing, launches
 
 
-def phase_slice(card):
+def model_calls(config, B):
+    """(GroupNorm calls, attention blocks) of one evaluation of `config`'s
+    model, read from the model."""
+    from mcvd_tpu_torch.models import UNetMoreDDPM
+    from mcvd_tpu_torch.models.blocks import AttnBlock
+    from mcvd_tpu_torch.tools.gn_calls import group_norm_calls
+
+    with torch.device("meta"):
+        n_attn = sum(isinstance(m, AttnBlock) for m in UNetMoreDDPM(config).modules())
+    return len(group_norm_calls(config, batch=B)), n_attn
+
+
+def block_vs_plain(config, seed, B, evals, what, per_eval=False, witness=False):
+    """One fp32 sampler block of `config` (its `model.version`, subsample and
+    gamma) on `_slice_model` weights, through the kernels and under
+    `ops.reference_ops()`, with the same weights (passed to the sampler per
+    call) and draws, and the launch counts of `evals` network evaluations
+    exactly. The two outputs agree within SLICE_ATOL. With `per_eval` the
+    sampler is run once more with each evaluation of the kernels' chain held
+    to the plain network on the same input (within TRAIN_GRAD_REL of its
+    largest output). With `witness` the end is held to the plain chain's
+    own sensitivity instead of SLICE_ATOL: the plain block again from init
+    moved by WITNESS_REL of its largest value must end at least 1 /
+    WITNESS_FACTOR as far from the plain block as the kernels' block does
+    (PERF.md §6). Returns the payload."""
     from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.config import flagship_config
-    from mcvd_tpu_torch.diffusion import make_schedule
+    from mcvd_tpu_torch.diffusion import make_schedule, samplers, subsample_schedule
     from mcvd_tpu_torch.eval import make_block_sampler
-    from mcvd_tpu_torch.models import get_model
-    from mcvd_tpu_torch.models.layers import init_weights
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config = flagship_config()
-    config.sampling.subsample = 10
-    model = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    model = _slice_model(config, seed)
     n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == FLAGSHIP_PARAM_COUNT, f"{n_params} params, JAX has {FLAGSHIP_PARAM_COUNT}")
-    # The zero-scale inits (each resblock's Conv_1, NIN_3, the output conv)
-    # leave a fresh model's eps near 1e-9, which would hide the kernels from
-    # this check: redraw those layers at scale 1.
-    for m in model.modules():
-        if getattr(m, "init_scale", None) == 0.0:
-            m.init_scale = 1.0
-    init_weights(model, torch.Generator().manual_seed(1))
     sched = make_schedule(config)
     block = make_block_sampler(config, model, sched)
-
-    B, sz = 4, config.data.image_size
-    g = torch.Generator(device="cuda").manual_seed(2)
-    cond = torch.rand(B, sz, sz, 5, generator=g, device="cuda") * 2 - 1
-    init = torch.randn(B, sz, sz, 5, generator=g, device="cuda")
-    step_noise = torch.randn(10, B, sz, sz, 5, generator=g, device="cuda")
+    d = config.data
+    sz, cf = d.image_size, d.channels * d.num_frames
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    cond = torch.rand(B, sz, sz, d.channels * d.num_frames_cond, generator=g,
+                      device="cuda") * 2 - 1
+    init = torch.randn(B, sz, sz, cf, generator=g, device="cuda")
+    steps, _, _, _, k_cum, _ = subsample_schedule(sched, config.sampling.subsample)
+    if getattr(config.model, "gamma", False):   # Gamma(k_i, 1) per step
+        conc = torch.as_tensor(k_cum, device="cuda").view(-1, 1, 1, 1, 1)
+        step_noise = torch._standard_gamma(conc.expand(len(steps), B, sz, sz, cf)
+                                           .contiguous(), generator=g)
+    else:
+        step_noise = torch.randn(len(steps), B, sz, sz, cf, generator=g, device="cuda")
     with torch.inference_mode():
         eps = model(init.permute(0, 3, 1, 2), torch.zeros(B, dtype=torch.long, device="cuda"),
                     cond.permute(0, 3, 1, 2))
     eps_std = float(eps.float().std())
-    check(eps_std > 0.05, f"eps std {eps_std}: the network output is degenerate")
+    check(eps_std > 0.05, f"{what}: eps std {eps_std}: the network output is degenerate")
     params = dict(model.named_parameters())
+    n_gn, n_attn = model_calls(config, B)
+    torch.cuda.synchronize()
     ops.reset_launches()
+    t0 = time.perf_counter()
     got = block(params, init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    check_launches(launches, {"gn_fused": 67 * 11, "attention_fwd": 10 * 11}, "slice")
+    check_launches(launches, {"gn_fused": n_gn * evals, "attention_fwd": n_attn * evals},
+                   f"{what} ({evals} evaluations)")
     with ops.reference_ops():
         want = block(params, init, cond, step_noise=step_noise)
     torch.cuda.synchronize()
     diff = float((got - want).abs().max())
-    check(bool(torch.isfinite(got).all()) and got.shape == (B, sz, sz, 5),
-          f"slice output {tuple(got.shape)} not finite")
-    check(diff <= SLICE_ATOL, f"slice kernels vs plain max abs diff {diff} > {SLICE_ATOL}")
-    emit("slice", card=card, B=B, steps=10, denoise=True, dtype="float32", params=n_params,
-         eps_std=eps_std, max_abs_diff=diff, atol=SLICE_ATOL,
-         out_range=[float(got.min()), float(got.max())], launches=launches)
+    check(bool(torch.isfinite(got).all()) and got.shape == (B, sz, sz, cf),
+          f"{what} output {tuple(got.shape)} not finite")
+    out = dict(B=B, version=config.model.version, steps=len(steps),
+               gamma=bool(getattr(config.model, "gamma", False)), evals=evals,
+               dtype="float32", params=n_params, eps_std=eps_std, max_abs_diff=diff,
+               out_range=[float(got.min()), float(got.max())], wall_s=wall_s,
+               launches=launches)
+    if witness:
+        delta = torch.randn(init.shape, generator=g, device="cuda")
+        delta *= WITNESS_REL * float(init.abs().max()) / float(delta.abs().max())
+        with ops.reference_ops():
+            moved = block(params, init + delta, cond, step_noise=step_noise)
+        far = float((moved - want).abs().max())
+        check(diff <= WITNESS_FACTOR * far,
+              f"{what} kernels vs plain max abs diff {diff} > {WITNESS_FACTOR} x the plain "
+              f"chain's own spread {far} from an init moved by {WITNESS_REL} of its largest")
+        out.update(witness_rel=WITNESS_REL, witness_max_abs_diff=far,
+                   witness_factor=WITNESS_FACTOR)
+    else:
+        check(diff <= SLICE_ATOL, f"{what} kernels vs plain max abs diff {diff} > {SLICE_ATOL}")
+        out.update(atol=SLICE_ATOL)
+    if not per_eval:
+        return out
+    cond_c = cond.permute(0, 3, 1, 2)
+    errs = []
+
+    def eps_fn(x, labels):   # the kernels' evaluation, held to the plain one
+        x_c = x.permute(0, 3, 1, 2)
+        e = model(x_c, labels, cond_c)
+        with ops.reference_ops():
+            e_ref = model(x_c, labels, cond_c)
+        errs.append(float((e - e_ref).abs().max()) / float(e_ref.abs().max()))
+        return e.permute(0, 2, 3, 1)
+
+    sampling = config.sampling
+    model.eval()
+    with torch.inference_mode():
+        chain = samplers.get_sampler(config.model.version)(
+            init, eps_fn, sched, subsample_steps=sampling.subsample,
+            denoise=getattr(sampling, "denoise", True),
+            clip_before=getattr(sampling, "clip_before", True),
+            gamma=bool(getattr(config.model, "gamma", False)), step_noise=step_noise)[-1]
+    check(len(errs) == evals, f"{what}: {len(errs)} evaluations, want {evals}")
+    check(max(errs) <= TRAIN_GRAD_REL, f"{what}: an evaluation of the chain is off its plain "
+                                       f"version by {max(errs)} of its largest output")
+    return dict(out, per_eval_rel_err=max(errs), per_eval_rel_tol=TRAIN_GRAD_REL,
+                rerun_max_abs_diff=float((chain - got).abs().max()))
 
 
-def phase_headline(card):
-    from mcvd_tpu_torch import ops
+def phase_slice(card):
     from mcvd_tpu_torch.config import flagship_config
+
+    config = flagship_config()
+    config.sampling.subsample = 10
+    out = block_vs_plain(config, 0, 4, 11, "slice")
+    check(out["params"] == FLAGSHIP_PARAM_COUNT,
+          f"{out['params']} params, JAX has {FLAGSHIP_PARAM_COUNT}")
+    emit("slice", card=card, denoise=True, **out)
+
+
+def headline(config):
+    """The bench protocol on `config`'s model (random weights from a seed):
+    B=16, 100-step DDPM + denoise, 16 frames of 64x64 predicted in 4 blocks
+    on the cond frames, bf16 score network; one warm-up and 3 timed
+    requests with exact launch counts. Returns the payload."""
+    from mcvd_tpu_torch import ops
     from mcvd_tpu_torch.diffusion import make_schedule
     from mcvd_tpu_torch.eval import autoregressive_predict, make_block_sampler
     from mcvd_tpu_torch.models import get_model
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    config = flagship_config()
     config.sampling.compute_dtype = "bfloat16"
     B, n_pred = 16, 16
     config.sampling.subsample = 100
@@ -636,11 +775,13 @@ def phase_headline(card):
     sched = make_schedule(config)
     block = make_block_sampler(config, model, sched)
     params = dict(model.named_parameters())
-    sz, F = config.data.image_size, config.data.num_frames
+    d = config.data
+    sz, F = d.image_size, d.num_frames
     n_blocks = ceil(n_pred / F)
     evals = n_blocks * (config.sampling.subsample + 1)
+    n_gn, n_attn = model_calls(config, B)
     g = torch.Generator(device="cuda").manual_seed(3)
-    cond = torch.randn(B, sz, sz, config.data.num_frames_cond, generator=g, device="cuda")
+    cond = torch.randn(B, sz, sz, d.channels * d.num_frames_cond, generator=g, device="cuda")
 
     def request():
         ops.reset_launches()
@@ -652,21 +793,83 @@ def phase_headline(card):
 
     torch.cuda.reset_peak_memory_stats()
     _, warm_s, _ = request()
-    want = {"gn_fused": 67 * evals, "attention_fwd": 10 * evals}
+    want = {"gn_fused": n_gn * evals, "attention_fwd": n_attn * evals}
     times, launches = [], None
     for _ in range(3):
         out, dt, launches = request()
         check_launches(launches, want, "request")
-        check(out.shape == (B, sz, sz, n_pred) and bool(torch.isfinite(out).all()),
+        check(out.shape == (B, sz, sz, n_pred * d.channels) and bool(torch.isfinite(out).all()),
               f"headline output {tuple(out.shape)} not finite")
         times.append(dt)
     fps = B * n_pred / statistics.mean(times)
-    emit("headline", card=card, B=B, steps=config.sampling.subsample, denoise=True,
-         frames_pred=n_pred, blocks=n_blocks, evals_per_request=evals, dtype="bfloat16",
-         warmup_s=warm_s, request_s=times, frames_per_s=fps,
-         ms_per_eval=1000 * statistics.mean(times) / evals,
-         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
-    return launches
+    return dict(B=B, steps=config.sampling.subsample, denoise=True, frames_pred=n_pred,
+                blocks=n_blocks, evals_per_request=evals, dtype="bfloat16", warmup_s=warm_s,
+                request_s=times, frames_per_s=fps,
+                ms_per_eval=1000 * statistics.mean(times) / evals,
+                launches_per_eval={k: v / evals for k, v in launches.items() if v},
+                peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches)
+
+
+def phase_headline(card):
+    from mcvd_tpu_torch.config import flagship_config
+
+    out = headline(flagship_config())
+    emit("headline", card=card, **out)
+    return out["launches"]
+
+
+def phase_spade(card):
+    """configs/smmnist_DDPM_big5_spade.yml at full width (random weights from
+    a seed): one fp32 sampler block with kernels on and off, the bf16
+    headline protocol, and one B=64 fp32 training step with kernels on and
+    off, then 3 timed fp32 steps at B=64. Launch counts exact (67 GroupNorm
+    and 10 attention calls an evaluation, read from the model)."""
+    from mcvd_tpu_torch.config import load_config
+
+    def config():
+        return load_config(repo_path(SPADE_CONFIG))
+
+    n_gn, n_attn = model_calls(config(), 16)
+    check((n_gn, n_attn) == (GN_CALLS["spade"], 10), f"spade: {n_gn} GroupNorm and "
+                                                      f"{n_attn} attention calls an evaluation")
+    c = config()
+    c.sampling.subsample = 10
+    block = block_vs_plain(c, 30, 4, 11, "spade block")
+    check(block["params"] == SPADE_PARAM_COUNT,
+          f"spade: {block['params']} params, JAX has {SPADE_PARAM_COUNT}")
+    torch.cuda.empty_cache()
+    request = headline(config())
+    torch.cuda.empty_cache()
+    step_launches = {"gn_fused": n_gn, "gn_fused_bwd": n_gn, "attention_fwd": n_attn,
+                     "attention_bwd": n_attn}
+    step = train_step_vs_plain(config(), 31, 64, step_launches, "spade")
+    torch.cuda.empty_cache()
+    timed_steps = train_steps(config(), "float32", 3, step_launches)
+    emit("spade", card=card, config=SPADE_CONFIG, params=block["params"], block=block,
+         headline=request, train_step=step, train_steps_fp32=timed_steps)
+    torch.cuda.empty_cache()
+
+
+def phase_samplers(card):
+    """The flagship fp32 block (B=4, subsample 100) under DDIM (101
+    evaluations), F-PNDM (109) and DDPM with gamma noise (101, Gamma draws
+    fed to both runs): kernels on and off, each evaluation of the chain held
+    to the plain network (`block_vs_plain` with per_eval), launch counts
+    exact; the ends within SLICE_ATOL, DDIM's within its plain chain's own
+    spread (the witness)."""
+    from mcvd_tpu_torch.config import flagship_config
+
+    out = {}
+    for name, version, gamma, evals in (("ddim", "DDIM", False, 101),
+                                        ("fpndm", "FPNDM", False, 109),
+                                        ("ddpm_gamma", "DDPM", True, 101)):
+        config = flagship_config()
+        config.model.version = version
+        config.model.gamma = gamma
+        config.sampling.subsample = 100
+        out[name] = block_vs_plain(config, 40, 4, evals, f"samplers {name}", per_eval=True,
+                                   witness=version == "DDIM")
+    emit("samplers", card=card, **out)
 
 
 def grad_err(got, want, dtype_name):
@@ -683,12 +886,9 @@ def grad_err(got, want, dtype_name):
 
 
 def phase_train_kernels(card, summary):
-    from collections import Counter
-
     from mcvd_tpu_torch import ops
     from mcvd_tpu_torch.ops import attention as A
     from mcvd_tpu_torch.ops import groupnorm as GN
-    from mcvd_tpu_torch.tools.gn_calls import form, group_norm_calls
     from mcvd_tpu_torch.tools.profile_gn2 import device_ms
     from mcvd_tpu_torch.tools.profile_gn_bwd import cold_ms
 
@@ -697,21 +897,19 @@ def phase_train_kernels(card, summary):
     g = torch.Generator(device="cuda").manual_seed(5)
     dev, B = "cuda", 16
     cases = []
-    calls = group_norm_calls(batch=B)
-    per_eval = Counter((c["C"], c["H"], form(c)) for c in calls)
-    groups = {(c["C"], c["H"], form(c)): c["num_groups"] for c in calls}
-    gn_cases = [(C, H, 1, f, groups[C, H, f]) for C, H, f in sorted(per_eval)]
-    gn_cases.append((64, 32, 2, "adagn_silu", 16))   # frames_last=2: C*N = 128
-    gn_step = {"float32": 0.0, "bfloat16": 0.0}      # device ms of the 67 backwards
+    shapes = gn_cases(B)
+    # device ms of one step's GroupNorm backwards, by model and dtype
+    gn_step = {m: {"float32": 0.0, "bfloat16": 0.0} for m in GN_CALLS}
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[-1]
-        for C, H, N, fm, G in gn_cases:
-            eps, affine, adagn, act = GN_FORMS[fm]
+        for C, H, N, fm, G, eps, per_step in shapes:
+            affine, adagn, act = GN_FORMS[fm]
             CN = C * N
             x = (torch.randn(B, H, H, CN, generator=g, device=dev) * 2 + 0.5).to(dtype)
             x = x.permute(0, 3, 1, 2)   # channels_last NCHW
             dy = torch.randn(B, H, H, CN, generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
             prm = {"gamma": None, "beta": None, "scale": None, "shift": None}
+            leaves = [x]
             if affine:   # in the compute dtype, as the bf16 step casts the parameters
                 prm["gamma"] = (1 + 0.1 * torch.randn(C, generator=g, device=dev)).to(dtype)
                 prm["beta"] = (0.1 * torch.randn(C, generator=g, device=dev)).to(dtype)
@@ -724,6 +922,7 @@ def phase_train_kernels(card, summary):
             if adagn:
                 prm["scale"], prm["shift"] = ss.chunk(2, dim=1)
             kw = dict(eps=eps, frames_last=N, act=act, **prm)
+            what = f"{fm} eps={eps} C={C} H={H} N={N} {dn}"
             before = dict(ops.LAUNCHES)
             got = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
             check(ops.LAUNCHES["gn_fused"] == before["gn_fused"] + 1 and
@@ -734,7 +933,7 @@ def phase_train_kernels(card, summary):
             err = 0.0
             for i, (a, b) in enumerate(zip(got, want)):
                 e, ok = grad_err(a, b, dn)
-                check(ok, f"gn_fused_bwd {fm} C={C} H={H} N={N} {dn} input {i}: max err {e}")
+                check(ok, f"gn_fused_bwd {what} input {i}: max err {e}")
                 err = max(err, e)
             # the backward alone, from the forward's saved statistics
             xd = x.detach()
@@ -750,20 +949,20 @@ def phase_train_kernels(card, summary):
                 once = GN.group_norm_bwd(*args, p=p)
                 check(all(torch.equal(a, b) for a, b in
                           zip(once, GN.group_norm_bwd(*args, p=p)) if a is not None),
-                      f"gn_fused_bwd {route} {fm} C={C} H={H} N={N} {dn}: two calls differ")
+                      f"gn_fused_bwd {route} {what}: two calls differ")
                 mine = [once[0]] + ([torch.cat(once[3:], dim=1)] if adagn else list(once[1:3]))
                 for i, (a, b) in enumerate(zip(mine, want)):
                     e, ok = grad_err(a, b, dn)
-                    check(ok, f"gn_fused_bwd {route} {fm} C={C} H={H} N={N} {dn} input {i}: "
-                              f"max err {e}")
+                    check(ok, f"gn_fused_bwd {route} {what} input {i}: max err {e}")
                     err = max(err, e)
             record(summary, "gn_fused_bwd", dn, err)
-            case = dict(op="group_norm_bwd", form=fm, B=B, C=C, H=H, frames_last=N, dtype=dn,
-                        max_abs_err=err, route="split" if picked.split else "cluster",
+            case = dict(op="group_norm_bwd", form=fm, eps=eps, B=B, C=C, H=H, frames_last=N,
+                        dtype=dn, max_abs_err=err, route="split" if picked.split else "cluster",
                         launches_per_call=2 if picked.split or affine else 1,
-                        calls_per_step=per_eval.get((C, H, fm), 0) if N == 1 else 0)
+                        calls_per_step=per_step)
             case["ms"] = device_ms(lambda: GN.group_norm_bwd(*args))
-            gn_step[dn] += case["calls_per_step"] * case["ms"]
+            for m, n in per_step.items():
+                gn_step[m][dn] += n * case["ms"]
             if (C, H) == (192, 64):   # and with L2 flushed before each call
                 case["cold_ms"] = cold_ms(lambda: GN.group_norm_bwd(*args))
             if dn == "bfloat16" or (C, H) == (192, 64):
@@ -772,12 +971,17 @@ def phase_train_kernels(card, summary):
                 case["bound_ms"], case["bound_by"] = bound(3 * nbytes(x), 12 * x.numel(),
                                                            "fp32")
                 case["library_ms"] = None   # no one PyTorch call does AdaGN or the SiLU
-                if fm == "affine":   # autograd of F.group_norm, for comparison
+                if fm in ("affine", "plain"):   # autograd of F.group_norm, for comparison
                     xl = xd.clone().requires_grad_()
-                    wl, bl = (pd[k].clone().requires_grad_() for k in ("gamma", "beta"))
-                    yl = F.group_norm(xl, G, wl, bl, eps)
+                    lib_leaves = [xl]
+                    if fm == "affine":
+                        wl, bl = (pd[k].clone().requires_grad_() for k in ("gamma", "beta"))
+                        lib_leaves += [wl, bl]
+                        yl = F.group_norm(xl, G, wl, bl, eps)
+                    else:
+                        yl = F.group_norm(xl, G, eps=eps)
                     case["library_ms"] = device_ms(lambda: torch.autograd.grad(
-                        yl, [xl, wl, bl], dy, retain_graph=True))
+                        yl, lib_leaves, dy, retain_graph=True))
             cases.append(case)
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -847,7 +1051,7 @@ def phase_train_kernels(card, summary):
                 case["tflops"] = flops / case["ms"] / 1e9
             cases.append(case)
     torch.cuda.synchronize()
-    emit("train_kernels", card=card, cases=cases, gn_bwd_ms_per_step_at_B16=gn_step)
+    emit("train_kernels", card=card, cases=cases, gn_bwd_ms_per_step_at_B16_by_model=gn_step)
     return cases
 
 
@@ -865,13 +1069,14 @@ def _slice_model(config, seed):
     return model
 
 
-def train_step_vs_plain(config, seed, B, want_launches, what):
+def train_step_vs_plain(config, seed, B, want_launches, what, model=None):
     """One fp32 training step of `config`'s model (zero-scale layers redrawn,
     dropout 0, warmup 0) through the kernels and under `ops.reference_ops()`
     from the same weights and draws: loss, grad_norm, every gradient
     (through Adam's first moment), the updated parameters and the EMA held
-    to the train tolerances, and the kernels' exact launch counts. Returns
-    the phase's payload."""
+    to the train tolerances, and the kernels' exact launch counts. `model` is
+    `_slice_model(config, seed)` built by the caller with dropout 0, else it
+    is built here. Returns the phase's payload."""
     import contextlib
 
     from mcvd_tpu_torch import ops
@@ -883,7 +1088,7 @@ def train_step_vs_plain(config, seed, B, want_launches, what):
     config.model.dropout = 0.0
     config.optim.warmup = 0   # with warmup the first update is exactly zero
     lr = config.optim.lr
-    model = _slice_model(config, seed)
+    model = model if model is not None else _slice_model(config, seed)
     n_params = sum(p.numel() for p in model.parameters())
     weights = {k: v.clone() for k, v in model.state_dict().items()}
     sched = make_schedule(config)
@@ -951,24 +1156,28 @@ def phase_train_slice(card):
 
 
 def phase_wide_heads(card):
-    """bair_big (D=96, 64 px) and cityscapes_big (D=128, 128 px) at full
-    width, random weights from a seed: one fp32 network evaluation and one
-    fp32 training step (B=4) through the kernels against `reference_ops()`,
-    with exact launch counts (the model's GroupNorm and attention calls)."""
-    from mcvd_tpu_torch import config as port_config
+    """The shipped configs with wider heads at full width (`WIDE_CONFIGS`,
+    read with the port's load_config): bair_big (D=96, 64 px),
+    cityscapes_big (D=128, 128 px), bair_big_spade (D=96) and
+    cityscapes_big_spade (D=192, 128 px), random weights from a seed: one
+    fp32 network evaluation and one fp32 training step (B=4) through the
+    kernels against `reference_ops()`, with exact launch counts (the model's
+    GroupNorm and attention calls)."""
     from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.config import load_config
     from mcvd_tpu_torch.models.blocks import AttnBlock
-    from mcvd_tpu_torch.tools.gn_calls import group_norm_calls
 
     launches = {}
     for name, (head_dim, n_jax) in WIDE_CONFIGS.items():
-        config = getattr(port_config, f"{name}_config")()
+        config = load_config(repo_path(f"configs/{name}.yml"))
+        config.model.dropout = 0.0   # as train_step_vs_plain, which reuses the model
         B = 4
-        n_gn = len(group_norm_calls(config, batch=B))
+        n_gn, n_attn = model_calls(config, B)
         model = _slice_model(config, 20)
         attn = [m for m in model.modules() if isinstance(m, AttnBlock)]
-        n_attn = len(attn)
+        check(len(attn) == n_attn, f"{name}: {len(attn)} attention blocks, want {n_attn}")
         dims = {m.NIN_0.W.shape[0] // m.n_heads for m in attn}
+        heads = sorted({m.n_heads for m in attn})
         check(dims == {head_dim}, f"{name}: attention head dims {dims}, want {head_dim}")
         n_params = sum(p.numel() for p in model.parameters())
         check(n_params == n_jax, f"{name}: {n_params} params, JAX has {n_jax}")
@@ -991,73 +1200,89 @@ def phase_wide_heads(card):
                            f"{name} evaluation")
             with ops.reference_ops():
                 want = model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
+            eval_ms = []   # the evaluation's wall, synchronised, after the two above
+            for _ in range(3):
+                t0 = time.perf_counter()
+                model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
+                torch.cuda.synchronize()
+                eval_ms.append(1e3 * (time.perf_counter() - t0))
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f"{name} evaluation output {tuple(got.shape)} not finite")
         big = float(want.abs().max())
         diff = float((got - want).abs().max())
         check(diff <= TRAIN_GRAD_REL * big,
               f"{name} evaluation: kernels vs plain max abs diff {diff}, largest {big}")
-        del model
-        torch.cuda.empty_cache()
         want_launches = {"gn_fused": n_gn, "gn_fused_bwd": n_gn, "attention_fwd": n_attn,
                          "attention_bwd": n_attn}
-        step = train_step_vs_plain(config, 20, B, want_launches, name)
+        step = train_step_vs_plain(config, 20, B, want_launches, name, model=model)
+        del model, attn
         launches[name] = step["launches"]
         emit("wide_heads", card=card, config=name, head_dim=head_dim, image_size=sz,
-             heads=sorted({m.n_heads for m in attn}), params=n_params,
+             heads=heads, params=n_params,
+             spade=bool(getattr(config.model, "spade", False)),
              eval=dict(B=B, dtype="float32", max_abs_diff=diff, largest=big,
-                       rel_tol=TRAIN_GRAD_REL, launches=eval_launches),
+                       rel_tol=TRAIN_GRAD_REL, launches=eval_launches,
+                       ms=statistics.median(eval_ms), ms_all=eval_ms),
              train_step=step)
         torch.cuda.empty_cache()
     return launches
 
 
-def phase_train_headline(card):
+def train_steps(config, dn, n_steps, want_launches):
+    """Training steps of `config`'s model at its B=64 (random weights from a
+    seed, dropout and warmup as the config says) in compute dtype `dn`: one
+    warm-up step, then `n_steps` timed steps, each with exact launch counts.
+    Returns the payload."""
     from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.config import flagship_config
     from mcvd_tpu_torch.diffusion import make_schedule
     from mcvd_tpu_torch.models import get_model
     from mcvd_tpu_torch.train import create_train_state, make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    launches, step_ms = {}, {}
-    for dn in ("float32", "bfloat16"):
-        config = flagship_config()
-        config.training.batch_size = B = 64   # smmnist_DDPM_big5.yml's
-        config.training.compute_dtype = dn
-        model = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
-        state = create_train_state(config, model, device="cuda")
-        step = make_train_step(model, make_schedule(config), config)
-        d = config.data
-        g = torch.Generator(device="cuda").manual_seed(7)
-        X = torch.rand(B, d.num_frames_cond + d.num_frames, d.image_size, d.image_size,
-                       d.channels, generator=g, device="cuda")
-        torch.cuda.reset_peak_memory_stats()
+    config.training.batch_size = B = 64   # the ymls' (smmnist_DDPM_big5[_spade].yml)
+    config.training.compute_dtype = dn
+    model = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    state = create_train_state(config, model, device="cuda")
+    step = make_train_step(model, make_schedule(config), config)
+    d = config.data
+    g = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.rand(B, d.num_frames_cond + d.num_frames, d.image_size, d.image_size,
+                   d.channels, generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, X, generator=g)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    times, losses, launches = [], [], None
+    for _ in range(n_steps):
+        ops.reset_launches()
         t0 = time.perf_counter()
         state, m = step(state, X, generator=g)
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
-        times, losses = [], []
-        for _ in range(5):
-            ops.reset_launches()
-            t0 = time.perf_counter()
-            state, m = step(state, X, generator=g)
-            torch.cuda.synchronize()
-            times.append(1e3 * (time.perf_counter() - t0))
-            launches[dn] = dict(ops.LAUNCHES)
-            check_launches(launches[dn], TRAIN_LAUNCHES, f"train step {dn}")
-            losses.append(float(m["loss"]))
-            check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
-                  f"train step {dn}: loss {losses[-1]}")
-        ms = statistics.median(times)
-        step_ms[dn] = ms
-        emit("train_headline", card=card, B=B, dtype=dn, steps=5, warmup_s=warm_s,
-             ms_per_step=ms, ms_all=times, clips_per_s=1e3 * B / ms,
-             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30, launches=launches[dn],
-             loss=losses, grad_norm=float(m["grad_norm"]), step=state.step)
-        del model, state, step, m
-        torch.cuda.empty_cache()
+        times.append(1e3 * (time.perf_counter() - t0))
+        launches = dict(ops.LAUNCHES)
+        check_launches(launches, want_launches, f"train step {dn}")
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
+              f"train step {dn}: loss {losses[-1]}")
+    ms = statistics.median(times)
+    out = dict(B=B, dtype=dn, steps=n_steps, warmup_s=warm_s, ms_per_step=ms, ms_all=times,
+               clips_per_s=1e3 * B / ms, peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
+               launches=launches, loss=losses, grad_norm=float(m["grad_norm"]), step=state.step)
+    del model, state, step, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_headline(card):
+    from mcvd_tpu_torch.config import flagship_config
+
+    launches, step_ms = {}, {}
+    for dn in ("float32", "bfloat16"):
+        out = train_steps(flagship_config(), dn, 5, TRAIN_LAUNCHES)
+        launches[dn], step_ms[dn] = out["launches"], out["ms_per_step"]
+        emit("train_headline", card=card, **out)
     return launches["float32"], step_ms
 
 
@@ -1123,12 +1348,12 @@ def phase_eval_nets(card):
     emit("eval_nets", card=card, rel_tol=EVAL_NET_REL, nets=out)
 
 
-def run_cli(exp, n_iters, *flags, mods=()):
-    """One run of `python -m mcvd_tpu_torch.main` in a subprocess from the
-    repo's root: (its log, the kernel launch counts it logged at its end,
-    its wall seconds). The process starts with every count at 0."""
+def run_cli(exp, n_iters, *flags, mods=(), config=CLI_CONFIG):
+    """One run of `python -m mcvd_tpu_torch.main` on `config` in a subprocess
+    from the repo's root: (its log, the kernel launch counts it logged at its
+    end, its wall seconds). The process starts with every count at 0."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "mcvd_tpu_torch.main", "--config", CLI_CONFIG, "--exp", exp,
+    cmd = [sys.executable, "-m", "mcvd_tpu_torch.main", "--config", config, "--exp", exp,
            "--data_path", os.path.join(exp, "data"), "--ni", *flags, "--config_mod",
            *CLI_MODS, f"training.n_iters={n_iters}", *mods]
     t0 = time.perf_counter()
@@ -1210,12 +1435,68 @@ def _eval_modes(exp, runs):
     return out
 
 
-def phase_cli(card, headline_ms):
-    from mcvd_tpu_torch.compat import yaml_subset
+def check_checkpoint(logs, config_path, step):
+    """checkpoint_{step} loaded into a fresh state (other weights) of the
+    config's model, here: the same bits as the file (parameters, EMA, Adam's
+    moments). Returns the number of tensors compared."""
     from mcvd_tpu_torch.config import load_config
-    from mcvd_tpu_torch.eval import standins
     from mcvd_tpu_torch.models import get_model
     from mcvd_tpu_torch.train import checkpoints, create_train_state
+
+    name = f"checkpoint_{step}"
+    config = load_config(repo_path(config_path), CLI_MODS)
+    model = get_model(config, generator=torch.Generator().manual_seed(99), device="cuda")
+    state = checkpoints.load_checkpoint(
+        logs, name=name, target=create_train_state(config, model, device="cuda"))
+    saved = torch.load(os.path.join(logs, name), map_location="cpu", weights_only=True)
+    check(state.step == saved["step"] == step, f"{name} at step {state.step}")
+    pairs = [(saved["params"], dict(model.named_parameters())),
+             (saved["ema_params"], state.ema_params)]
+    pairs += [(saved["opt_state"][k], state.opt_state[k]) for k in ("mu", "nu")]
+    n_tensors = 0
+    for want, got in pairs:
+        check(want.keys() == got.keys(), f"{name}: other tensors")
+        for k, t in want.items():
+            check(torch.equal(got[k].detach().cpu(), t), f"{name}: {k} differs")
+            n_tensors += 1
+    del model, state, saved, pairs
+    torch.cuda.empty_cache()
+    return n_tensors
+
+
+def cli_spade():
+    """The SPADE runs (`CLI_SPADE_RUNS`) in an experiment of their own:
+    steps 1-3, checkpoint_3 loaded bit-equal, finite metrics of the
+    in-training and the DDIM video_gen, exact launch counts."""
+    from mcvd_tpu_torch.compat import yaml_subset
+
+    with tempfile.TemporaryDirectory(prefix="mcvd_cli_spade_") as exp:
+        runs = {}
+        for name, n_iters, flags, mods in CLI_SPADE_RUNS:
+            log, launches, wall_s = run_cli(exp, n_iters, *flags, mods=mods,
+                                            config=SPADE_CONFIG)
+            check_launches(launches, CLI_LAUNCHES[name], f"cli {name}")
+            runs[name] = dict(log=log, launches=launches, wall_s=wall_s)
+        logs = os.path.join(exp, "logs")
+        steps = _steps(runs["spade_train"]["log"])
+        check(sorted(steps) == [1, 2, 3] and "training done at step 3" in
+              runs["spade_train"]["log"], f"cli spade train: steps {sorted(steps)}")
+        n_tensors = check_checkpoint(logs, SPADE_CONFIG, 3)
+        best = _finite_metrics(
+            yaml_subset.load_file(os.path.join(logs, "best_metrics.yml")),
+            "spade best_metrics.yml")
+        vid = _finite_metrics(yaml_subset.load_file(
+            os.path.join(exp, "video_samples", "videos", "vid_metrics.yml")),
+            "spade DDIM vid_metrics.yml")
+    return dict(config=SPADE_CONFIG, runs=[(n, f, m) for n, _, f, m in CLI_SPADE_RUNS],
+                ms_by_step=steps, checkpoint_tensors_bit_equal=n_tensors, best_metrics=best,
+                ddim_vid_metrics=vid, wall_s={k: r["wall_s"] for k, r in runs.items()},
+                launches={k: r["launches"] for k, r in runs.items()})
+
+
+def phase_cli(card, headline_ms):
+    from mcvd_tpu_torch.compat import yaml_subset
+    from mcvd_tpu_torch.eval import standins
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="mcvd_cli_") as exp:
@@ -1239,31 +1520,13 @@ def phase_cli(card, headline_ms):
         check("resumed from step 6" in runs["resume"]["log"] and sorted(t2) == [7, 8, 9]
               and "training done at step 9" in runs["resume"]["log"],
               f"cli resume: steps {sorted(t2)}")
-        # checkpoint_6 into a fresh state (other weights), here: the same bits
-        config = load_config(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                                          CLI_CONFIG), CLI_MODS)
-        model = get_model(config, generator=torch.Generator().manual_seed(99), device="cuda")
-        state = checkpoints.load_checkpoint(
-            logs, name="checkpoint_6", target=create_train_state(config, model, device="cuda"))
-        saved = torch.load(os.path.join(logs, "checkpoint_6"), map_location="cpu",
-                           weights_only=True)
-        check(state.step == saved["step"] == 6, f"checkpoint_6 at step {state.step}")
-        pairs = [(saved["params"], dict(model.named_parameters())),
-                 (saved["ema_params"], state.ema_params)]
-        pairs += [(saved["opt_state"][k], state.opt_state[k]) for k in ("mu", "nu")]
-        n_tensors = 0
-        for want, got in pairs:
-            check(want.keys() == got.keys(), "checkpoint_6: other tensors")
-            for k, t in want.items():
-                check(torch.equal(got[k].detach().cpu(), t), f"checkpoint_6: {k} differs")
-                n_tensors += 1
-        del model, state, saved, pairs
-        torch.cuda.empty_cache()
+        n_tensors = check_checkpoint(logs, CLI_CONFIG, 6)
         best = _finite_metrics(
             yaml_subset.load_file(os.path.join(logs, "best_metrics.yml")), "best_metrics.yml")
         vg = re.findall(r"video_gen: ([\d.]+) s for the harness", runs["video_gen"]["log"])
         check(len(vg) == 1, "cli video_gen: no harness time")
         evals = _eval_modes(exp, runs)
+    spade = cli_spade()
     steady = {s: ms for s, ms in {**t1, **t2}.items() if s not in (1, 7)}
     loop_ms = statistics.median(steady.values())
     emit("cli", card=card, config=CLI_CONFIG, config_mod=CLI_MODS,
@@ -1274,7 +1537,8 @@ def phase_cli(card, headline_ms):
          loop_minus_headline_ms=loop_ms - headline_ms["float32"],
          video_gen_harness_s=float(vg[0]), wall_s={k: r["wall_s"] for k, r in runs.items()},
          launches={k: r["launches"] for k, r in runs.items()},
-         checkpoint_tensors_bit_equal=n_tensors, best_metrics=best, eval_modes=evals)
+         checkpoint_tensors_bit_equal=n_tensors, best_metrics=best, eval_modes=evals,
+         spade=spade)
     return {k: r["launches"] for k, r in runs.items()}
 
 
@@ -1285,18 +1549,29 @@ def main():
         return 2
     import mcvd_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
-    card = phase_env()
-    phase_build()
-    cases, summary = phase_kernels(card)
-    timing, tool_launches = phase_profile_gn2(card, summary)
-    phase_slice(card)
-    launches = phase_headline(card)
-    train_cases = phase_train_kernels(card, summary)
-    phase_train_slice(card)
-    phase_wide_heads(card)
-    train_launches, headline_ms = phase_train_headline(card)
-    phase_eval_nets(card)
-    phase_cli(card, headline_ms)
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    card = timed("env", phase_env)
+    timed("build", phase_build)
+    cases, summary = timed("kernels", phase_kernels, card)
+    timing, tool_launches = timed("profile_gn2", phase_profile_gn2, card, summary)
+    timed("slice", phase_slice, card)
+    launches = timed("headline", phase_headline, card)
+    timed("spade", phase_spade, card)
+    timed("samplers", phase_samplers, card)
+    train_cases = timed("train_kernels", phase_train_kernels, card, summary)
+    timed("train_slice", phase_train_slice, card)
+    timed("wide_heads", phase_wide_heads, card)
+    train_launches, headline_ms = timed("train_headline", phase_train_headline, card)
+    timed("eval_nets", phase_eval_nets, card)
+    timed("cli", phase_cli, card, headline_ms)
+    emit("phases", seconds=seconds)
     check("jax" not in sys.modules, "jax was imported")
 
     # times of the GroupNorm and attention kernels at the heaviest main-path

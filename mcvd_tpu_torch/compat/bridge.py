@@ -7,6 +7,7 @@ applies the inverse layout transform:
 
   Dense kernel (in,out)        -> Linear weight (out,in)
   Conv kernel (kh,kw,I,O)      -> Conv2d weight (O,I,kh,kw)
+  UpDownConv2d weight (kh,kw,I,O) -> weight (O,I,kh,kw)
   NIN W/b                      -> as is
   GroupNorm scale/bias         -> weight/bias
   ActNorm Norm_0_scale/_bias   -> Norm_0.weight/.bias
@@ -50,6 +51,8 @@ def torch_state_dict_from_flax(params_numpy: Mapping) -> Dict[str, torch.Tensor]
                 raise NotImplementedError(
                     f"{'/'.join(path)}: {w.ndim}-D kernel belongs to a model "
                     "variant not ported yet (ROADMAP Queue 1 item 13)")
+        elif kind == "special_weight" and w.ndim == 4:   # UpDownConv2d
+            w = w.transpose(3, 2, 0, 1)
         elif kind not in ("direct", "embed"):
             raise NotImplementedError(
                 f"{'/'.join(path)}: layout kind {kind!r} belongs to a model "

@@ -2,8 +2,10 @@
 `mcvd_tpu/diffusion/loss.py`; upstream losses/dsm.py:7-52).
 
 Tensors are the port's NCHW folds (B, F*C, H, W). The noise level `labels`
-(B,) and the noise `z` (x's shape) are explicit arguments or, where not
+(B,) and the noise draw `z` (x's shape) are explicit arguments or, where not
 given, drawn from `generator` on x's device: the tests replay the JAX draws.
+With gamma noise the draw is the Gamma(k_cum[labels], 1) sample, which the
+loss centres and scales into the noise, as the samplers do.
 """
 
 from __future__ import annotations
@@ -26,11 +28,10 @@ def dsm_loss(model_fn: Callable[..., torch.Tensor], x: torch.Tensor,
 
     `model_fn(x_t, labels, cond, cond_mask)` returns the predicted noise.
     DDPM family: x_t = sqrt(abar_t) x + sqrt(1 - abar_t) z, t ~ U{0..T-1};
-    SMLD: x_t = x + sigma_t z. `all_frames` concatenates cond into the
-    target along the channels (dim 1 here) and drops the conditioning."""
-    if gamma:
-        raise NotImplementedError(
-            "gamma noise: not ported yet (ROADMAP Queue 1 item 5: sampling options)")
+    with `gamma` (DDPM family), z = (g - k) theta / sqrt(1 - abar_t) from the
+    draw g ~ Gamma(k_cum[t], 1), theta = theta_t[t]; SMLD: x_t = x +
+    sigma_t z. `all_frames` concatenates cond into the target along the
+    channels (dim 1 here) and drops the conditioning."""
     B = x.shape[0]
     if all_frames and cond is not None:
         x = torch.cat([x, cond], dim=1)
@@ -39,11 +40,20 @@ def dsm_loss(model_fn: Callable[..., torch.Tensor], x: torch.Tensor,
     if labels is None:
         labels = torch.randint(0, len(table), (B,), generator=generator, device=x.device)
     labels = labels.to(device=x.device, dtype=torch.long)
-    used = torch.as_tensor(table, device=x.device)[labels].view((B,) + (1,) * (x.ndim - 1))
-    if z is None:
+    bshape = (B,) + (1,) * (x.ndim - 1)
+    used = torch.as_tensor(table, device=x.device)[labels].view(bshape)
+    gamma = gamma and sched.version != "SMLD"
+    if gamma:
+        k = torch.as_tensor(sched.k_cum, device=x.device)[labels].view(bshape)
+        theta = torch.as_tensor(sched.theta_t, device=x.device)[labels].view(bshape)
+    if z is None and gamma:
+        z = torch._standard_gamma(k.expand(x.shape).contiguous(), generator=generator)
+    elif z is None:
         z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
     elif z.shape != x.shape:
         raise ValueError(f"dsm_loss: z {tuple(z.shape)} is not x's {tuple(x.shape)}")
+    if gamma:
+        z = (z * theta - k * theta) / torch.sqrt(1.0 - used)
     if sched.version == "SMLD":
         perturbed = x + used * z
     else:

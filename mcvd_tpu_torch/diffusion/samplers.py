@@ -1,10 +1,14 @@
-"""DDPM reverse-diffusion sampler (counterpart of
-`mcvd_tpu/diffusion/samplers.py`).
+"""The DDPM-family reverse-diffusion samplers, DDPM, DDIM (eta 0) and F-PNDM
+(counterpart of `mcvd_tpu/diffusion/samplers.py`).
 
 `eps_fn(x, labels) -> eps` is the score network bound to its weights and
-cond, returning predicted noise. The JAX `lax.scan` becomes a Python loop.
+cond, returning predicted noise. The JAX `lax.scan`s become Python loops.
 Random draws come either explicitly (`inj_noise`, `step_noise`: the tests
-replay the JAX draws through them) or from a `torch.Generator`.
+replay the JAX draws through them) or from a `torch.Generator`. With gamma
+noise a draw is the standard Gamma(k, 1) sample, which the sampler centres
+and scales (`_gamma_noise`). All samplers share one call surface,
+`(x_init, eps_fn, sched, *, generator, inj_noise, step_noise, ...)`; what a
+sampler does not use it ignores.
 
 Quirks kept for parity with upstream (models/__init__.py:206-340):
   * subsampled betas are re-derived as 1 - alpha/alpha_prev;
@@ -65,10 +69,37 @@ def _prepare_tables(sched: DiffusionSchedule, subsample_steps: Optional[int],
     return _Tables(steps, alphas, alphas_prev, betas, k_cum, theta_t, noise_injected)
 
 
-def _draw(generator: Optional[torch.Generator], like: torch.Tensor) -> torch.Tensor:
+def _draw(generator: Optional[torch.Generator], like: torch.Tensor,
+          k: Optional[float] = None) -> torch.Tensor:
+    """N(0, 1) in like's shape, or with `k` the standard Gamma(k, 1)."""
     if generator is None:
-        raise ValueError("ddpm_sampler needs a torch.Generator or explicit draws")
-    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+        raise ValueError("the sampler needs a torch.Generator or explicit draws")
+    if k is None:
+        return torch.randn(like.shape, generator=generator, device=like.device,
+                           dtype=like.dtype)
+    conc = torch.full(like.shape, float(k), device=like.device, dtype=torch.float32)
+    return torch._standard_gamma(conc, generator=generator).to(like.dtype)
+
+
+def _gamma_noise(g: torch.Tensor, k, theta, alpha) -> torch.Tensor:
+    """Centred and scaled Gamma noise from the Gamma(k, 1) draw g (upstream
+    models/__init__.py:272-279): (g theta - k theta) / sqrt(1 - alpha)."""
+    f32 = np.float32
+    z = g * float(f32(theta))
+    return (z - float(f32(k) * f32(theta))) / float(np.sqrt(f32(1.0) - f32(alpha)))
+
+
+def _maybe_inject_noise(x, t: _Tables, gamma: bool, generator, inj_noise):
+    """The t_min warm start: x noised to the first executed level, with
+    `inj_noise` (N(0, 1), or Gamma(k_cum[0], 1) with gamma) or a draw."""
+    if not t.noise_injected:
+        return x
+    a0 = np.float32(t.alphas[0])
+    z = inj_noise if inj_noise is not None else _draw(
+        generator, x, t.k_cum[0] if gamma else None)
+    if gamma:
+        z = _gamma_noise(z, t.k_cum[0], t.theta_t[0], a0)
+    return float(np.sqrt(a0)) * x + float(np.sqrt(np.float32(1.0) - a0)) * z
 
 
 def ddpm_sampler(
@@ -96,17 +127,16 @@ def ddpm_sampler(
         x  = sqrt(a_prev)*b/(1-a) * x0 + sqrt(1-b)*(1-a_prev)/(1-a) * x
         x += sqrt((1-a_prev)/(1-a)*b) * z             [sqrt(b) if just_beta]
     with no noise on the last step; `denoise` then subtracts sqrt(1-a_L)*eps.
+    With `gamma`, z is centred Gamma noise: (g - k_i) theta_i / sqrt(1-a) from
+    a Gamma(k_cum[i], 1) draw g.
 
     Draws: `inj_noise` (x's shape) for the t_min noise injection; `step_noise`
     (L, *x.shape), entry i for step i (entry L-1 is never read, as the last
-    step adds no noise); otherwise each is drawn from `generator` when
-    needed. The chain math runs in x_init's dtype (fp32), whatever eps_fn's
-    compute dtype. Returns x[None] if final_only, else the trajectory
-    (L[+1], *x.shape).
+    step adds no noise); N(0, 1), or Gamma(k, 1) with gamma; otherwise each
+    is drawn from `generator` when needed. The chain math runs in x_init's
+    dtype (fp32), whatever eps_fn's compute dtype. Returns x[None] if
+    final_only, else the trajectory (L[+1], *x.shape).
     """
-    if gamma:
-        raise NotImplementedError(
-            "gamma noise: not ported yet (ROADMAP Queue 1 item 5: sampling options)")
     t = _prepare_tables(sched, subsample_steps, frac_steps, t_min)
     L = len(t.steps)
     f32 = np.float32
@@ -118,10 +148,7 @@ def ddpm_sampler(
     c_x = np.sqrt(one - b) * (one - ap) / (one - a)
     std = np.sqrt(b) if just_beta else np.sqrt((one - ap) / (one - a) * b)
 
-    x = x_init
-    if t.noise_injected:
-        z = inj_noise if inj_noise is not None else _draw(generator, x)
-        x = float(np.sqrt(a[0])) * x + float(np.sqrt(one - a[0])) * z
+    x = _maybe_inject_noise(x_init, t, gamma, generator, inj_noise)
     if same_noise and noise_val is None:
         noise_val = x_init
     if step_noise is not None and len(step_noise) < L - 1:
@@ -139,10 +166,11 @@ def ddpm_sampler(
         if i < L - 1:
             if same_noise:
                 noise = noise_val
-            elif step_noise is not None:
-                noise = step_noise[i]
             else:
-                noise = _draw(generator, x)
+                noise = step_noise[i] if step_noise is not None else _draw(
+                    generator, x, t.k_cum[i] if gamma else None)
+                if gamma:
+                    noise = _gamma_noise(noise, t.k_cum[i], t.theta_t[i], a[i])
             x = x + float(std[i]) * noise
         if not final_only:
             traj.append(x)
@@ -157,11 +185,147 @@ def ddpm_sampler(
     return torch.stack(traj)
 
 
-SAMPLERS = {"DDPM": ddpm_sampler}
+def ddim_sampler(
+    x_init: torch.Tensor,
+    eps_fn: EpsFn,
+    sched: DiffusionSchedule,
+    *,
+    subsample_steps: Optional[int] = None,
+    final_only: bool = True,
+    denoise: bool = True,
+    clip_before: bool = True,
+    frac_steps: Optional[float] = None,
+    t_min: float = -1.0,
+    gamma: bool = False,
+    generator: Optional[torch.Generator] = None,
+    inj_noise: Optional[torch.Tensor] = None,
+    **_: object,
+) -> torch.Tensor:
+    """DDIM with eta 0 (upstream models/__init__.py:102-203). Per step i:
+        x0 = (x - sqrt(1-a)*eps) / sqrt(a)            [clipped to [-1,1]]
+        x  = sqrt(a_prev)*x0 + sqrt(1-a_prev)*eps
+    then `denoise` as `ddpm_sampler`'s (label L-1). Only the t_min noise
+    injection draws (`inj_noise` or `generator`)."""
+    t = _prepare_tables(sched, subsample_steps, frac_steps, t_min)
+    L = len(t.steps)
+    f32 = np.float32
+    a, ap = t.alphas.astype(f32), t.alphas_prev.astype(f32)
+    one = f32(1.0)
+    sq1ma, sqa = np.sqrt(one - a), np.sqrt(a)
+    sqap, sq1map = np.sqrt(ap), np.sqrt(one - ap)
+
+    x = _maybe_inject_noise(x_init, t, gamma, generator, inj_noise)
+    B = x.shape[0]
+    traj = []
+    for i in range(L):
+        labels = torch.full((B,), int(t.steps[i]), dtype=torch.long, device=x.device)
+        eps = eps_fn(x, labels).to(x.dtype)
+        x0 = (x - float(sq1ma[i]) * eps) / float(sqa[i])
+        if clip_before:
+            x0 = x0.clamp(-1.0, 1.0)
+        x = float(sqap[i]) * x0 + float(sq1map[i]) * eps
+        if not final_only:
+            traj.append(x)
+
+    if denoise:
+        labels = torch.full((B,), L - 1, dtype=torch.long, device=x.device)
+        x = x - float(sq1ma[-1]) * eps_fn(x, labels).to(x.dtype)
+        if not final_only:
+            traj.append(x)
+    if final_only:
+        return x[None]
+    return torch.stack(traj)
+
+
+def _pndm_transfer(x, at, at_next, et, clip_before: bool):
+    """PNDM transfer rule (upstream models/pndm.py:19-33), its coefficients
+    in fp32 from the scalars at, at_next:
+    x + (at_next - at) * (x / (sqrt(at) (sqrt(at) + sqrt(at_next)))
+        - et / (sqrt(at) (sqrt((1 - at_next) at) + sqrt((1 - at) at_next))))."""
+    f32 = np.float32
+    at, at_next = f32(at), f32(at_next)
+    sa, sn = np.sqrt(at), np.sqrt(at_next)
+    one = f32(1.0)
+    d = at_next - at
+    cx = one / (sa * (sa + sn))
+    ce = one / (sa * (np.sqrt((one - at_next) * at) + np.sqrt((one - at) * at_next)))
+    x_next = x + float(d) * (float(cx) * x - float(ce) * et)
+    if clip_before:
+        x_next = x_next.clamp(-1.0, 1.0)
+    return x_next
+
+
+def fpndm_sampler(
+    x_init: torch.Tensor,
+    eps_fn: EpsFn,
+    sched: DiffusionSchedule,
+    *,
+    subsample_steps: Optional[int] = None,
+    final_only: bool = True,
+    clip_before: bool = True,
+    **_: object,
+) -> torch.Tensor:
+    """F-PNDM, 4th order (upstream models/__init__.py:38-99 and
+    models/pndm.py): a Runge-Kutta warm-up on the first 3 steps (4
+    evaluations each), then Adams-Bashforth (55 e1 - 59 e2 + 37 e3 - 9 e4)/24
+    (1 evaluation each); no denoise and no draws, so L steps make 4*min(L, 3)
+    + max(L - 3, 0) evaluations (109 at subsample 100).
+
+    Steps are range(0, T, T // subsample_steps), each taken with its
+    predecessor t_next (-1 for the first); alphas come from the
+    time-ascending table alphas[::-1] at t + 1; the Runge-Kutta midpoint is
+    int((t + t_next) / 2), truncated toward zero (0 for t=0, t_next=-1), as
+    upstream casts its labels."""
+    if sched.alphas is None:
+        raise ValueError("fpndm_sampler needs a DDPM-family schedule")
+    if not subsample_steps:
+        raise ValueError("fpndm_sampler needs subsample_steps")
+    T = sched.T
+    alphas_old = np.ascontiguousarray(sched.alphas[::-1]).astype(np.float32)
+    skip = T // subsample_steps
+    steps = list(range(0, T, skip))
+    steps_next = [-1] + steps[:-1]
+
+    def at_of(t):
+        return alphas_old[t + 1]
+
+    B = x_init.shape[0]
+
+    def model(x, t):
+        return eps_fn(x, torch.full((B,), t, dtype=torch.long, device=x.device)).to(x.dtype)
+
+    x = x_init
+    traj, ets = [], []
+    for i, (t, t_next) in enumerate(zip(steps, steps_next)):
+        if i < 3:   # Runge-Kutta (upstream models/pndm.py:3-17)
+            t_mid = int((t + t_next) / 2)
+            e_1 = model(x, t)
+            ets.append(e_1)
+            x_2 = _pndm_transfer(x, at_of(t), at_of(t_mid), e_1, clip_before)
+            e_2 = model(x_2, t_mid)
+            x_3 = _pndm_transfer(x, at_of(t), at_of(t_mid), e_2, clip_before)
+            e_3 = model(x_3, t_mid)
+            x_4 = _pndm_transfer(x, at_of(t), at_of(t_next), e_3, clip_before)
+            e_4 = model(x_4, t_next)
+            noise = (1.0 / 6) * (e_1 + 2 * e_2 + 2 * e_3 + e_4)
+        else:       # Adams-Bashforth (upstream models/pndm.py:47)
+            e = model(x, t)
+            noise = (1.0 / 24) * (55.0 * e - 59.0 * ets[-1] + 37.0 * ets[-2] - 9.0 * ets[-3])
+            ets = ets[-2:] + [e]
+        x = _pndm_transfer(x, at_of(t), at_of(t_next), noise, clip_before)
+        if not final_only:
+            traj.append(x)
+    if final_only:
+        return x[None]
+    return torch.stack(traj)
+
+
+SAMPLERS = {"DDPM": ddpm_sampler, "DDIM": ddim_sampler, "FPNDM": fpndm_sampler}
 
 
 def get_sampler(version: str):
-    """Sampler for `model.version`; only DDPM is ported."""
+    """Sampler for `model.version` (DDPM, DDIM, FPNDM); SMLD's Langevin
+    samplers raise."""
     version = version.upper()
     if version not in SAMPLERS:
         raise NotImplementedError(

@@ -17,6 +17,7 @@ weights.
 from __future__ import annotations
 
 import copy
+import itertools
 import logging
 from math import ceil
 from typing import Callable, Dict, Optional, Sequence
@@ -31,6 +32,7 @@ from ..data.transforms import data_transform, inverse_data_transform
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..diffusion import samplers as samplers_mod
 from ..diffusion.schedules import DiffusionSchedule
+from ..models.ncsnpp import draw_cond_noise
 from .metrics import video_metrics_batch
 
 logger = logging.getLogger(__name__)
@@ -41,9 +43,18 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
                        ensemble: bool = False):
     """One reverse-diffusion block: block(params, init, cond, cond_mask=None,
-    *, generator=None, inj_noise=None, step_noise=None) -> (B, H, W, F*C),
-    the JAX sampler's `block(params, key, init, cond, cond_mask)` less the
-    key.
+    *, generator=None, inj_noise=None, step_noise=None, cond_noise=None) ->
+    (B, H, W, F*C), the JAX sampler's `block(params, key, init, cond,
+    cond_mask)` less the key; the sampler is `model.version`'s (DDPM, DDIM,
+    FPNDM).
+
+    With `model.noise_in_cond` every evaluation of the block diffuses cond
+    with one draw, as the JAX block passes its one key to each: `cond_noise`
+    in cond's NCHW shape. With gamma noise the draw is Gamma(k_cum[labels],
+    1), so the JAX block's one key gives another draw at each level:
+    `cond_noise` then stacks one draw per evaluation, in the order the
+    sampler makes them. Without `cond_noise` the draws come from
+    `generator`: once a block, or with gamma once an evaluation.
 
     `params` is a state dict (name -> tensor) of `model`, for example
     `dict(model.named_parameters())` or `model.state_dict()`, taken at each
@@ -89,8 +100,11 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
             hit = casts[key] = (t, t._version, t.detach().to(comp_dtype))
         return hit[2]
 
+    noisy_cond = bool(getattr(config.model, "noise_in_cond", False))
+    gamma = bool(getattr(config.model, "gamma", False))
+
     def block(params, init, cond, cond_mask=None, *, generator=None, inj_noise=None,
-              step_noise=None):
+              step_noise=None, cond_noise=None):
         with torch.inference_mode():
             members = params if ensemble else [params]
             if ensemble and not members:
@@ -98,10 +112,28 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
             weights = [{k: cast((i, k), v) for k, v in p.items()}
                        for i, p in enumerate(members)]
             cond_c = None if cond is None else cond.permute(0, 3, 1, 2).to(comp_dtype)
+            noisy = noisy_cond and cond_c is not None
+            z = cond_noise
+            if noisy and z is None and not gamma:
+                z = draw_cond_noise(config, sched, None, cond_c, generator)
+            evals = itertools.count()
+
+            def cond_noise_at(labels):
+                """The cond-noise draw of this evaluation."""
+                e = next(evals)
+                if not gamma:
+                    return z
+                if z is None:
+                    return draw_cond_noise(config, sched, labels, cond_c, generator)
+                if e >= len(z):
+                    raise ValueError(f"cond_noise holds {len(z)} gamma draws, the "
+                                     f"sampler makes more evaluations")
+                return z[e]
 
             def eps_fn(x, labels):
                 x_c = x.permute(0, 3, 1, 2).to(comp_dtype)
-                outs = [functional_call(net, w, (x_c, labels, cond_c, cond_mask))
+                kw = {"cond_noise": cond_noise_at(labels)} if noisy else {}
+                outs = [functional_call(net, w, (x_c, labels, cond_c, cond_mask), kw)
                         for w in weights]
                 out = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
                 return out.permute(0, 2, 3, 1)
@@ -113,18 +145,34 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
 
 
 def init_noise(config, sched: DiffusionSchedule, shape, *,
-               generator: torch.Generator, device=DEFAULT_DEVICE) -> torch.Tensor:
+               generator: Optional[torch.Generator] = None, device=DEFAULT_DEVICE,
+               draw: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Initial reverse-diffusion state on `device` (the card unless
-    `device="cpu"`; raises without CUDA): N(0, 1) for the DDPM family,
-    data_transform(U[0, 1)) for SMLD. `generator` lives on that device."""
+    `device="cpu"`; raises without CUDA): N(0, 1) for the DDPM family, with
+    gamma noise the centred Gamma g theta_0 - k_0 theta_0 from g ~
+    Gamma(k_cum[0], 1), data_transform(U[0, 1)) for SMLD. `draw` is that
+    N(0, 1), Gamma or U[0, 1) draw, else it comes from `generator` (on that
+    device)."""
     device = resolve_device(device, "init_noise")
     version = getattr(config.model, "version", "DDPM").upper()
+    gamma = version != "SMLD" and getattr(config.model, "gamma", False)
+    if draw is None:
+        if generator is None:
+            raise ValueError("init_noise needs a generator or the draw")
+        if version == "SMLD":
+            draw = torch.rand(shape, generator=generator, device=device)
+        elif gamma:
+            conc = torch.full(shape, float(sched.k_cum[0]), device=device)
+            draw = torch._standard_gamma(conc, generator=generator)
+        else:
+            draw = torch.randn(shape, generator=generator, device=device)
+    draw = draw.to(device)
     if version == "SMLD":
-        return data_transform(config, torch.rand(shape, generator=generator, device=device))
-    if getattr(config.model, "gamma", False):
-        raise NotImplementedError(
-            "gamma noise: not ported yet (ROADMAP Queue 1 item 5: sampling options)")
-    return torch.randn(shape, generator=generator, device=device)
+        return data_transform(config, draw)
+    if gamma:
+        k0, th0 = np.float32(sched.k_cum[0]), np.float32(sched.theta_t[0])
+        return draw * float(th0) - float(k0 * th0)
+    return draw
 
 
 def slide_cond_window(config, cond, gen, future: int, one_frame: bool):
@@ -154,9 +202,10 @@ def autoregressive_predict(config, block_sampler, params, cond, cond_mask,
     `params` (passed to each `block_sampler` call, see `make_block_sampler`);
     returns folded (B, H, W, num_frames_pred*C) in model (transformed) space.
 
-    `draws[i]` may hold block i's explicit draws: "init" (its init noise),
-    "inj_noise" and "step_noise" (see `ddpm_sampler`); what it lacks comes
-    from `generator`. Init noise is re-drawn per block unless
+    `draws[i]` may hold block i's explicit draws: "init" (its init noise,
+    as `init_noise` returns it), "inj_noise" and "step_noise" (see
+    `ddpm_sampler`), "cond_noise" (see `make_block_sampler`); what it lacks
+    comes from `generator`. Init noise is re-drawn per block unless
     sampling.init_prev_t > 0, which warm-starts from the previous block."""
     C = config.data.channels
     F = config.data.num_frames
@@ -177,8 +226,10 @@ def autoregressive_predict(config, block_sampler, params, cond, cond_mask,
                                   device=cond.device)
         else:
             init = gen
+        extra = {"cond_noise": d["cond_noise"]} if "cond_noise" in d else {}
         gen = block_sampler(params, init, cond, cond_mask, generator=generator,
-                            inj_noise=d.get("inj_noise"), step_noise=d.get("step_noise"))
+                            inj_noise=d.get("inj_noise"), step_noise=d.get("step_noise"),
+                            **extra)
         preds.append(gen)
         if i_frame == n_iter - 1:
             continue

@@ -1,16 +1,17 @@
 """NCSN++ building blocks on NCHW channels_last tensors (counterpart of
-`mcvd_tpu/models/blocks.py`), 2D and group-norm branches.
+`mcvd_tpu/models/blocks.py`), the 2D branch: BigGAN and DDPM resblocks with
+AdaGN or SPADE conditioning, multi-head attention, FIR up/down resampling.
 
 Attribute names are upstream's (Conv_0, GroupNorm_0, NIN_0, Dense_0,
-actnorm0, Norm_0, ...), so upstream state dicts load by name. The SPADE
-norm, the 3D/pseudo-3D conv families and the DDPM resblock raise
-NotImplementedError: ROADMAP Queue 1 item 13 ports them.
+actnorm0, Norm_0, mlp_shared.0, Conv2d_0, ...), so upstream state dicts load
+by name. The 3D/pseudo-3D conv families raise NotImplementedError: ROADMAP
+Queue 1 item 13 ports them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,13 +19,35 @@ from torch import nn
 
 from .. import ops
 from . import resample
-from .layers import NIN, Conv2d, GroupNorm, Linear, num_groups_for
+from .layers import NIN, Conv2d, GroupNorm, Linear, UpDownConv2d, num_groups_for
 
 _LATER = "not ported yet (ROADMAP Queue 1 item 13: model variants)"
 FIR_KERNEL = (1, 3, 3, 1)
 
 # the DDPM-init 'same' conv; one class serves both names here
 Conv2dSame = Conv2d
+
+def nearest_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize (B, C, H, W) to `size` by taking row floor(i*H/H_out) and
+    column floor(j*W/W_out): `F.interpolate(mode="nearest")`, not
+    "nearest-exact" (upstream layerspp.py:91, 166; the JAX package's
+    `nearest_resize`)."""
+    if tuple(x.shape[2:]) == tuple(size):
+        return x
+    return F.interpolate(x, size=tuple(size), mode="nearest")
+
+
+def _dropout(h: torch.Tensor, rate: float, training: bool,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout with the mask drawn from `generator` (torch's global one when
+    None) in h's channels_last layout, as flax draws it from the step's
+    dropout key: keep where U[0, 1) >= rate, kept values scaled by
+    1/(1 - rate)."""
+    if not training or rate == 0.0:
+        return h
+    B, C, H, W = h.shape
+    u = torch.rand(B, H, W, C, generator=generator, device=h.device).permute(0, 3, 1, 2)
+    return h * (u >= rate).to(h.dtype) / (1.0 - rate)
 
 
 class AttnBlock(nn.Module):
@@ -64,26 +87,63 @@ class AttnBlock(nn.Module):
         return (x + h) / math.sqrt(2.0)
 
 
+class MySPADE(nn.Module):
+    """Spatially adaptive normalization, 2D (upstream layerspp.py:101-173):
+    GroupNorm without affine at eps 1e-6 (one `gn_fused` call with no
+    affine, no AdaGN and no act), then gamma and beta predicted by convs
+    over the cond frames resized to x's size: mlp_shared (conv 3x3 + SiLU),
+    mlp_gamma and mlp_beta (conv 3x3); out = n*(1 + gamma) + beta. The
+    spatial gamma/beta cannot fold into the kernel's per-channel A*x + B,
+    so that tail is PyTorch elementwise code, as it is XLA code beside the
+    JAX package's norm."""
+
+    def __init__(self, norm_nc: int, label_nc: int, spade_dim: int = 128):
+        super().__init__()
+        self.norm_nc = norm_nc
+        self.mlp_shared = nn.Sequential(Conv2d(label_nc, spade_dim, 3), nn.SiLU())
+        self.mlp_gamma = Conv2d(spade_dim, norm_nc, 3)
+        self.mlp_beta = Conv2d(spade_dim, norm_nc, 3)
+
+    def forward(self, x, segmap):
+        normalized = ops.groupnorm.group_norm(x, num_groups_for(self.norm_nc), eps=1e-6)
+        actv = self.mlp_shared(nearest_resize(segmap, x.shape[2:]))
+        gamma = self.mlp_gamma(actv)
+        beta = self.mlp_beta(actv)
+        return torch.addcmul(beta, normalized, 1 + gamma)
+
+
 class ActNorm(nn.Module):
-    """GroupNorm -> (AdaGN from temb) -> SiLU, all in one GroupNorm-kernel
-    call (upstream get_act_norm). With emb: GroupNorm(affine=False) at eps
-    1e-5, Dense_0(SiLU(emb)) -> (scale, shift), x*(1+scale)+shift. Without:
-    affine Norm_0 at eps 1e-5."""
+    """norm -> (AdaGN from temb) -> SiLU (upstream get_act_norm).
+
+    group norm, all in one GroupNorm-kernel call: with emb, GroupNorm
+    (affine=False) at eps 1e-5, Dense_0(SiLU(emb)) -> (scale, shift),
+    x*(1+scale)+shift; without, affine Norm_0 at eps 1e-5.
+    spade: Norm_0 is `MySPADE` over `cond`; with emb the AdaGN
+    ·(1+scale)+shift follows it, then SiLU, in PyTorch elementwise code."""
 
     def __init__(self, ch: int, emb_dim: Optional[int] = None, norm: str = "group",
-                 is3d: bool = False):
+                 is3d: bool = False, cond_ch: int = 0, spade_dim: int = 128):
         super().__init__()
-        if norm != "group":
-            raise NotImplementedError(f"ActNorm norm={norm!r}: {_LATER}")
+        if norm not in ("group", "spade"):
+            raise ValueError(f"ActNorm norm={norm!r} is not group or spade")
         if is3d:
             raise NotImplementedError(f"ActNorm over 3D frames: {_LATER}")
         self.ch = ch
+        self.norm = norm
         if emb_dim is not None:
             self.Dense_0 = Linear(emb_dim, 2 * ch)
-        else:
+        if norm == "spade":
+            self.Norm_0 = MySPADE(ch, cond_ch, spade_dim)
+        elif emb_dim is None:
             self.Norm_0 = GroupNorm(ch, eps=1e-5)
 
-    def forward(self, x, emb=None):
+    def forward(self, x, emb=None, cond=None):
+        if self.norm == "spade":
+            h = self.Norm_0(x, cond)
+            if emb is not None:
+                scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+                h = torch.addcmul(shift[:, :, None, None], h, 1 + scale[:, :, None, None])
+            return F.silu(h)
         if emb is None:
             return self.Norm_0(x, act=True)
         scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
@@ -91,44 +151,88 @@ class ActNorm(nn.Module):
             x, num_groups_for(self.ch), eps=1e-5, scale=scale, shift=shift, act=True)
 
 
+class Upsample(nn.Module):
+    """x2 upsampling (upstream layerspp.py:250-282): the fused FIR conv
+    `Conv2d_0` (fir, with_conv), the FIR alone (fir), or nearest neighbour
+    then `Conv_0` 3x3 (not fir; the conv only with with_conv)."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = True,
+                 fir: bool = True, fir_kernel=FIR_KERNEL):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, list(fir_kernel)
+        if not fir and with_conv:
+            self.Conv_0 = Conv2d(in_ch, out_ch, 3)
+        elif fir and with_conv:
+            self.Conv2d_0 = UpDownConv2d(in_ch, out_ch, 3, up=True, resample_kernel=fir_kernel)
+
+    def forward(self, x, temb=None, cond=None, generator=None):
+        """x2 up; takes a resblock's arguments and ignores all but x."""
+        if not self.fir:
+            h = resample.naive_upsample_2d(x)
+            return self.Conv_0(h) if self.with_conv else h
+        if not self.with_conv:
+            return resample.upsample_2d(x, self.fir_kernel, factor=2)
+        return self.Conv2d_0(x)
+
+
+class Downsample(nn.Module):
+    """x2 downsampling (upstream layerspp.py:285-319): the fused FIR conv
+    `Conv2d_0` (fir, with_conv), the FIR alone (fir), a (0, 1, 0, 1) pad then
+    the stride-2 VALID 3x3 `Conv_0` (not fir, with_conv), or a 2x2 mean."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None, with_conv: bool = True,
+                 fir: bool = True, fir_kernel=FIR_KERNEL):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, list(fir_kernel)
+        if not fir and with_conv:
+            self.Conv_0 = Conv2d(in_ch, out_ch, 3, stride=2, padding=0)
+        elif fir and with_conv:
+            self.Conv2d_0 = UpDownConv2d(in_ch, out_ch, 3, down=True,
+                                         resample_kernel=fir_kernel)
+
+    def forward(self, x, temb=None, cond=None, generator=None):
+        """x2 down; takes a resblock's arguments and ignores all but x."""
+        if not self.fir:
+            if self.with_conv:
+                return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
+            return resample.naive_downsample_2d(x)
+        if not self.with_conv:
+            return resample.downsample_2d(x, self.fir_kernel, factor=2)
+        return self.Conv2d_0(x)
+
+
 class ResnetBlockBigGAN(nn.Module):
     """actnorm0 -> [FIR (1,3,3,1) up/down] -> Conv_0 -> actnorm1 -> dropout
     -> Conv_1 (init 0) -> (+ Conv_2 1x1 shortcut) / sqrt(2)
-    (upstream ResnetBlockBigGANppGN with fir and skip_rescale, as NCSN++
-    builds it).
+    (upstream ResnetBlockBigGANppGN, or ...SPADE with norm="spade", with fir
+    and skip_rescale, as NCSN++ builds it).
 
     In training mode the dropout mask is drawn from `generator` (the train
-    step's explicit one; torch's global generator when None), as flax draws
-    it from the step's dropout key: keep where U[0, 1) >= rate, kept values
-    scaled by 1/(1 - rate)."""
+    step's explicit one; torch's global generator when None), see
+    `_dropout`."""
 
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: Optional[int] = None, up: bool = False, down: bool = False,
                  dropout: float = 0.1, init_scale: float = 0.0, conv_mode: str = "2d",
-                 norm: str = "group"):
+                 norm: str = "group", cond_ch: int = 0, spade_dim: int = 128):
         super().__init__()
         if conv_mode != "2d":
             raise NotImplementedError(f"ResnetBlockBigGAN conv_mode={conv_mode!r}: {_LATER}")
         out_ch = out_ch or in_ch
         self.up, self.down = up, down
-        self.actnorm0 = ActNorm(in_ch, temb_dim, norm=norm)
+        spade = dict(norm=norm, cond_ch=cond_ch, spade_dim=spade_dim)
+        self.actnorm0 = ActNorm(in_ch, temb_dim, **spade)
         self.Conv_0 = Conv2dSame(in_ch, out_ch, 3)
-        self.actnorm1 = ActNorm(out_ch, temb_dim, norm=norm)
+        self.actnorm1 = ActNorm(out_ch, temb_dim, **spade)
         self.Dropout_0 = nn.Dropout(dropout)
         self.Conv_1 = Conv2dSame(out_ch, out_ch, 3, init_scale=init_scale)
         self.Conv_2 = (Conv2dSame(in_ch, out_ch, 1)
                        if in_ch != out_ch or up or down else None)
 
-    def dropout(self, h, generator=None):
-        rate = self.Dropout_0.p
-        if not self.training or rate == 0.0:
-            return h
-        B, C, H, W = h.shape   # the mask in h's channels_last layout
-        u = torch.rand(B, H, W, C, generator=generator, device=h.device).permute(0, 3, 1, 2)
-        return h * (u >= rate).to(h.dtype) / (1.0 - rate)
-
-    def forward(self, x, temb=None, generator=None):
-        h = self.actnorm0(x, temb)
+    def forward(self, x, temb=None, cond=None, generator=None):
+        h = self.actnorm0(x, temb, cond)
         if self.up:
             h = resample.upsample_2d(h, FIR_KERNEL, factor=2)
             x = resample.upsample_2d(x, FIR_KERNEL, factor=2)
@@ -136,8 +240,8 @@ class ResnetBlockBigGAN(nn.Module):
             h = resample.downsample_2d(h, FIR_KERNEL, factor=2)
             x = resample.downsample_2d(x, FIR_KERNEL, factor=2)
         h = self.Conv_0(h)
-        h = self.actnorm1(h, temb)
-        h = self.dropout(h, generator)
+        h = self.actnorm1(h, temb, cond)
+        h = _dropout(h, self.Dropout_0.p, self.training, generator)
         h = self.Conv_1(h)
         if self.Conv_2 is not None:
             x = self.Conv_2(x)
@@ -145,5 +249,61 @@ class ResnetBlockBigGAN(nn.Module):
 
 
 class ResnetBlockDDPM(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ResnetBlockDDPM: {_LATER}")
+    """act(GroupNorm_0) -> Conv_0 -> (+ Dense_0(act(temb))) ->
+    act(GroupNorm_1) -> dropout -> Conv_1 (init `init_scale`) -> (+ Conv_2
+    3x3 or NIN_0 shortcut where the width changes) [/ sqrt(2)] (upstream
+    ResnetBlockDDPMpp, or ...SPADE with norm="spade"). The group norm is
+    affine at eps 1e-6 with the SiLU fused, one `gn_fused` call; the spade
+    norm is `MySPADE` over `cond`, then SiLU. Dropout as
+    `ResnetBlockBigGAN`'s."""
+
+    def __init__(self, in_ch: int, out_ch: Optional[int] = None,
+                 temb_dim: Optional[int] = None, conv_shortcut: bool = False,
+                 dropout: float = 0.1, skip_rescale: bool = False, init_scale: float = 0.0,
+                 conv_mode: str = "2d", norm: str = "group", cond_ch: int = 0,
+                 spade_dim: int = 128):
+        super().__init__()
+        if conv_mode != "2d":
+            raise NotImplementedError(f"ResnetBlockDDPM conv_mode={conv_mode!r}: {_LATER}")
+        if norm not in ("group", "spade"):
+            raise ValueError(f"ResnetBlockDDPM norm={norm!r} is not group or spade")
+        out_ch = out_ch or in_ch
+        self.spade = norm == "spade"
+        self.skip_rescale = skip_rescale
+
+        def norm_layer(ch):
+            return MySPADE(ch, cond_ch, spade_dim) if self.spade else GroupNorm(ch, eps=1e-6)
+
+        self.GroupNorm_0 = norm_layer(in_ch)
+        self.Conv_0 = Conv2dSame(in_ch, out_ch, 3)
+        if temb_dim is not None:
+            self.Dense_0 = Linear(temb_dim, out_ch)
+        self.GroupNorm_1 = norm_layer(out_ch)
+        self.Dropout_0 = nn.Dropout(dropout)
+        self.Conv_1 = Conv2dSame(out_ch, out_ch, 3, init_scale=init_scale)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = Conv2dSame(in_ch, out_ch, 3)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch)
+
+    def _act_norm(self, norm, h, cond):
+        if self.spade:
+            return F.silu(norm(h, cond))
+        return norm(h, act=True)
+
+    def forward(self, x, temb=None, cond=None, generator=None):
+        h = self._act_norm(self.GroupNorm_0, x, cond)
+        h = self.Conv_0(h)
+        if temb is not None:
+            h = h + self.Dense_0(F.silu(temb))[:, :, None, None]
+        h = self._act_norm(self.GroupNorm_1, h, cond)
+        h = _dropout(h, self.Dropout_0.p, self.training, generator)
+        h = self.Conv_1(h)
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):
+            x = self.NIN_0(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        if not self.skip_rescale:
+            return x + h
+        return (x + h) / math.sqrt(2.0)

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from . import resample
 
 
 def num_groups_for(ch: int) -> int:
@@ -51,11 +52,14 @@ def default_init_(w: torch.Tensor, scale: float, generator: torch.Generator,
 
 
 class Conv2d(nn.Conv2d):
-    """kxk stride-1 'same' conv with DDPM init (JAX `Conv2dSame`)."""
+    """kxk conv with DDPM init: stride 1 and 'same' padding (JAX
+    `Conv2dSame`) unless `stride` and `padding` say otherwise."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, *,
-                 init_scale: float = 1.0, bias: bool = True):
-        super().__init__(in_ch, out_ch, kernel, padding=kernel // 2, bias=bias)
+                 init_scale: float = 1.0, bias: bool = True, stride: int = 1,
+                 padding: Optional[int] = None):
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=kernel // 2 if padding is None else padding, bias=bias)
         self.init_scale = init_scale
 
     def reset_parameters(self) -> None:
@@ -90,12 +94,39 @@ class NIN(nn.Module):
         return torch.matmul(x, self.W) + self.b
 
 
+class UpDownConv2d(nn.Module):
+    """StyleGAN2 conv with the FIR up/down resampling fused in (upstream
+    up_or_down_sampling.Conv2d; the JAX package's `blocks.UpDownConv2d`):
+    `weight` (O, I, k, k) with DDPM init and `bias` (O,), as upstream stores
+    them."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, up: bool = False,
+                 down: bool = False, resample_kernel=(1, 3, 3, 1), use_bias: bool = True):
+        super().__init__()
+        self.up, self.down = up, down
+        self.resample_kernel = list(resample_kernel)
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
+        self.init_scale = 1.0
+
+    def forward(self, x):
+        if self.up:
+            x = resample.upsample_conv_2d(x, self.weight, k=self.resample_kernel)
+        elif self.down:
+            x = resample.conv_downsample_2d(x, self.weight, k=self.resample_kernel)
+        else:
+            x = F.conv2d(x, self.weight, padding=self.weight.shape[-1] // 2)
+        if self.bias is not None:
+            x = x + self.bias.view(1, -1, 1, 1)
+        return x
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight of `module` in `modules()` order from `generator`
     (CPU). Biases and GroupNorm shifts are zero, GroupNorm scales one, the
     cond-mask embedding N(0, 1)."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear)):
+        if isinstance(m, (Conv2d, Linear, UpDownConv2d)):
             default_init_(m.weight, m.init_scale, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

@@ -1,17 +1,20 @@
-"""NCSN++ score network, 2D channel-concat branch (counterpart of
-`mcvd_tpu/models/ncsnpp.py`; upstream models/better/ncsnpp_more.py).
+"""NCSN++ score network, 2D branch (counterpart of `mcvd_tpu/models/ncsnpp.py`;
+upstream models/better/ncsnpp_more.py): channel-concat conditioning or SPADE
+(`model.spade`), BigGAN or DDPM resblocks (`model.resblock_type`), and the
+DDPM wrapper's `noise_in_cond`.
 
 The network takes NCHW tensors with frames folded into channels frame-major
 (f*C + c): x (B, num_frames*C, H, W) and cond (B, cond_frames*C, H, W),
-concatenated as [x, cond]. It stores them channels_last, whose memory is the
-JAX package's (B, H, W, F*C). Submodules sit in upstream's `all_modules`
-order, so upstream checkpoints (`unet.all_modules.{i}...`) load by name.
+concatenated as [x, cond], or with SPADE fed to every norm. It stores them
+channels_last, whose memory is the JAX package's (B, H, W, F*C). Submodules
+sit in upstream's `all_modules` order, so upstream checkpoints
+(`unet.all_modules.{i}...`) load by name.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,17 +34,17 @@ class NCSNpp(nn.Module):
         arch = getattr(config.model, "arch", "unetmore")
         if arch != "unetmore":
             raise NotImplementedError(f"arch {arch!r}: {_LATER}")
-        if getattr(config.model, "spade", False):
-            raise NotImplementedError(f"SPADE conditioning: {_LATER}")
-        resblock_type = getattr(config.model, "resblock_type", "biggan")
-        if resblock_type != "biggan":
-            raise NotImplementedError(f"resblock_type {resblock_type!r}: {_LATER}")
+        self.spade = spade = bool(getattr(config.model, "spade", False))
+        self.resblock_type = resblock_type = getattr(config.model, "resblock_type", "biggan")
+        if resblock_type not in ("biggan", "ddpm"):
+            raise ValueError(f"resblock type {resblock_type} unrecognized.")
 
         self.channels = channels = config.data.channels
         self.num_frames = num_frames = config.data.num_frames
         self.num_frames_cond = num_frames_cond = config.data.num_frames_cond + getattr(
             config.data, "num_frames_future", 0)
-        self.n_frames = num_frames + num_frames_cond
+        # SPADE processes only the predicted frames; cond goes to every norm
+        self.n_frames = num_frames if spade else num_frames + num_frames_cond
         self.nf = nf = config.model.ngf
         ch_mult = config.model.ch_mult
         self.num_res_blocks = num_res_blocks = config.model.num_res_blocks
@@ -54,6 +57,8 @@ class NCSNpp(nn.Module):
         self.use_cond_emb = bool(getattr(config.model, "cond_emb", False))
         self.output_all_frames = bool(getattr(config.model, "output_all_frames", False))
         n_head_channels = getattr(config.model, "n_head_channels", -1)
+        spade_dim = getattr(config.model, "spade_dim", 128)
+        cond_ch = num_frames_cond * channels
         init_scale = 0.0
 
         modules: List[nn.Module] = []
@@ -68,8 +73,13 @@ class NCSNpp(nn.Module):
 
         Attn = functools.partial(blocks.AttnBlock, init_scale=init_scale,
                                  n_head_channels=n_head_channels)
-        Res = functools.partial(blocks.ResnetBlockBigGAN, dropout=dropout,
-                                init_scale=init_scale, temb_dim=temb_dim)
+        res_kwargs = dict(dropout=dropout, init_scale=init_scale, temb_dim=temb_dim)
+        if spade:
+            res_kwargs.update(norm="spade", cond_ch=cond_ch, spade_dim=spade_dim)
+        if resblock_type == "ddpm":
+            Res = functools.partial(blocks.ResnetBlockDDPM, skip_rescale=True, **res_kwargs)
+        else:
+            Res = functools.partial(blocks.ResnetBlockBigGAN, **res_kwargs)
 
         # Down
         modules.append(Conv2d(channels * self.n_frames, nf, 3))
@@ -84,7 +94,10 @@ class NCSNpp(nn.Module):
                     modules.append(Attn(channels=in_ch))
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
-                modules.append(Res(down=True, in_ch=in_ch))
+                if resblock_type == "ddpm":
+                    modules.append(blocks.Downsample(in_ch=in_ch))
+                else:
+                    modules.append(Res(down=True, in_ch=in_ch))
                 hs_c.append(in_ch)
 
         # Middle
@@ -102,11 +115,18 @@ class NCSNpp(nn.Module):
             if all_resolutions[i_level] in attn_resolutions:
                 modules.append(Attn(channels=in_ch))
             if i_level != 0:
-                modules.append(Res(in_ch=in_ch, up=True))
+                if resblock_type == "ddpm":
+                    modules.append(blocks.Upsample(in_ch=in_ch))
+                else:
+                    modules.append(Res(in_ch=in_ch, up=True))
         assert not hs_c
 
         # Output head
-        modules.append(blocks.ActNorm(in_ch))
+        if spade:
+            modules.append(blocks.ActNorm(in_ch, norm="spade", cond_ch=cond_ch,
+                                          spade_dim=spade_dim))
+        else:
+            modules.append(blocks.ActNorm(in_ch))
         modules.append(Conv2d(in_ch, channels * num_frames, 3, init_scale=init_scale))
         self.all_modules = nn.ModuleList(modules)
         self.register_buffer("sigmas", torch.from_numpy(get_sigmas(config).copy()))
@@ -117,7 +137,10 @@ class NCSNpp(nn.Module):
         modules = self.all_modules
         m_idx = 0
         gen = dropout_generator
-        if cond is not None:
+        spade_cond = None
+        if cond is not None and self.spade:
+            spade_cond = cond.contiguous(memory_format=torch.channels_last)
+        elif cond is not None:
             x = torch.cat([x, cond], dim=1)
         x = x.contiguous(memory_format=torch.channels_last)
 
@@ -140,62 +163,98 @@ class NCSNpp(nn.Module):
         m_idx += 1
         for i_level in range(self.num_resolutions):
             for _ in range(self.num_res_blocks):
-                h = modules[m_idx](hs[-1], temb, gen)
+                h = modules[m_idx](hs[-1], temb, spade_cond, gen)
                 m_idx += 1
                 if self.all_resolutions[i_level] in self.attn_resolutions:
                     h = modules[m_idx](h)
                     m_idx += 1
                 hs.append(h)
             if i_level != self.num_resolutions - 1:
-                hs.append(modules[m_idx](hs[-1], temb, gen))
+                hs.append(modules[m_idx](hs[-1], temb, spade_cond, gen))
                 m_idx += 1
 
         # Middle
-        h = modules[m_idx](hs[-1], temb, gen)
+        h = modules[m_idx](hs[-1], temb, spade_cond, gen)
         h = modules[m_idx + 1](h)
-        h = modules[m_idx + 2](h, temb, gen)
+        h = modules[m_idx + 2](h, temb, spade_cond, gen)
         m_idx += 3
 
         # Up
         for i_level in reversed(range(self.num_resolutions)):
             for _ in range(self.num_res_blocks + 1):
-                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb, gen)
+                h = modules[m_idx](torch.cat([h, hs.pop()], dim=1), temb, spade_cond, gen)
                 m_idx += 1
             if self.all_resolutions[i_level] in self.attn_resolutions:
                 h = modules[m_idx](h)
                 m_idx += 1
             if i_level != 0:
-                h = modules[m_idx](h, temb, gen)
+                h = modules[m_idx](h, temb, spade_cond, gen)
                 m_idx += 1
         assert not hs
 
         # Output head
-        h = modules[m_idx](h)
+        h = modules[m_idx](h, None, spade_cond) if self.spade else modules[m_idx](h)
         h = modules[m_idx + 1](h)
         m_idx += 2
         assert m_idx == len(modules)
 
-        if self.output_all_frames and cond is not None:
+        if self.output_all_frames and cond is not None and not self.spade:
             h = h[:, self.num_frames_cond * self.channels:]
         return h
 
 
 class UNetMoreDDPM(nn.Module):
     """DDPM wrapper (upstream UNetMore_DDPM): the schedule tables as the
-    buffers `betas`, `alphas`, `alphas_prev`, and the score network as `unet`."""
+    buffers `betas`, `alphas`, `alphas_prev`, and the score network as `unet`.
+
+    With `model.noise_in_cond`, cond is diffused to the noise level of the
+    labels before the network sees it: sqrt(a) cond + sqrt(1 - a) z with a
+    = alphas[y], and z from the explicit draw `cond_noise` (cond's shape):
+    N(0, 1), or with `model.gamma` a Gamma(k_cum[y], 1) draw, centred and
+    scaled as (g - k) theta / sqrt(1 - a). `draw_cond_noise` makes it from a
+    generator. The JAX package takes an rng there instead, and raises
+    without one, as this raises without the draw."""
 
     def __init__(self, config):
         super().__init__()
         self.version = getattr(config.model, "version", "DDPM").upper()
         if self.version not in ("DDPM", "DDIM", "FPNDM"):
             raise ValueError(f"UNetMoreDDPM: version {self.version} is not DDPM-family")
-        if getattr(config.model, "noise_in_cond", False):
-            raise NotImplementedError(
-                "noise_in_cond: not ported yet (ROADMAP Queue 1 item 4)")
+        self.noise_in_cond = bool(getattr(config.model, "noise_in_cond", False))
+        self.gamma = bool(getattr(config.model, "gamma", False))
         self.unet = NCSNpp(config)
         sched = make_schedule(config)
         for name in ("betas", "alphas", "alphas_prev"):
             self.register_buffer(name, torch.from_numpy(getattr(sched, name).copy()))
+        if self.gamma:   # not upstream's buffers: kept out of the state dict
+            for name in ("k_cum", "theta_t"):
+                self.register_buffer(name, torch.from_numpy(getattr(sched, name).copy()),
+                                     persistent=False)
 
-    def forward(self, x, y, cond=None, cond_mask=None, dropout_generator=None):
+    def forward(self, x, y, cond=None, cond_mask=None, dropout_generator=None,
+                cond_noise: Optional[torch.Tensor] = None):
+        if self.noise_in_cond and cond is not None:
+            if cond_noise is None:
+                raise ValueError("noise_in_cond needs the cond-noise draw (draw_cond_noise)")
+            shape = (cond.shape[0],) + (1,) * (cond.ndim - 1)
+            used = self.alphas[y].view(shape)
+            z = cond_noise.float()
+            if self.gamma:
+                k, theta = self.k_cum[y].view(shape), self.theta_t[y].view(shape)
+                z = (z * theta - k * theta) / torch.sqrt(1.0 - used)
+            cond = (torch.sqrt(used) * cond.float() + torch.sqrt(1.0 - used) * z).to(cond.dtype)
         return self.unet(x, y, cond, cond_mask, dropout_generator)
+
+
+def draw_cond_noise(config, sched, labels: torch.Tensor, cond: torch.Tensor,
+                    generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The `noise_in_cond` draw for cond (its shape, fp32, on its device) at
+    the noise levels `labels`: N(0, 1), or with `model.gamma` Gamma(k_cum[y],
+    1) per example, from `generator`."""
+    if generator is None:
+        raise ValueError("draw_cond_noise needs a torch.Generator")
+    if not getattr(config.model, "gamma", False):
+        return torch.randn(cond.shape, generator=generator, device=cond.device)
+    k = torch.as_tensor(sched.k_cum, device=cond.device)[labels.to(cond.device)]
+    k = k.view((cond.shape[0],) + (1,) * (cond.ndim - 1)).expand(cond.shape)
+    return torch._standard_gamma(k.contiguous(), generator=generator)

@@ -6,8 +6,9 @@ convolution, so the kernel is flipped before torch's cross-correlation) as a
 depthwise conv, and keeps every `down`-th sample:
 out_h = (in_h*up + pad0 + pad1 - kernel_h) // down + 1.
 
-The conv-fused variants (`upsample_conv_2d`, `conv_downsample_2d`) belong to
-the `resblock_type: ddpm` branch and are not ported yet.
+The conv-fused variants (`upsample_conv_2d`, `conv_downsample_2d`, the
+`resblock_type: ddpm` branch's resampling) take the conv weight in torch's
+(O, I, kh, kw) layout, as upstream's `up_or_down_sampling.Conv2d` stores it.
 """
 
 from __future__ import annotations
@@ -81,10 +82,41 @@ def downsample_2d(x, k=None, factor: int = 2, gain: float = 1.0):
 
 
 def naive_upsample_2d(x, factor: int = 2):
-    """Nearest-neighbour upsample."""
-    return x.repeat_interleave(factor, dim=2).repeat_interleave(factor, dim=3)
+    """Nearest-neighbour upsample (in x's memory format)."""
+    return F.interpolate(x, scale_factor=factor, mode="nearest")
 
 
 def naive_downsample_2d(x, factor: int = 2):
     """Mean-pool downsample."""
     return F.avg_pool2d(x, factor)
+
+
+def upsample_conv_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):
+    """Fused upsample + conv (StyleGAN2; the JAX package's `upsample_conv_2d`):
+    a stride-`factor` transposed conv, then the FIR. The JAX code correlates
+    the zero-stuffed x, padded by kh-1, with w; a transposed conv does the
+    same with w flipped and its I and O swapped. Output (in*factor)."""
+    convH, convW = w.shape[2], w.shape[3]
+    if convH != convW:
+        raise ValueError(f"upsample_conv_2d: conv kernel must be square, got {tuple(w.shape)}")
+    if k is None:
+        k = [1.0] * factor
+    kk = setup_kernel(k) * (gain * (factor**2))
+    p = (kk.shape[0] - factor) - (convW - 1)
+    x = F.conv_transpose2d(x, w.transpose(0, 1).flip(2, 3), stride=factor)
+    return upfirdn2d(x, kk, pad=((p + 1) // 2 + factor - 1, p // 2 + 1))
+
+
+def conv_downsample_2d(x, w, k=None, factor: int = 2, gain: float = 1.0):
+    """Fused FIR + strided conv (StyleGAN2; the JAX package's
+    `conv_downsample_2d`): the FIR padded by (kernel - factor + kh - 1), then
+    a stride-`factor` VALID conv with w. Output (in/factor)."""
+    convH, convW = w.shape[2], w.shape[3]
+    if convH != convW:
+        raise ValueError(f"conv_downsample_2d: conv kernel must be square, got {tuple(w.shape)}")
+    if k is None:
+        k = [1.0] * factor
+    kk = setup_kernel(k) * gain
+    p = (kk.shape[0] - factor) + (convW - 1)
+    x = upfirdn2d(x, kk, pad=((p + 1) // 2, p // 2))
+    return F.conv2d(x, w, stride=factor)

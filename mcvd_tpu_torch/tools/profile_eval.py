@@ -2,6 +2,8 @@
 block sampler at the bench protocol's batch, and over the training step.
 
     python -m mcvd_tpu_torch.tools.profile_eval
+    python -m mcvd_tpu_torch.tools.profile_eval --config configs/X.yml \
+        [--batch 4] [--dtype float32] [--evals 5] [--cudnn_benchmark]
 
 The flagship NCSN++ (random weights from seed 0), B=16, bf16 score network,
 one block of 10 DDPM steps + denoise (11 evaluations) after a warm-up
@@ -16,10 +18,19 @@ overlap), the device's idle share (1 - busy / unprofiled wall), device ms by
 kind of kernel, and the top kernels by device time. The last line printed
 is one JSON record, with the card's name and power limit. Needs one CUDA
 card; raises without one, and if the profiler reports no device time.
+
+With `--config`, that yml's model at full width (random weights from seed
+0; TF32 off in fp32): first one evaluation with each module of
+`unet.all_modules` timed alone (host clock, synchronised before and after
+it; the modules sorted by ms), then the bare network window over `--evals`
+evaluations after one. `--cudnn_benchmark` lets cuDNN time its algorithms
+at each new shape (`torch.backends.cudnn.benchmark`) instead of taking its
+heuristics' choice, as the port does by default.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
 import sys
@@ -29,7 +40,7 @@ from collections import defaultdict
 import torch
 from torch.autograd import DeviceType
 
-from ..config import flagship_config
+from ..config import flagship_config, load_config
 from ..diffusion import make_schedule
 from ..eval import make_block_sampler
 from ..models import get_model
@@ -123,6 +134,63 @@ def measure(batch: int = 16) -> dict:
     return out
 
 
+def modules_ms(net, *args) -> list:
+    """One evaluation of `net` with each module of `net.unet.all_modules`
+    timed alone: [(index, class name, ms)], slowest first."""
+    times = []
+
+    def pre(_m, _a):
+        torch.cuda.synchronize()
+        times.append(time.perf_counter())
+
+    def post(m, _a, _o):
+        torch.cuda.synchronize()
+        times[-1] = (m, 1e3 * (time.perf_counter() - times[-1]))
+
+    mods = list(net.unet.all_modules)
+    hooks = [h for m in mods for h in (m.register_forward_pre_hook(pre),
+                                       m.register_forward_hook(post))]
+    try:
+        with torch.inference_mode():
+            net(*args)
+    finally:
+        for h in hooks:
+            h.remove()
+    index = {id(m): i for i, m in enumerate(mods)}
+    return sorted(((index[id(m)], type(m).__name__, ms) for m, ms in times),
+                  key=lambda r: -r[2])
+
+
+def measure_network(config_path: str, batch: int, dtype: str, n_evals: int = 5) -> dict:
+    """Per module, then the bare network window, on a yml config's model at
+    full width."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = load_config(config_path)
+    comp = torch.bfloat16 if dtype in ("bfloat16", "bf16") else torch.float32
+    net = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
+    net = net.to(comp).eval()
+    d = config.data
+    sz = d.image_size
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(batch, d.channels * d.num_frames, sz, sz, generator=g,
+                    device="cuda").to(comp)
+    c = torch.randn(batch, d.channels * d.num_frames_cond, sz, sz, generator=g,
+                    device="cuda").to(comp)
+    t = torch.full((batch,), 500, dtype=torch.long, device="cuda")
+
+    def evals(n):
+        with torch.inference_mode():
+            for _ in range(n):
+                net(x, t, c)
+
+    evals(1)
+    by_module = modules_ms(net, x, t, c)
+    return {"config": config_path, "batch": batch, "dtype": dtype,
+            "modules_ms": [{"index": i, "module": name, "ms": ms} for i, name, ms in by_module],
+            "bare_network": profile(lambda: evals(n_evals), n_evals)}
+
+
 def measure_train(compute_dtype: str, batch: int = 64) -> dict:
     """One training step of the flagship at the yml's batch (64) after a
     warm-up step, fp32 (TF32 off) or bf16 compute, dropout as configured."""
@@ -145,8 +213,26 @@ def measure_train(compute_dtype: str, batch: int = 64) -> dict:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", help="profile one evaluation of this yml's model")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--evals", type=int, default=5)
+    ap.add_argument("--cudnn_benchmark", action="store_true")
+    args = ap.parse_args(argv)
     card = nvidia_smi()
+    if args.config:
+        torch.backends.cudnn.benchmark = args.cudnn_benchmark
+        result = measure_network(args.config, args.batch, args.dtype, args.evals)
+        result["cudnn_benchmark"] = args.cudnn_benchmark
+        r = result["bare_network"]
+        print(f"{args.config} B={args.batch} {args.dtype}: wall {r['wall_ms_per_eval']:.2f} "
+              f"ms/eval, device busy {r['device_busy_ms_per_eval']:.2f}, idle "
+              f"{100 * r['device_idle_share']:.1f}%", flush=True)
+        print(json.dumps({"tool": "profile_eval", "card": card,
+                          "device": torch.cuda.get_device_name(0), **result}), flush=True)
+        return 0
     result = measure()
     for dtype in ("float32", "bfloat16"):
         result[f"train_step_{dtype}"] = measure_train(dtype)

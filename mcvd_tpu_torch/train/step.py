@@ -9,9 +9,11 @@ forward and backward, on the card.
 
 Every draw can be given explicitly in `draws` (the tests replay the JAX
 package's): "deq_uniform" / "deq_normal" (X's shape), "cond" / "future"
-(the (B,) uniforms of the keep masks), "labels" (B,) and "z" (the target's
-NCHW shape). What is not given comes from `generator` (on the state's
-device), in that order, and the resblocks' dropout masks after it.
+(the (B,) uniforms of the keep masks), "labels" (B,), "z" (the target's
+NCHW shape; with gamma noise the Gamma draw, see `dsm_loss`) and, with
+`model.noise_in_cond`, "cond_noise" (cond's NCHW shape, see
+`models.UNetMoreDDPM`). What is not given comes from `generator` (on the
+state's device), in that order, and the resblocks' dropout masks after it.
 
 `training.compute_dtype: bfloat16` runs the score network, forward and
 backward, in bf16: a bf16 cast of the fp32 master parameters inside the loss
@@ -37,6 +39,7 @@ from ..data.transforms import data_transform
 from ..diffusion.loss import dsm_loss
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.ema import ema_update
+from ..models.ncsnpp import draw_cond_noise
 from .state import TrainState, make_optimizer
 
 _BF16 = ("bfloat16", "bf16")
@@ -65,13 +68,18 @@ def loss_for_batch(model: torch.nn.Module, sched: DiffusionSchedule, config,
     call_params = ({k: p.to(torch.bfloat16) for k, p in params.items()} if bf16
                    else params)
     model.train(train)
+    noisy_cond = getattr(config.model, "noise_in_cond", False)
 
     def model_fn(x_t, labels, c, m):
+        kw = {"dropout_generator": generator}
+        if noisy_cond and c is not None:
+            kw["cond_noise"] = draws.get("cond_noise")
+            if kw["cond_noise"] is None:
+                kw["cond_noise"] = draw_cond_noise(config, sched, labels, c, generator)
         if bf16:
             x_t = x_t.to(torch.bfloat16)
             c = None if c is None else c.to(torch.bfloat16)
-        out = functional_call(model, call_params, (x_t, labels, c, m),
-                              {"dropout_generator": generator})
+        out = functional_call(model, call_params, (x_t, labels, c, m), kw)
         return out.float() if bf16 else out
 
     return dsm_loss(model_fn, pred, sched, labels=draws.get("labels"), z=draws.get("z"),

@@ -75,9 +75,9 @@ def test_flagship_config_matches_jax():
 
 @pytest.mark.parametrize("name,head_dim", [("bair_big", 96), ("cityscapes_big", 128)])
 def test_big_config_copies_match_jax(name, head_dim):
-    """The port's copies of two shipped configs equal `configs/<name>.yml`
-    as the JAX package loads it; the port's get_model builds each with
-    attention heads `head_dim` wide and the JAX init's parameter count
+    """The port's load of `configs/<name>.yml` (what chip_smoke.py builds)
+    equals the JAX package's; the port's get_model builds it with attention
+    heads `head_dim` wide and the JAX init's parameter count
     (jax.eval_shape, no compile)."""
     from mcvd_tpu.config import load_config, namespace2dict
 
@@ -86,8 +86,9 @@ def test_big_config_copies_match_jax(name, head_dim):
     def to_dict(ns):
         return {k: to_dict(v) if hasattr(v, "__dict__") else v for k, v in vars(ns).items()}
 
-    config = getattr(port_config, f"{name}_config")()
-    jconfig = load_config(os.path.join(REPO, "configs", f"{name}.yml"))
+    path = os.path.join(REPO, "configs", f"{name}.yml")
+    config = port_config.load_config(path)
+    jconfig = load_config(path)
     assert to_dict(config) == namespace2dict(jconfig)
     sz = jconfig.data.image_size
     ch = jconfig.data.channels
@@ -260,35 +261,49 @@ def test_tiny_forward_matches_jax(tiny_params, pallas):
     np.testing.assert_allclose(nchw_to_nhwc(got), want, **FWD_TOL)
 
 
-def golden_config(cond_emb):
+def golden_config(cond_emb, spade=False, resblock_type="biggan"):
     return dict2namespace({
         "data": {"channels": 1, "image_size": 16, "num_frames": 2, "num_frames_cond": 2,
                  "num_frames_future": 0, "logit_transform": False, "rescaled": True,
                  "prob_mask_cond": 0.5 if cond_emb else 0.0},
-        "model": {"arch": "unetmore", "version": "DDPM", "spade": False,
+        "model": {"arch": "unetmore", "version": "DDPM", "spade": spade, "spade_dim": 16,
                   "cond_emb": cond_emb, "time_conditional": True, "dropout": 0.0,
                   "sigma_dist": "linear", "sigma_begin": 0.02, "sigma_end": 0.0001,
                   "num_classes": 20, "ngf": 16, "ch_mult": [1, 2], "num_res_blocks": 1,
                   "attn_resolutions": [8], "n_head_channels": 8, "conditional": True,
-                  "noise_in_cond": False, "output_all_frames": False, "gamma": False},
+                  "noise_in_cond": False, "output_all_frames": False, "gamma": False,
+                  "resblock_type": resblock_type},
     })
 
 
-@pytest.mark.parametrize("name,cond_emb", [("unetmore2d", False),
-                                           ("unetmore2d_condemb", True)])
-def test_forward_matches_upstream_golden(name, cond_emb):
+GOLDENS = [  # name, golden_config kwargs, state dict entries
+    ("unetmore2d", dict(cond_emb=False), 138),
+    ("unetmore2d_condemb", dict(cond_emb=True), 139),
+    ("spade2d", dict(cond_emb=False, spade=True), 262),
+    ("spade2d_ddpmblock", dict(cond_emb=False, spade=True, resblock_type="ddpm"), 206),
+    ("unetmore2d_ddpmblock", dict(cond_emb=False, resblock_type="ddpm"), 138),
+]
+
+
+@pytest.mark.parametrize("name,kw,n_entries", GOLDENS,
+                         ids=[f"{g[0]}-{g[1]['cond_emb']}" for g in GOLDENS])
+def test_forward_matches_upstream_golden(name, kw, n_entries):
     """Upstream's own state dict (buffers included) loads strictly and the
-    forward reproduces upstream's output."""
+    forward reproduces upstream's output, for the concat and SPADE models
+    with BigGAN and DDPM resblocks. The golden outputs are small (a fresh
+    upstream model's zero-scale output layers), so beside the JAX golden
+    test's tolerance the error must also stay within 1e-3 of the largest."""
     z = np.load(os.path.join(GOLDEN_DIR, f"{name}.npz"))
     sd = {k[4:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd::")}
-    assert len(sd) == (139 if cond_emb else 138)
-    model = get_model(golden_config(cond_emb), device="cpu").eval()
+    assert len(sd) == n_entries
+    model = get_model(golden_config(**kw), device="cpu").eval()
     model.load_state_dict(sd, strict=True)
-    cond_mask = torch.from_numpy(z["cond_mask"]) if cond_emb else None
+    cond_mask = torch.from_numpy(z["cond_mask"]) if kw["cond_emb"] else None
     with torch.no_grad():
         out = model(torch.from_numpy(z["x"]), torch.from_numpy(z["y"]),
                     torch.from_numpy(z["cond"]), cond_mask)
     np.testing.assert_allclose(out.numpy(), z["out"], **FWD_TOL)
+    assert np.abs(out.numpy() - z["out"]).max() <= 1e-3 * np.abs(z["out"]).max()
 
 
 def test_flagship_param_names_and_shapes_match_jax():

@@ -1,20 +1,18 @@
-"""The port's checkpoints, metric harness, runner and command line, held to
-the JAX package on the same inputs where it has a counterpart: checkpoint
-resume against an uninterrupted run (and the JAX naming policy),
-`run_video_gen` against the JAX harness with the same stub block sampler,
-`Runner.train` and resume on the CPU (meters and metric keys against the
-JAX package's), FVD and LPIPS in the harness against the JAX package's
-networks, `Runner.sample`, `test` and `fast_fid` (plain and ensemble) on
-checkpoints of a tiny run, `quick_sample`, and `python -m
-mcvd_tpu_torch.main` with jax, flax, yaml and the JAX package made
-unimportable."""
+"""The port's checkpoints, metric harness and runner, held to the JAX
+package on the same inputs where it has a counterpart: checkpoint resume
+against an uninterrupted run (and the JAX naming policy), `run_video_gen`
+against the JAX harness with the same stub block sampler, FVD and LPIPS in
+the harness against the JAX package's networks, `Runner.train` and resume on
+the CPU (meters and metric keys against the JAX package's), what the runner
+refuses, and the video grid. The evaluation modes and the command line are
+in `test_torch_port_runner_{eval,fid,cli}.py`, which share this file's
+configs and its `trained` fixture (a tiny run with checkpoints at 2 and 4):
+each file runs on its own worker under `--dist loadfile`."""
 
 import argparse
 import math
 import os
 import pickle
-import subprocess
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +21,6 @@ import pytest
 import torch
 
 from mcvd_tpu.config import dict2namespace as jax_dict2namespace
-from mcvd_tpu.eval import fid as jax_fid
 from mcvd_tpu.eval.i3d import make_jax_i3d_embedder
 from mcvd_tpu.eval.lpips import make_lpips_fn as jax_make_lpips_fn
 from mcvd_tpu.eval.video_gen import run_video_gen as jax_run_video_gen
@@ -39,10 +36,21 @@ from mcvd_tpu_torch.eval.video_gen import run_video_gen
 from mcvd_tpu_torch.models import get_model
 from mcvd_tpu_torch.runners import meters
 from mcvd_tpu_torch.runners.runner import Runner
-from mcvd_tpu_torch.train import (checkpoints, create_train_state, make_eval_loss_step,
-                                  make_train_step)
+from mcvd_tpu_torch.train import checkpoints, create_train_state, make_train_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# torch threads a test process of these files uses (and its CLI subprocesses,
+# through OMP_NUM_THREADS): the suite runs six workers on the host's cores,
+# and torch's default of one thread a core in each had them contend.
+TORCH_THREADS = 2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_threads():
+    n = torch.get_num_threads()
+    torch.set_num_threads(TORCH_THREADS)
+    yield
+    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------ checkpoints
@@ -405,7 +413,8 @@ def test_runner_metric_providers_find_the_files(tmp_path, monkeypatch, caplog):
     assert len(d) == 2 and all(math.isfinite(v) and v > 0 for v in d)
 
 
-# ------------------------------------------------------------ the evaluation modes
+# ------------------------------------------------------------ the evaluation modes'
+# config and checkpoints (test_torch_port_runner_{eval,fid}.py import them)
 
 def eval_config():
     """runner_config with the test and fast_fid sections, checkpoints at 2
@@ -438,198 +447,6 @@ def eval_runner(trained, tmp_path, config=None, **kw):
     for k, v in kw.items():
         setattr(args, k, v)
     return Runner(args, config or eval_config()), args
-
-
-def test_runner_sample_and_fid_dump(trained, tmp_path):
-    """sample: samples_4.npz with samples, real and cond of the first test
-    clips, folded (B, H, W, F*C) in [0, 1], the same on a second run; with
-    sampling.fid, ceil(10 / 8) = 2 shards of 8 videos."""
-    runner, args = eval_runner(trained, tmp_path)
-    gen = runner.sample(ckpt=4)
-    npz = np.load(tmp_path / "images" / "samples_4.npz")
-    assert all(npz[k].shape == (8, 64, 64, 2) for k in ("samples", "real", "cond"))
-    assert np.array_equal(npz["samples"], gen) and 0 <= gen.min() and gen.max() <= 1
-    assert np.array_equal(eval_runner(trained, tmp_path)[0].sample(ckpt=4), gen)
-    config = eval_config()
-    config.sampling.fid = True
-    assert eval_runner(trained, tmp_path, config)[0].sample(ckpt=2) == 16
-    shards = sorted(f for f in os.listdir(tmp_path / "images") if f.startswith("fid_"))
-    assert shards == ["fid_samples_2_00000.npz", "fid_samples_2_00001.npz"]
-    assert np.load(tmp_path / "images" / shards[0])["samples"].shape == (8, 64, 64, 2)
-
-
-def test_runner_test_sweeps_checkpoints(trained, tmp_path):
-    """test: the mean DSM loss of each checkpoint over the test split, batch
-    i drawing from a generator seeded with i (so each value is the eval
-    loss step's on those draws), into test_losses.yml; test.max_batches caps
-    the batches, begin/end/freq thin the sweep by checkpoint number."""
-    from mcvd_tpu_torch.data import DataLoader, get_dataset
-
-    runner, args = eval_runner(trained, tmp_path)
-    res = runner.test()
-    assert sorted(res) == [2, 4] and all(math.isfinite(v) for v in res.values())
-    assert yaml_subset.load_file(os.path.join(args.log_path, "test_losses.yml")) == res
-    config = eval_config()
-    _, test_ds = get_dataset(args.data_path, config, video_frames_pred=2)
-    params, _ = runner._load_eval_params(4)
-    eval_fn = make_eval_loss_step(runner.model, runner.sched, config)
-    losses = [float(eval_fn(params, torch.from_numpy(X),
-                            generator=torch.Generator().manual_seed(i)))
-              for i, (X, _) in enumerate(DataLoader(test_ds, batch_size=4, shuffle=False,
-                                                    drop_last=True))]
-    assert len(losses) == 2 and res[4] == float(np.mean(losses))
-    config.test.max_batches = 1
-    one = eval_runner(trained, tmp_path, config)[0].test(begin_ckpt=3)
-    assert one == {4: losses[0]}
-    assert sorted(runner.test(begin_ckpt=0, freq=4)) == [4]
-
-
-@pytest.mark.parametrize("no_pr", [False, True], ids=["pr", "no_pr"])
-def test_runner_fast_fid_plain_and_ensemble(trained, tmp_path, no_pr):
-    """fast_fid over checkpoints 2 and 4 with the TorchScript stand-in
-    Inception: fids.yml, the per-checkpoint caches (16 frames, 64 features),
-    the FID math equal to the JAX package's on those features, a rerun that
-    reads the caches (the same numbers) and the real features from
-    --feats_dir; then the ensemble (checkpoint 4 samples with 2, tagged
-    4_ens2) and --no_pr (FID only)."""
-    config = eval_config()
-    config.eval = dict2namespace({"inception_weights": os.path.join(trained, "w",
-                                                                    "inception.pt")})
-    feats_dir = str(tmp_path / "feats")
-    runner, args = eval_runner(trained, tmp_path, config, feats_dir=feats_dir, no_pr=no_pr)
-    res = runner.fast_fid()
-    metrics = ["fid"] if no_pr else ["fid", "precision", "recall"]
-    assert sorted(res) == [2, 4] and all(sorted(v) == metrics for v in res.values())
-    assert yaml_subset.load_file(os.path.join(args.log_path, "fids.yml")) == res
-    images = tmp_path / "images"
-    feat_r = np.load(os.path.join(feats_dir, "StochasticMovingMNIST_feats.npy"))
-    for s in (2, 4):
-        feat_g = np.load(images / f"feats_{s}.npy")
-        assert feat_g.shape == (16, 64) and np.load(images / f"samples_{s}.npy").shape == \
-            (16, 64, 64, 1)
-        want = jax_fid.get_fid_pr(feat_r, feat_g, k=3)
-        for m in metrics:
-            np.testing.assert_allclose(res[s][m], want[m], rtol=1e-6)
-    os.remove(images / "samples_2.npy")   # a rerun reads only the features
-    assert eval_runner(trained, tmp_path, config, feats_dir=feats_dir,
-                       no_pr=no_pr)[0].fast_fid() == res
-    config.fast_fid.ensemble = True
-    ens = eval_runner(trained, tmp_path, config, feats_dir=feats_dir, no_pr=no_pr)[0].fast_fid()
-    assert sorted(ens) == [2, 4]
-    assert {f for f in os.listdir(images) if "_ens" in f} == {
-        "feats_2_ens1.npy", "samples_2_ens1.npy", "feats_4_ens2.npy", "samples_4_ens2.npy"}
-    # a window of one checkpoint is that checkpoint alone
-    np.testing.assert_allclose(ens[2]["fid"], res[2]["fid"], rtol=1e-6)
-    assert ens[4]["fid"] != res[4]["fid"]
-
-
-def test_quick_sample_writes_one_block(trained, tmp_path):
-    """`python -m mcvd_tpu_torch.quick_sample` on the port's checkpoint (its
-    EMA, config.yml beside it): one block of B clips, the JAX script's npz
-    keys; the same samples as get_sampler on load_model's params."""
-    from mcvd_tpu_torch import quick_sample
-    from mcvd_tpu_torch.load_model_from_ckpt import load_model
-
-    out = str(tmp_path / "q.npz")
-    ckpt = os.path.join(trained, "logs", "checkpoint_4")
-    assert quick_sample.main(["--ckpt_path", ckpt, "--data_path", os.path.join(trained, "data"),
-                              "--out", out, "--batch_size", "3", "--subsample", "2",
-                              "--device", "cpu"]) == 0
-    npz = np.load(out, allow_pickle=True)
-    assert sorted(npz.files) == ["cond", "real", "samples"]
-    assert all(npz[k].shape == (3, 64, 64, 2) for k in npz.files)
-    assert np.isfinite(npz["samples"]).all()
-    _, params, _, _ = load_model(ckpt, device="cpu")
-    state = checkpoints.load_checkpoint(os.path.join(trained, "logs"), name="checkpoint_4")
-    assert all(torch.equal(params[k], v) for k, v in state.ema_params.items())
-
-
-# ------------------------------------------------------------ the command line
-
-BLOCKED = ("jax", "flax", "yaml", "mcvd_tpu")
-CLI_MODS = ["model.ngf=8", "model.ch_mult=[1,2]", "model.num_res_blocks=1",
-            "model.attn_resolutions=[32]", "model.n_head_channels=8", "model.num_classes=100",
-            "data.num_frames=2", "data.num_frames_cond=2", "data.num_digits=1",
-            "data.subset=32", "data.test_subset=8", "training.batch_size=8",
-            "training.n_iters=4", "training.checkpoint_freq=2", "training.snapshot_freq=4",
-            "training.val_freq=2", "training.log_freq=1", "sampling.subsample=3",
-            "sampling.num_frames_pred=2", "sampling.batch_size=8", "sampling.max_data_iter=1"]
-
-
-def run_cli(tmp_path, *flags, mods=()):
-    """`python -m mcvd_tpu_torch.main` in a process where jax, flax, yaml
-    and the JAX package raise ImportError (modules of those names come first
-    on the path)."""
-    fake = tmp_path / "blocked"
-    for name in BLOCKED:
-        (fake / name).mkdir(parents=True, exist_ok=True)
-        (fake / name / "__init__.py").write_text(
-            f"raise ImportError('{name} is not importable in this test')\n")
-    env = dict(os.environ, PYTHONPATH=f"{fake}{os.pathsep}{REPO}")
-    cmd = [sys.executable, "-m", "mcvd_tpu_torch.main", "--config",
-           os.path.join(REPO, "configs", "smmnist_DDPM_big5.yml"), "--exp",
-           str(tmp_path / "exp"), "--data_path", str(tmp_path / "data"), "--ni",
-           "--device", "cpu", *flags, "--config_mod", *CLI_MODS, *mods]
-    out = subprocess.run(cmd, cwd=str(tmp_path), env=env, capture_output=True, text=True,
-                         timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return out.stderr
-
-
-def test_cli_trains_then_evaluates_without_jax_or_yaml(tmp_path):
-    """--train, then --video_gen --ckpt 4, from the shipped yml with the
-    model cut to a tiny size: exit 0, the checkpoints, config and metrics
-    files, finite MSE and SSIM, and the launch counts line (zeros on the
-    CPU)."""
-    log = run_cli(tmp_path, "--train")
-    assert "training done at step 4" in log and "kernel launches:" in log
-    logs = tmp_path / "exp" / "logs"
-    assert {"checkpoint", "checkpoint_4", "config.yml", "args.yml",
-            "best_metrics.yml"} <= set(os.listdir(logs))
-    assert yaml_subset.load_file(str(logs / "config.yml"))["model"]["ngf"] == 8
-    log = run_cli(tmp_path, "--video_gen", "--ckpt", "4")
-    vm = yaml_subset.load_file(str(tmp_path / "exp" / "video_samples" / "videos" /
-                                   "vid_metrics.yml"))
-    assert vm["ckpt"] == 4.0
-    assert all(math.isfinite(vm[k]) for k in ("mse", "psnr", "ssim"))
-    assert "video_gen: " in log
-
-
-def test_cli_evaluation_modes_without_jax_or_yaml(tmp_path):
-    """--train with checkpoints at 2 and 4, then --test, --sample and
-    --fast_fid (the stand-in Inception) in processes without jax, flax or
-    yaml: exit 0 and their files."""
-    standins.write_standins(str(tmp_path / "w"), seed=3)
-    run_cli(tmp_path, "--train", mods=["training.snapshot_freq=2"])
-    logs, images = tmp_path / "exp" / "logs", tmp_path / "exp" / "image_samples" / "images"
-    run_cli(tmp_path, "--test", mods=["test.batch_size=4"])
-    assert sorted(yaml_subset.load_file(str(logs / "test_losses.yml"))) == [2, 4]
-    run_cli(tmp_path, "--sample", "--ckpt", "4")
-    assert np.load(images / "samples_4.npz")["samples"].shape == (8, 64, 64, 2)
-    log = run_cli(tmp_path, "--fast_fid", "--ckpt", "2", "--fid_num_samples", "16",
-                  "--fid_batch_size", "4",
-                  mods=[f"eval.inception_weights={tmp_path / 'w' / 'inception.pt'}"])
-    fids = yaml_subset.load_file(str(logs / "fids.yml"))
-    assert sorted(fids) == [2, 4] and all(math.isfinite(v["fid"]) for v in fids.values())
-    assert "FID: Inception from" in log
-
-
-def test_cli_refuses_the_modes_not_ported(tmp_path):
-    """The CLI runs every mode now; what it refuses ends the run with exit
-    code 1 and the reason in the log: sample's inpainting (ROADMAP item 12)
-    and a metric weights file that is found but does not load."""
-    from mcvd_tpu_torch import main as cli
-
-    broken = tmp_path / "broken.pt"
-    broken.write_bytes(b"not a checkpoint")
-    for flag, mod, why in (("--sample", "sampling.inpainting=true", "item 12"),
-                           ("--fast_fid", f"eval.inception_weights={broken}",
-                            "UnpicklingError")):
-        exp = tmp_path / flag.strip("-")
-        assert cli.main(["--config", os.path.join(REPO, "configs", "smmnist_DDPM_big5.yml"),
-                         "--exp", str(exp), flag, "--device", "cpu", "--config_mod",
-                         *CLI_MODS, mod]) == 1
-        assert why in (exp / "logs" / "stdout.txt").read_text()
 
 
 # ------------------------------------------------------------ artifacts

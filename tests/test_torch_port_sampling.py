@@ -119,8 +119,8 @@ def test_ddpm_sampler_draws_from_generator_only_when_needed():
     b = samplers.ddpm_sampler(x, toy_eps_torch, sched, subsample_steps=5,
                               generator=torch.Generator().manual_seed(0))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
-        samplers.get_sampler("DDIM")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        samplers.get_sampler("SMLD")
 
 
 def test_init_noise_defaults_to_the_card(monkeypatch):

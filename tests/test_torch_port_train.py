@@ -181,8 +181,6 @@ def test_dsm_loss_matches_jax(case):
     got = dsm_loss(tfn, to_nchw(x), tsched, labels=labels, z=z, cond=to_nchw(cond), **kw)
     assert got.dtype == torch.float32 and got.ndim == 0
     np.testing.assert_allclose(float(got), want, rtol=1e-6)
-    with pytest.raises(NotImplementedError, match="gamma"):
-        dsm_loss(tfn, to_nchw(x), tsched, gamma=True)
 
 
 # ------------------------------------------------------- optimizer and EMA
