@@ -81,7 +81,7 @@ line each:
                (`CLI_MODS`): --train to step 6 (checkpoints at 3 and 6, the
                validation loss at 3 and 6, a snapshot with its in-training
                video_gen at 6), --resume_training to step 9, then
-               --video_gen --ckpt 6 (one batch of 16 clips, 20 frames in 4
+               --video_gen --ckpt 6 (one batch of 16 clips, 10 frames in 2
                blocks of 100 steps + denoise). Checks: the steps continue
                6 -> 9, checkpoint_6 loads bit-equal into a fresh state here,
                best_metrics.yml and vid_metrics.yml hold finite mse, psnr
@@ -89,7 +89,22 @@ line each:
                (`CLI_LAUNCHES`). Emits the loop's ms per step (each step
                timed alone by the runner's log, the first of each process
                apart as warm-up) beside train_headline's fp32 step, and the
-               video_gen harness's seconds.
+               video_gen harness's seconds;
+ 12. data      the data readers on the card machine's host: synthetic shards
+               (`DATA_SETS`: KTH, BAIR, Cityscapes, UCF101 at their shipped
+               frame sizes, `synth_video`) written by the port's HDF5Maker,
+               every frame read back bit-equal through the native LZF
+               decoder and the first videos of each split through the plain
+               one; LZF MB/s; each reader's clips/s through `DataLoader` at
+               its config's B=64 with 0 and 4 worker threads, cache cold and
+               warm (the worker counts giving the same batches); SMMNIST's
+               batch path against its per-item path;
+ 13. cli_data  the command line on those shards at the configs' full width
+               (`CLI_DATA_RUNS`): --train and --video_gen on bair_big.yml and
+               kth64_big.yml, --train on ucf101.yml and cityscapes_big.yml;
+               exact launch counts (the model's GroupNorm and attention
+               calls), the checkpoint loaded bit-equal, finite losses and
+               metrics; the loop's ms a step and its wait on the loader.
 
 Then the per-kernel summary line of the seven kernels (with each kernel's
 bound: the larger of its bytes over the HBM rate and its operations over the
@@ -194,7 +209,7 @@ TRAIN_GRAD_REL = 1e-3
 CLI_CONFIG = "configs/smmnist_DDPM_big5.yml"
 CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=3", "training.val_freq=3",
             "training.log_freq=1", "sampling.subsample=100", "sampling.batch_size=16",
-            "sampling.max_data_iter=1"]
+            "sampling.max_data_iter=1", "sampling.num_frames_pred=10"]
 
 
 def _cli_launches(steps, evals):
@@ -227,30 +242,64 @@ CLI_RUNS = [   # on CLI_CONFIG
     ("fast_fid_cached", 9, FID_FLAGS, ["eval.inception_weights={w}/inception.pt"]),
 ]
 # Each run's launches (a sampler block is 100 steps + denoise = 101
-# evaluations): --train to 6 (6 steps, 2 validation losses, in-training
-# video_gens at 3 and 6 of 4 blocks each), --resume_training to 9 (3 steps,
-# 1 validation loss, the video_gen at 9), --video_gen (4 blocks), --test
+# evaluations; a video_gen predicts 10 frames in 2 blocks): --train to 6 (6
+# steps, 2 validation losses, in-training video_gens at 3 and 6),
+# --resume_training to 9 (3 steps, 1 validation loss, the video_gen at 9),
+# --video_gen (2 blocks), --test
 # (checkpoints 3, 6, 9, 2 batches of 100 each), --sample (1 block), the FID
 # dump (2 blocks), fast_fid (checkpoints 6 and 9, 1 block each; the ensemble
 # samples 9 with 2 checkpoints: 2 evaluations a step), the cached rerun
 # (none).
-CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 404), "resume": _cli_launches(3, 1 + 404),
-                "video_gen": _cli_launches(0, 404), "test": _cli_launches(0, 3 * 2),
+CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 202), "resume": _cli_launches(3, 1 + 202),
+                "video_gen": _cli_launches(0, 202), "test": _cli_launches(0, 3 * 2),
                 "sample": _cli_launches(0, 101), "sample_fid": _cli_launches(0, 2 * 101),
                 "fast_fid": _cli_launches(0, 2 * 101),
                 "fast_fid_ensemble": _cli_launches(0, 101 + 2 * 101),
                 "fast_fid_cached": _cli_launches(0, 0),
-                "spade_train": _cli_launches(3, 1 + 404),
-                "spade_video_gen_ddim": _cli_launches(0, 404)}
+                "spade_train": _cli_launches(3, 1 + 202),
+                "spade_video_gen_ddim": _cli_launches(0, 202)}
 # The SPADE runs, on SPADE_CONFIG in an experiment of their own: --train to 3
-# (3 steps, the validation loss and the in-training video_gen at 3, 4 blocks),
-# then --video_gen --ckpt 3 with DDIM (4 blocks of 100 steps + denoise).
+# (3 steps, the validation loss and the in-training video_gen at 3, 2 blocks),
+# then --video_gen --ckpt 3 with DDIM (2 blocks of 100 steps + denoise).
 CLI_SPADE_RUNS = [("spade_train", 3, ["--train"], []),
                   ("spade_video_gen_ddim", 3, ["--video_gen", "--ckpt", "3"],
                    ["model.version=DDIM"])]
 # The metric networks on the card against the same modules on the CPU, fp32
 # with TF32 off: within this share of the largest output.
 EVAL_NET_REL = 1e-4
+# The data phase: synthetic shards in each reader's layout, written by the
+# port's HDF5Maker at the shipped frame sizes (KTH grey, UCF101 64x85 as its
+# converter stores 240x320 at 64 px): name: (config, frame shape, train
+# videos, test videos). 64 train videos fill one batch of each config's
+# B=64; UCF101's 20 test videos give its test split 2 (every 10th).
+DATA_SETS = {"kth64_big": ("configs/kth64_big.yml", (64, 64), 64, 16),
+             "bair_big": ("configs/bair_big.yml", (64, 64, 3), 64, 16),
+             "cityscapes_big": ("configs/cityscapes_big.yml", (128, 128, 3), 64, 8),
+             "ucf101": ("configs/ucf101.yml", (64, 85, 3), 64, 20)}
+DATA_FRAMES = 30          # frames a video
+DATA_PLAIN_VIDEOS = 4     # videos of each split read again through the plain LZF decoder
+DATA_WORKERS = (0, 4)
+DATA_WARM_BATCHES = 3
+# The CLI on the new datasets, at full width: (config, runs, config mods beside
+# CLI_DATA_MODS). Each --train validates once at its last step and writes
+# checkpoint_N there (no in-training video_gen); --video_gen predicts one
+# batch of 16 clips, 10 frames (2 blocks of 100 steps + denoise). The batch
+# is the yml's 64 but for ucf101 (ngf 192: 32) and cityscapes_big (128 px,
+# fp32 on cuDNN's FFT-tiled convolution, PERF.md section 5: 4).
+CLI_DATA_MODS = ["training.snapshot_sampling=False", "training.log_freq=1",
+                 "sampling.subsample=100", "sampling.batch_size=16",
+                 "sampling.max_data_iter=1", "sampling.num_frames_pred=10"]
+CLI_STANDIN_MODS = ["eval.i3d_weights={w}/i3d_torchscript.pt",
+                    "eval.lpips_weights={w}/lpips_alex_lin.pth",
+                    "eval.lpips_alexnet_weights={w}/alexnet.pth"]
+CLI_DATA_RUNS = [
+    ("bair_big", [("train", 3, ["--train"], []),
+                  ("video_gen", 3, ["--video_gen", "--ckpt", "3"], CLI_STANDIN_MODS)]),
+    ("kth64_big", [("train", 3, ["--train"], []),
+                   ("video_gen", 3, ["--video_gen", "--ckpt", "3"], CLI_STANDIN_MODS)]),
+    ("ucf101", [("train", 2, ["--train"], ["training.batch_size=32"])]),
+    ("cityscapes_big", [("train", 2, ["--train"], ["training.batch_size=4"])]),
+]
 
 
 def emit(phase, **payload):
@@ -377,12 +426,31 @@ def ptxas_summary(log):
 
 
 def phase_build():
+    import threading
+
+    from mcvd_tpu_torch.data import native
     from mcvd_tpu_torch.ops import _build
     from mcvd_tpu_torch.ops import fused_act as FA
 
+    # the data path's host library (g++) builds beside the kernels (nvcc)
+    host, host_s = [], []
+
+    def build_host():
+        t = time.perf_counter()
+        try:
+            native.load_library()
+        except Exception as e:  # raised on the main thread below
+            host.append(e)
+        host_s.append(time.perf_counter() - t)
+
+    th = threading.Thread(target=build_host)
+    th.start()
     t0 = time.perf_counter()
     _build.load_library()
     nvcc_s = time.perf_counter() - t0
+    th.join()
+    if host:
+        raise host[0]
     x = torch.randn(2, 8, 8, 64, device="cuda")
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -390,7 +458,8 @@ def phase_build():
     torch.cuda.synchronize()
     triton_s = time.perf_counter() - t0
     emit("build", nvcc_s=nvcc_s, nvcc_compile_s=_build.BUILD_SECONDS[0],
-         triton_first_compile_s=triton_s, ptxas=ptxas_summary(_build.BUILD_LOG[0]))
+         triton_first_compile_s=triton_s, host_gxx_s=host_s[0],
+         ptxas=ptxas_summary(_build.BUILD_LOG[0]))
 
 
 def host_us(fn, n=100, reps=3):
@@ -755,10 +824,10 @@ def phase_slice(card):
     emit("slice", card=card, denoise=True, **out)
 
 
-def headline(config):
+def headline(config, n_timed=3):
     """The bench protocol on `config`'s model (random weights from a seed):
     B=16, 100-step DDPM + denoise, 16 frames of 64x64 predicted in 4 blocks
-    on the cond frames, bf16 score network; one warm-up and 3 timed
+    on the cond frames, bf16 score network; one warm-up and `n_timed` timed
     requests with exact launch counts. Returns the payload."""
     from mcvd_tpu_torch import ops
     from mcvd_tpu_torch.diffusion import make_schedule
@@ -795,7 +864,7 @@ def headline(config):
     _, warm_s, _ = request()
     want = {"gn_fused": n_gn * evals, "attention_fwd": n_attn * evals}
     times, launches = [], None
-    for _ in range(3):
+    for _ in range(n_timed):
         out, dt, launches = request()
         check_launches(launches, want, "request")
         check(out.shape == (B, sz, sz, n_pred * d.channels) and bool(torch.isfinite(out).all()),
@@ -821,8 +890,9 @@ def phase_headline(card):
 def phase_spade(card):
     """configs/smmnist_DDPM_big5_spade.yml at full width (random weights from
     a seed): one fp32 sampler block with kernels on and off, the bf16
-    headline protocol, and one B=64 fp32 training step with kernels on and
-    off, then 3 timed fp32 steps at B=64. Launch counts exact (67 GroupNorm
+    headline protocol (one timed request after the warm-up), and one B=64
+    fp32 training step with kernels on and off, then 3 timed fp32 steps at
+    B=64. Launch counts exact (67 GroupNorm
     and 10 attention calls an evaluation, read from the model)."""
     from mcvd_tpu_torch.config import load_config
 
@@ -838,7 +908,7 @@ def phase_spade(card):
     check(block["params"] == SPADE_PARAM_COUNT,
           f"spade: {block['params']} params, JAX has {SPADE_PARAM_COUNT}")
     torch.cuda.empty_cache()
-    request = headline(config())
+    request = headline(config(), n_timed=1)
     torch.cuda.empty_cache()
     step_launches = {"gn_fused": n_gn, "gn_fused_bwd": n_gn, "attention_fwd": n_attn,
                      "attention_bwd": n_attn}
@@ -1348,14 +1418,15 @@ def phase_eval_nets(card):
     emit("eval_nets", card=card, rel_tol=EVAL_NET_REL, nets=out)
 
 
-def run_cli(exp, n_iters, *flags, mods=(), config=CLI_CONFIG):
+def run_cli(exp, n_iters, *flags, mods=(), config=CLI_CONFIG, base_mods=CLI_MODS,
+            data_path=None):
     """One run of `python -m mcvd_tpu_torch.main` on `config` in a subprocess
     from the repo's root: (its log, the kernel launch counts it logged at its
     end, its wall seconds). The process starts with every count at 0."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "mcvd_tpu_torch.main", "--config", config, "--exp", exp,
-           "--data_path", os.path.join(exp, "data"), "--ni", *flags, "--config_mod",
-           *CLI_MODS, f"training.n_iters={n_iters}", *mods]
+           "--data_path", data_path or os.path.join(exp, "data"), "--ni", *flags,
+           "--config_mod", *base_mods, f"training.n_iters={n_iters}", *mods]
     t0 = time.perf_counter()
     out = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=600)
     wall_s = time.perf_counter() - t0
@@ -1370,6 +1441,14 @@ def _steps(log):
     return {int(a): float(b) for a, b in
             re.findall(r"step (\d+) \| loss \S+ \| grad \S+ \| \S+ steps/s \| "
                        r"([\d.]+) ms/step", log)}
+
+
+def _steps_waits(log):
+    """{step: (loss, ms, ms the loop waited on the loader)} of the runner's
+    log lines."""
+    return {int(a): (float(b), float(c), float(d)) for a, b, c, d in
+            re.findall(r"step (\d+) \| loss (\S+) \| grad \S+ \| \S+ steps/s \| "
+                       r"([\d.]+) ms/step \| ([\d.]+) ms/step waiting on data", log)}
 
 
 def _finite_metrics(d, what):
@@ -1542,6 +1621,300 @@ def phase_cli(card, headline_ms):
     return {k: r["launches"] for k, r in runs.items()}
 
 
+
+def synth_video(name, v, shape, n=DATA_FRAMES):
+    """Video `v` of dataset `name`: smooth waves that drift, in bands of 16
+    grey levels (runs of equal pixels, which LZF shrinks), with every 13th
+    frame, counted from a per-video phase, uniform noise (LZF does not: it is
+    stored raw); uint8, from a generator seeded by (name, v)."""
+    rng = np.random.default_rng([sum(name.encode()), v])
+    h, w = shape[:2]
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    fx, fy, ph, vx, vy = rng.uniform([0.05, 0.05, 0, 0.1, 0.1], [0.3, 0.3, 6, 0.6, 0.6])
+    skip = int(rng.integers(13))
+    frames = []
+    for t in range(n):
+        if (t + skip) % 13 == 0:
+            frames.append(rng.integers(0, 256, shape, dtype=np.uint8))
+            continue
+        base = 128 + 60 * np.sin(fx * x + ph + vx * t) + 50 * np.cos(fy * y - vy * t)
+        base = np.clip(base, 0, 255) // 16 * 16
+        if len(shape) == 3:
+            base = np.stack([base, 0.75 * base + 32, 255 - base][:shape[2]], -1)
+        frames.append(base.astype(np.uint8))
+    return frames
+
+
+def write_data(root):
+    """Each reader's tree under `root`, written by the port's makers:
+    KTH (persons 1-20 train, 21-25 test, persons.pkl, uint8 targets), BAIR
+    and Cityscapes (train/ and test/), UCF101 (one shard, num_train /
+    num_test). Returns {name: [(directory, video ids)]} and the seconds and
+    bytes of the writes."""
+    import pickle
+
+    from mcvd_tpu_torch.data import h5
+
+    layout, t0, raw = {}, time.perf_counter(), 0
+    for name, (_, shape, n_train, n_test) in DATA_SETS.items():
+        d = os.path.join(root, name)
+        if name == "kth64_big":
+            m = h5.KTHMaker(d, video=True)
+            persons = {p: [] for p in range(1, 26)}
+            for v in range(n_train + n_test):
+                p = v % 20 + 1 if v < n_train else 21 + v % 5
+                m.add_data((synth_video(name, v, shape), p, v % 6), dtype="uint8")
+                persons[p].append(v)
+            m.close()
+            with open(os.path.join(d, "persons.pkl"), "wb") as f:
+                pickle.dump(persons, f)
+            layout[name] = [(d, range(n_train + n_test))]
+        elif name == "ucf101":
+            m = h5.UCFMaker(d, video=True)
+            for v in range(n_train + n_test):
+                m.add_data((synth_video(name, v, shape), v % 101), dtype="uint8")
+            m.writer.create_dataset("num_train", data=n_train)
+            m.writer.create_dataset("num_test", data=n_test)
+            m.close()
+            layout[name] = [(d, range(n_train + n_test))]
+        else:
+            layout[name] = []
+            for split, first, n in (("train", 0, n_train), ("test", n_train, n_test)):
+                m = h5.HDF5Maker(os.path.join(d, split), video=True)
+                for v in range(first, first + n):
+                    m.add_data(synth_video(name, v, shape), dtype="uint8")
+                m.close()
+                layout[name].append((os.path.join(d, split), range(first, first + n)))
+        raw += (n_train + n_test) * DATA_FRAMES * int(np.prod(shape))
+    return layout, time.perf_counter() - t0, raw
+
+
+def read_back(layout):
+    """Every frame read back through the native LZF route equals what was
+    written; the first videos of each split through the plain route too.
+    Returns the raw and stored chunk counts."""
+    from mcvd_tpu_torch.data import h5, lzf
+
+    counts = {"lzf_chunks": 0, "raw_chunks": 0, "frames": 0, "plain_frames": 0}
+    for name, splits in layout.items():
+        shape = DATA_SETS[name][1]
+        for d, videos in splits:
+            ds = h5.HDF5Dataset(d)
+            check(len(ds) == len(videos), f"{name}: {len(ds)} videos in {d}")
+            for i, v in enumerate(videos):
+                want = synth_video(name, v, shape)
+                shard, k = ds.get_indices(i)
+                routes = [h5.open_shard(ds.shard_paths[shard])]
+                if i < DATA_PLAIN_VIDEOS:
+                    routes.append(h5.open_shard(ds.shard_paths[shard],
+                                                decompress=lzf.decompress_plain))
+                for f in routes:
+                    check(int(f["len"][k][()]) == DATA_FRAMES, f"{name} {v}: len")
+                    for t, fr in enumerate(want):
+                        got = f[k][str(t)][()]
+                        check(got.dtype == np.uint8 and np.array_equal(got, fr),
+                              f"{name} video {v} frame {t} read back other bytes")
+                counts["frames"] += DATA_FRAMES
+                counts["plain_frames"] += DATA_FRAMES * (len(routes) - 1)
+                for t in range(DATA_FRAMES):
+                    for _, mask, _ in routes[0][k][str(t)].raw_chunks():
+                        counts["raw_chunks" if mask & 1 else "lzf_chunks"] += 1
+    check(counts["raw_chunks"] > 0 and counts["lzf_chunks"] > counts["raw_chunks"],
+          f"chunks stored {counts}")
+    return counts
+
+
+def lzf_rates(layout):
+    """Decode MB/s (decoded bytes) of the native and the plain LZF routes over
+    the compressed chunks of Cityscapes' train shard, and the encode MB/s."""
+    from mcvd_tpu_torch.data import h5, lzf
+
+    d, _ = layout["cityscapes_big"][0]
+    path = h5.HDF5Dataset(d).shard_paths[0]
+    f = h5.open_shard(path)
+    chunks = [(raw, int(np.prod(f[k][t].shape)))
+              for k in f.keys() if k.isdigit() for t in f[k].keys()
+              for _, mask, raw in f[k][t].raw_chunks() if not mask & 1]
+    n_out = sum(n for _, n in chunks)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for raw, n in chunks:
+            lzf.decompress(raw, n)
+        times.append(time.perf_counter() - t0)
+    plain = chunks[:16]
+    t0 = time.perf_counter()
+    for raw, n in plain:
+        check(np.array_equal(lzf.decompress_plain(raw, n), lzf.decompress(raw, n)),
+              "LZF: plain and native decoders disagree")
+    plain_s = time.perf_counter() - t0
+    frames = [lzf.decompress(raw, n) for raw, n in chunks[:64]]
+    t0 = time.perf_counter()
+    stored = [lzf.compress(fr) for fr in frames]
+    enc_s = time.perf_counter() - t0
+    return dict(chunks=len(chunks), decoded_mb=n_out / 1e6,
+                stored_mb=sum(len(r) for r, _ in chunks) / 1e6,
+                native_decode_mb_s=n_out / 1e6 / min(times),
+                plain_decode_mb_s=sum(n for _, n in plain) / 1e6 / plain_s,
+                native_encode_mb_s=sum(fr.size for fr in frames) / 1e6 / enc_s,
+                encode_ratio=sum(len(e) for e in stored if e) / sum(fr.size for fr in frames))
+
+
+def loader_rates(root):
+    """Each reader through `DataLoader` at its config's batch (64), as the
+    CLI's training loop builds it (`get_dataset`, clips of num_frames_cond +
+    num_frames frames), with 0 and 4 worker threads: the first batch with the
+    cache cold, then `DATA_WARM_BATCHES` warm; the two worker counts give the
+    same batches."""
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.data import DataLoader, get_dataset
+
+    out = {}
+    for name, (cfg, *_rest) in DATA_SETS.items():
+        config = load_config(repo_path(cfg))
+        B = config.training.batch_size
+        firsts, rates = [], {}
+        for nw in DATA_WORKERS:
+            train, _ = get_dataset(os.path.join(root, name), config,
+                                   video_frames_pred=config.data.num_frames)
+            it = iter(DataLoader(train, batch_size=B, shuffle=True, seed=0, drop_last=True,
+                                 repeat=True, num_workers=nw))
+            t0 = time.perf_counter()
+            xs, _ = next(it)
+            cold = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(DATA_WARM_BATCHES):
+                next(it)
+            warm = (time.perf_counter() - t0) / DATA_WARM_BATCHES
+            it.close()
+            firsts.append(xs)
+            rates[f"workers_{nw}"] = dict(cold_clips_per_s=B / cold,
+                                          warm_clips_per_s=B / warm, cold_s=cold,
+                                          warm_s=warm)
+        check(all(np.array_equal(firsts[0], x) for x in firsts[1:]),
+              f"{name}: the worker counts gave other batches")
+        d = config.data
+        check(firsts[0].shape == (B, d.num_frames_cond + d.num_frames, d.image_size,
+                                  d.image_size, d.channels) and firsts[0].dtype == np.float32,
+              f"{name}: batch {firsts[0].shape}")
+        out[name] = dict(B=B, clip_shape=list(firsts[0].shape[1:]), **rates)
+    return out
+
+
+def smmnist_rates():
+    """SMMNIST's batch path (the host synthesizer) against its per-item path,
+    at the flagship's B=64 and 10 frames."""
+    from mcvd_tpu_torch.config import flagship_config
+    from mcvd_tpu_torch.data import StochasticMovingMNIST
+
+    d = flagship_config().data
+    with tempfile.TemporaryDirectory(prefix="mcvd_mnist_") as tmp:
+        ds = StochasticMovingMNIST(tmp, seq_len=d.num_frames_cond + d.num_frames,
+                                   num_digits=d.num_digits, image_size=d.image_size)
+    idx = np.arange(64)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        xb, _ = ds.get_batch(idx)
+    batch_s = (time.perf_counter() - t0) / 5
+    t0 = time.perf_counter()
+    xi = np.stack([ds[int(i)][0] for i in idx])
+    item_s = time.perf_counter() - t0
+    check(xb.shape == xi.shape and np.isfinite(xb).all() and 0 <= xb.min() and xb.max() <= 1,
+          f"smmnist get_batch {xb.shape}")
+    return dict(B=64, frames=int(xb.shape[1]), get_batch_clips_per_s=64 / batch_s,
+                per_item_clips_per_s=64 / item_s)
+
+
+def phase_data(card, root):
+    """The data readers on the card's host: synthetic shards written by the
+    port's HDF5Maker in each reader's layout, read back bit-equal through
+    the native and the plain LZF decoders; LZF MB/s; each reader's clips/s
+    through the loader; SMMNIST's batch path against its per-item path."""
+    layout, write_s, raw = write_data(root)
+    t0 = time.perf_counter()
+    counts = read_back(layout)
+    read_s = time.perf_counter() - t0
+    stored = sum(os.path.getsize(os.path.join(dp, f)) for dp, _, fs in os.walk(root)
+                 for f in fs if f.endswith(".hdf5"))
+    emit("data", card=card, videos={k: v[2:] for k, v in DATA_SETS.items()},
+         frames=DATA_FRAMES, write_s=write_s, raw_mb=raw / 1e6, stored_mb=stored / 1e6,
+         read_back_s=read_s, read_back=counts, lzf=lzf_rates(layout),
+         loader=loader_rates(root), smmnist=smmnist_rates())
+    return layout
+
+
+def cli_data_launches(config, runs):
+    """Each run's launches: a training step's GroupNorm and attention calls
+    forward and backward, one validation evaluation, and 101 evaluations
+    (100 steps + denoise) a block of video_gen."""
+    n_gn, n_attn = model_calls(config, 1)
+    blocks = -(-10 // config.data.num_frames)   # sampling.num_frames_pred=10
+    out = {}
+    for name, n_iters, flags, _ in runs:
+        steps, evals = (n_iters, 1) if "--train" in flags else (0, 101 * blocks)
+        out[name] = {"gn_fused": n_gn * (steps + evals), "gn_fused_bwd": n_gn * steps,
+                     "attention_fwd": n_attn * (steps + evals),
+                     "attention_bwd": n_attn * steps}
+    return out
+
+
+def phase_cli_data(card, root):
+    """The CLI on the data phase's shards (`CLI_DATA_RUNS`), at the configs'
+    full width: exact launch counts, the checkpoint loaded bit-equal, a finite
+    loss and finite metrics; the loop's ms a step and its wait on the
+    loader."""
+    from mcvd_tpu_torch.compat import yaml_subset
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.eval import standins
+
+    out = {}
+    for name, runs in CLI_DATA_RUNS:
+        cfg = DATA_SETS[name][0]
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory(prefix=f"mcvd_cli_{name}_") as exp:
+            wdir = os.path.join(exp, "weights")
+            standins.write_standins(wdir, seed=0)
+            config = load_config(repo_path(cfg))
+            want = cli_data_launches(config, runs)
+            res = {}
+            for run, n_iters, flags, mods in runs:
+                mods = [m.format(w=wdir) for m in mods]
+                base = [*CLI_DATA_MODS, f"training.snapshot_freq={n_iters}",
+                        f"training.val_freq={n_iters}"]
+                log, launches, wall_s = run_cli(exp, n_iters, *flags, mods=mods, config=cfg,
+                                                base_mods=base,
+                                                data_path=os.path.join(root, name))
+                check_launches(launches, want[run], f"cli {name} {run}")
+                res[run] = dict(launches=launches, wall_s=wall_s)
+                if "--train" in flags:
+                    steps = _steps_waits(log)
+                    check(sorted(steps) == list(range(1, n_iters + 1))
+                          and f"training done at step {n_iters}" in log,
+                          f"cli {name}: steps {sorted(steps)}")
+                    check(all(np.isfinite(v[0]) for v in steps.values()),
+                          f"cli {name}: losses {steps}")
+                    check("test loss" in log, f"cli {name}: no validation loss")
+                    res[run].update(
+                        ms_by_step={k: v[1] for k, v in steps.items()},
+                        wait_ms_by_step={k: v[2] for k, v in steps.items()},
+                        loss_by_step={k: v[0] for k, v in steps.items()},
+                        checkpoint_tensors_bit_equal=check_checkpoint(
+                            os.path.join(exp, "logs"), cfg, n_iters))
+                else:
+                    vid = yaml_subset.load_file(
+                        os.path.join(exp, "video_samples", "videos", "vid_metrics.yml"))
+                    res[run]["vid_metrics"] = {k: _finite(vid.get(k), f"{name} {k}")
+                                               for k in ("mse", "psnr", "ssim", "lpips", "fvd")}
+            mods_all = {r: m for r, _, _, m in runs}
+            out[name] = dict(config=cfg, runs=res, mods=mods_all,
+                             B=next((int(m.split("=")[1]) for m in mods_all["train"]
+                                     if m.startswith("training.batch_size")),
+                                    config.training.batch_size),
+                             num_workers=int(getattr(config.data, "num_workers", 0) or 0))
+    emit("cli_data", card=card, config_mod=CLI_DATA_MODS, dtype="float32", configs=out)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1571,6 +1944,9 @@ def main():
     train_launches, headline_ms = timed("train_headline", phase_train_headline, card)
     timed("eval_nets", phase_eval_nets, card)
     timed("cli", phase_cli, card, headline_ms)
+    with tempfile.TemporaryDirectory(prefix="mcvd_data_") as root:
+        timed("data", phase_data, card, root)
+        timed("cli_data", phase_cli_data, card, root)
     emit("phases", seconds=seconds)
     check("jax" not in sys.modules, "jax was imported")
 

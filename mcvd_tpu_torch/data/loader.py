@@ -2,20 +2,23 @@
 upstream ncsn_runner.py:251-259 uses torch's DataLoader).
 
 `DataLoader` keeps the JAX package's epoch order (a permutation drawn from
-`SeedSequence([seed, epoch])`), its per-process split and its drop_last
-guard, so the port and the JAX package see the same clips in the same
-batches. `prefetch_to_device` assembles the next batches on a producer
-thread into pinned host tensors and copies each to the card with
-`non_blocking=True` on the consumer's side, so the copy overlaps the
-device's work. The JAX package's `num_workers` thread pool and its wire
-dtypes work around its TPU host link and are not carried over (the config
-keys are accepted and ignored).
+`SeedSequence([seed, epoch])`), its per-process split, its drop_last guard,
+its batch path (a dataset's `get_batch(indices)`, SMMNIST's host
+synthesizer, where the dataset has one) and its `num_workers` thread pool,
+which reads the items of a batch in parallel and keeps their order (the
+HDF5 readers' LZF decode releases the GIL); so the port and the JAX package
+see the same clips in the same batches. `prefetch_to_device` assembles the
+next batches on a producer thread into pinned host tensors and copies each
+to the card with `non_blocking=True` on the consumer's side, so the copy
+overlaps the device's work. The JAX package's wire dtypes work around its
+TPU host link and are not carried over.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -27,7 +30,7 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True, seed: int = 0,
                  drop_last: bool = False, num_processes: int = 1, process_index: int = 0,
-                 repeat: bool = False):
+                 repeat: bool = False, num_workers: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -36,6 +39,7 @@ class DataLoader:
         self.num_processes = num_processes
         self.process_index = process_index
         self.repeat = repeat
+        self.num_workers = num_workers
         per_host = len(dataset) // max(1, num_processes)
         if drop_last and per_host < batch_size:
             # with drop_last the epoch would yield no batch; with repeat=True
@@ -60,22 +64,36 @@ class DataLoader:
         return idx[self.process_index::self.num_processes]
 
     def __iter__(self) -> Iterator:
-        while True:
-            if hasattr(self.dataset, "set_epoch"):
-                self.dataset.set_epoch(self._epoch)
-            idx = self._epoch_indices()
-            for i in range(0, len(idx), self.batch_size):
-                chunk = idx[i:i + self.batch_size]
-                if self.drop_last and len(chunk) < self.batch_size:
-                    break
-                items = [self.dataset[int(j)] for j in chunk]
-                if isinstance(items[0], tuple):
-                    yield np.stack([it[0] for it in items]), np.asarray([it[1] for it in items])
-                else:
-                    yield np.stack(items), None
-            self._epoch += 1
-            if not self.repeat:
-                return
+        # the pool lives as long as the iteration: closing the generator
+        # stops its threads
+        pool = ThreadPoolExecutor(self.num_workers) if self.num_workers > 0 else None
+        try:
+            while True:
+                if hasattr(self.dataset, "set_epoch"):
+                    self.dataset.set_epoch(self._epoch)
+                idx = self._epoch_indices()
+                for i in range(0, len(idx), self.batch_size):
+                    chunk = idx[i:i + self.batch_size]
+                    if self.drop_last and len(chunk) < self.batch_size:
+                        break
+                    if hasattr(self.dataset, "get_batch"):
+                        yield self.dataset.get_batch(chunk)
+                        continue
+                    if pool is not None:
+                        items = list(pool.map(lambda j: self.dataset[int(j)], chunk))
+                    else:
+                        items = [self.dataset[int(j)] for j in chunk]
+                    if isinstance(items[0], tuple):
+                        yield (np.stack([it[0] for it in items]),
+                               np.asarray([it[1] for it in items]))
+                    else:
+                        yield np.stack(items), None
+                self._epoch += 1
+                if not self.repeat:
+                    return
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True, cancel_futures=True)
 
 
 def prefetch_to_device(iterator, device, size: int = 2):

@@ -5,10 +5,12 @@ walls. MNIST digits are read from the standard idx files under data_path
 (MNIST/raw/... or directly); if absent and `synthetic_ok`, procedurally
 generated glyph blobs are used.
 
-numpy only, the JAX package's code as it is, so a clip is bit-equal to the
-JAX package's `dataset[i]`. The port has one generator, the per-item path:
-the JAX package's `get_batch`, which takes its C++ synthesizer
-(`data/native/`, other draws) when that was built, is not carried over.
+The JAX package's code as it is, with its two generators: `dataset[i]`, the
+per-item numpy path, and `get_batch(indices)`, the loader's batch path, on
+the host C++ synthesizer (`native.smmnist_synthesize_batch`, splitmix64
+draws, other clips than the per-item path's). Each is bit-equal to the JAX
+package's. Unlike the JAX package, `get_batch` does not fall back to the
+per-item path: without g++ it raises.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import struct
 from typing import Optional
 
 import numpy as np
+
+from . import native
 
 
 def _find_idx_file(data_path: str, name: str) -> Optional[str]:
@@ -123,6 +127,17 @@ class StochasticMovingMNIST:
 
     def __len__(self):
         return self.N
+
+    def get_batch(self, indices):
+        """(clips (B, T, sz, sz, 1), targets) of the items `indices`, from the
+        host synthesizer: the loader's batch path."""
+        out = native.smmnist_synthesize_batch(
+            self.digits, indices, seed=self._seed, epoch=self._epoch, seq_len=self.seq_len,
+            image_size=self.image_size, num_digits=self.num_digits,
+            deterministic=self.deterministic)
+        if self.with_target:
+            return out, (out >= 0.5).astype(np.float32)
+        return out, np.zeros(len(indices), np.int64)
 
     def __getitem__(self, index):
         rng = np.random.default_rng(

@@ -21,9 +21,9 @@ producer thread and copied to the card while the previous step runs
 
 Not carried over from the JAX runner, and why:
   * `ops.set_use_pallas(False)`: the port runs its kernels in training too;
-  * `training.steps_per_dispatch` (`make_train_chunk`), `max_steps_per_run`,
-    `wire_dtype` and `data.num_workers`: TPU host-link and dispatch
-    workarounds; the keys are accepted and ignored (ROADMAP "Don't port");
+  * `training.steps_per_dispatch` (`make_train_chunk`), `max_steps_per_run`
+    and `wire_dtype`: TPU host-link and dispatch workarounds; the keys are
+    accepted and ignored (ROADMAP "Don't port");
   * the stall watchdog (`training.stall_timeout`) and the profiler hook
     (`training.profile_at_step`), both built around the TPU backend; the
     port's profiles come from `tools/profile_eval`;
@@ -133,11 +133,15 @@ class Runner:
             video_frames_pred=getattr(config.sampling, "num_frames_pred",
                                       config.data.num_frames))
         bs = config.training.batch_size
+        # the items of a batch are read by this many threads (the HDF5
+        # readers' decode releases the GIL), in the same order as by one
+        num_workers = int(getattr(config.data, "num_workers", 0) or 0)
         loader = DataLoader(train_ds, batch_size=bs, shuffle=True, seed=self.seed,
-                            drop_last=True, repeat=True)
+                            drop_last=True, repeat=True, num_workers=num_workers)
         bs_val = self._eval_batch_size(bs, len(test_ds), "val loader")
         test_iter = iter(DataLoader(test_ds, batch_size=bs_val, shuffle=True,
-                                    seed=self.seed + 1, drop_last=True, repeat=True))
+                                    seed=self.seed + 1, drop_last=True, repeat=True,
+                                    num_workers=num_workers))
 
         state = self._init_state()
         meters = None
@@ -159,9 +163,12 @@ class Runner:
         t_start = t_mark = time.time()   # t_mark: start of the steps the next log times
         mark_step = step
         data_iter = prefetch_to_device(iter(loader), self.device)
+        wait_s = 0.0   # the loop's wait on the loader over the steps the next log times
         try:
             while step < n_iters:
+                t_wait = time.perf_counter()
                 X, _ = next(data_iter)
+                wait_s += time.perf_counter() - t_wait
                 state, metrics = step_fn(state, X, generator=gen)
                 prev_step, step = step, step + 1
                 busy = False   # whether the host ran more than the step after it
@@ -171,7 +178,8 @@ class Runner:
                     gn = float(metrics["grad_norm"])
                     now = time.time()
                     ms_step = 1e3 * (now - t_mark) / (step - mark_step)
-                    t_mark, mark_step = now, step
+                    ms_wait = 1e3 * wait_s / (step - mark_step)
+                    t_mark, mark_step, wait_s = now, step, 0.0
                     meters["losses_train"].update(loss, step)
                     meters["grad_norm"].update(gn, step)
                     warm = getattr(config.optim, "warmup", 0) or 1
@@ -180,8 +188,9 @@ class Runner:
                     meters["time_train"].update(elapsed / max(step - seg_start, 1) * 1e3, step)
                     meters["epochs"].update(step * bs / max(len(train_ds), 1), step)
                     logger.info("step %d | loss %.2f | grad %.3f | %.2f steps/s | "
-                                "%.2f ms/step | elapsed %s | host mem %.2fGB", step, loss, gn,
-                                (step - seg_start) / max(elapsed, 1e-9), ms_step,
+                                "%.2f ms/step | %.2f ms/step waiting on data | elapsed %s | "
+                                "host mem %.2fGB", step, loss, gn,
+                                (step - seg_start) / max(elapsed, 1e-9), ms_step, ms_wait,
                                 datetime.timedelta(seconds=int(elapsed)), _host_mem_gb())
                 if _crossed(val_freq, prev_step, step):
                     Xv, _ = next(test_iter)
@@ -203,7 +212,7 @@ class Runner:
                         self._snapshot_metrics(state, eval_test_ds, meters, step)
                     busy = True
                 if busy:   # the next log times the steps alone
-                    t_mark, mark_step = time.time(), step
+                    t_mark, mark_step, wait_s = time.time(), step, 0.0
         finally:
             data_iter.close()
         checkpoints.save_checkpoint(self._ckpt_dir(), state)

@@ -301,7 +301,7 @@ def test_data_transforms_match_jax(mode):
 
 def test_import_loads_no_jax_flax_or_yaml():
     """Every module of the port imports, and the flax->torch bridge runs, with
-    no jax, flax, yaml or module of the JAX package loaded."""
+    no jax, flax, yaml, h5py, cv2 or module of the JAX package loaded."""
     code = """
 import importlib, pkgutil, sys
 import numpy as np
@@ -316,8 +316,9 @@ assert "mcvd_tpu_torch.tools.profile_gn2" in sys.modules
 for m in ("eval.i3d", "eval.lpips", "eval.fid", "eval.weights", "eval.standins",
           "load_model_from_ckpt", "quick_sample", "main"):
     assert f"mcvd_tpu_torch.{m}" in sys.modules, m
-print(sorted(m for m in sys.modules if m in ("jax", "flax", "yaml", "mcvd_tpu")
-             or m.startswith(("jax.", "flax.", "mcvd_tpu."))))
+assert "mcvd_tpu_torch.data.h5" in sys.modules
+print(sorted(m for m in sys.modules if m in ("jax", "flax", "yaml", "mcvd_tpu", "h5py", "cv2")
+             or m.startswith(("jax.", "flax.", "mcvd_tpu.", "h5py.", "cv2."))))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True)
@@ -326,17 +327,21 @@ print(sorted(m for m in sys.modules if m in ("jax", "flax", "yaml", "mcvd_tpu")
 
 def test_port_sources_import_nothing_of_the_jax_package():
     """Static scan: no file of the port, nor chip_smoke.py, imports jax, flax,
-    yaml or any `mcvd_tpu` module (lazy imports inside functions included)."""
-    bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|yaml|mcvd_tpu)(?![\w])", re.M)
+    yaml, h5py, cv2 or any `mcvd_tpu` module (lazy imports inside functions
+    included)."""
+    bad = re.compile(r"^\s*(?:import|from)\s+(?:jax|flax|yaml|h5py|cv2|mcvd_tpu)(?![\w])",
+                     re.M)
     files = sorted(glob.glob(os.path.join(REPO, "mcvd_tpu_torch", "**", "*.py"),
                              recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
     assert len(files) > 20
     for m in ("eval/i3d.py", "eval/lpips.py", "eval/fid.py", "eval/weights.py",
-              "eval/standins.py", "load_model_from_ckpt.py", "quick_sample.py"):
+              "eval/standins.py", "load_model_from_ckpt.py", "quick_sample.py",
+              "data/h5.py", "data/video_datasets.py", "data/native.py"):
         assert os.path.join(REPO, "mcvd_tpu_torch", m) in files, m
     hits = [(f, m.group(0).strip()) for f in files
             for m in bad.finditer(open(f, encoding="utf-8").read())]
     assert hits == []
     # the pattern does catch what it must
     assert bad.search("    from mcvd_tpu.compat import x") and bad.search("import jax.numpy")
+    assert bad.search("import h5py") and bad.search("    import cv2")
     assert not bad.search("from mcvd_tpu_torch import ops")
