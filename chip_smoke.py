@@ -22,7 +22,10 @@ line each:
                3xTF32 on m16n8k8), the bf16
                route held per element to the bound of rounding p to bf16
                and, tighter, to a plain emulation of its own arithmetic
-               (`ops.attention.bf16_tolerances`). Max abs error, median
+               (`ops.attention.bf16_tolerances`: the bound of the long rows,
+               or the flips of the p near a bf16 midpoint where they exceed
+               it; whether the long rows' bound alone held and the share of
+               outputs where it was exceeded are recorded). Max abs error, median
                device ms of
                kernel and plain version, host us of enqueue per GroupNorm
                call, and the one PyTorch call that computes the same
@@ -42,7 +45,7 @@ line each:
                parameter count;
   6. headline  the bench protocol: B=16, 100-step DDPM + denoise, 16 frames
                of 64x64 predicted in 4 blocks of 5 on 5 cond frames, bf16
-               score network; one warm-up, 3 timed requests, frames/s, and
+               score network; one warm-up, 2 timed requests, frames/s, and
                the launch counts of each request;
   7. train_kernels  the backward kernels against the plain backward passes,
                fp32 (TF32 off) and bf16 at B=16: `gn_fused_bwd` at every
@@ -67,22 +70,39 @@ line each:
                and 10 attention calls, forward and backward);
   9. wide_heads  bair_big (D=96, 64 px) and cityscapes_big (D=128, 128 px)
                at full width, random weights from a seed (zero-scale layers
-               redrawn): one fp32 network evaluation (B=4) and one fp32
-               training step (B=4) through the kernels against
+               redrawn): one fp32 network evaluation (B=2) and one fp32
+               training step (B=2) through the kernels against
                `ops.reference_ops()` at train_slice's tolerances, with
                exact launch counts (the model's GroupNorm and attention
                calls) and the JAX init's parameter count;
- 10. train_headline  the yml's training config at full width, B=64, fp32 and
+ 10. small5    the legacy UNet (smmnist_DDPM_small5.yml), the 3D NCSN++
+               (smmnist_DDPM_small5_3d.yml) and its pseudo-3D twin (`SMALL5`):
+               every GroupNorm and attention call of one evaluation of the
+               three, read from the models, through the kernels against the
+               plain versions in both dtypes, forward and backward, by
+               the helpers of phases 3 and 7 (attention at D=24 over 256, 16, 7
+               and 2 tokens at B=4 and B=64 clips, bf16 GroupNorm at 84
+               channels on 8-byte vectors, one call of each past the grid's
+               65,535), timed with library and bound; each model at full
+               width: an fp32 evaluation at B=64 and one fp32 step against
+               `reference_ops()` (the tolerances of phase 9, gradients zero
+               in exact arithmetic held to their rounding noise), the bf16
+               evaluation, exact launch counts, the JAX init's parameter
+               count, 3 timed steps; the CLI on the two ymls (--train to 3,
+               --video_gen --ckpt 3, `SMALL5_CLI_MODS`); the committed JAX
+               export imported by `compat.jax_ckpt`, bit-equal, and sampled
+               by --video_gen;
+ 11. train_headline  the yml's training config at full width, B=64, fp32 and
                then bf16 compute: one warm-up step, 5 timed steps, ms per
                step, clips/s, peak memory and the launch counts per step;
- 11. cli       the port's command line as a user runs it, in subprocesses,
+ 12. cli       the port's command line as a user runs it, in subprocesses,
                on configs/smmnist_DDPM_big5.yml at full width (ngf 64, B=64,
                fp32 as the yml says), changing only cadence and traffic
                (`CLI_MODS`): --train to step 6 (checkpoints at 3 and 6, the
                validation loss at 3 and 6, a snapshot with its in-training
                video_gen at 6), --resume_training to step 9, then
                --video_gen --ckpt 6 (one batch of 16 clips, 10 frames in 2
-               blocks of 100 steps + denoise). Checks: the steps continue
+               blocks of CLI_SUBSAMPLE steps + denoise). Checks: the steps continue
                6 -> 9, checkpoint_6 loads bit-equal into a fresh state here,
                best_metrics.yml and vid_metrics.yml hold finite mse, psnr
                and ssim, and each run's kernel launch counts are exact
@@ -90,7 +110,7 @@ line each:
                timed alone by the runner's log, the first of each process
                apart as warm-up) beside train_headline's fp32 step, and the
                video_gen harness's seconds;
- 12. data      the data readers on the card machine's host: synthetic shards
+ 13. data      the data readers on the card machine's host: synthetic shards
                (`DATA_SETS`: KTH, BAIR, Cityscapes, UCF101 at their shipped
                frame sizes, `synth_video`) written by the port's HDF5Maker,
                every frame read back bit-equal through the native LZF
@@ -99,7 +119,7 @@ line each:
                its config's B=64 with 0 and 4 worker threads, cache cold and
                warm (the worker counts giving the same batches); SMMNIST's
                batch path against its per-item path;
- 13. cli_data  the command line on those shards at the configs' full width
+ 14. cli_data  the command line on those shards at the configs' full width
                (`CLI_DATA_RUNS`): --train and --video_gen on bair_big.yml and
                kth64_big.yml, --train on ucf101.yml and cityscapes_big.yml;
                exact launch counts (the model's GroupNorm and attention
@@ -204,19 +224,24 @@ ATTN_BWD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # else 2*lr, the update's own bound; EMA 1e-3 of that plus 1e-6.
 TRAIN_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3
+# The CLI runs' sampler: 50 steps + denoise a block (cut from 100 to keep the
+# script inside its time limit), BLOCK evaluations.
+CLI_SUBSAMPLE = 50
+BLOCK = CLI_SUBSAMPLE + 1
 # The cli phase: the shipped yml as a user runs it, with only the cadence
 # and the traffic cut to a few steps and one evaluation batch.
 CLI_CONFIG = "configs/smmnist_DDPM_big5.yml"
 CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=3", "training.val_freq=3",
-            "training.log_freq=1", "sampling.subsample=100", "sampling.batch_size=16",
-            "sampling.max_data_iter=1", "sampling.num_frames_pred=10"]
+            "training.log_freq=1", f"sampling.subsample={CLI_SUBSAMPLE}",
+            "sampling.batch_size=16", "sampling.max_data_iter=1", "sampling.num_frames_pred=10"]
 
 
-def _cli_launches(steps, evals):
-    """67 GroupNorm and 10 attention calls a network evaluation, forward, and
-    as many backward a training step."""
-    return {"gn_fused": 67 * (steps + evals), "gn_fused_bwd": 67 * steps,
-            "attention_fwd": 10 * (steps + evals), "attention_bwd": 10 * steps}
+def _cli_launches(steps, evals, n_gn=67, n_attn=10):
+    """The flagship's 67 GroupNorm and 10 attention calls (or a model's
+    n_gn and n_attn) a network evaluation, forward, and as many backward a
+    training step."""
+    return {"gn_fused": n_gn * (steps + evals), "gn_fused_bwd": n_gn * steps,
+            "attention_fwd": n_attn * (steps + evals), "attention_bwd": n_attn * steps}
 
 
 # The cli phase's runs, in order: (name, n_iters, flags, config mods beside
@@ -241,8 +266,8 @@ CLI_RUNS = [   # on CLI_CONFIG
      ["eval.inception_weights={w}/inception.pt", "fast_fid.ensemble=true"]),
     ("fast_fid_cached", 9, FID_FLAGS, ["eval.inception_weights={w}/inception.pt"]),
 ]
-# Each run's launches (a sampler block is 100 steps + denoise = 101
-# evaluations; a video_gen predicts 10 frames in 2 blocks): --train to 6 (6
+# Each run's launches (a sampler block is BLOCK evaluations; a video_gen
+# predicts 10 frames in 2 blocks): --train to 6 (6
 # steps, 2 validation losses, in-training video_gens at 3 and 6),
 # --resume_training to 9 (3 steps, 1 validation loss, the video_gen at 9),
 # --video_gen (2 blocks), --test
@@ -250,17 +275,18 @@ CLI_RUNS = [   # on CLI_CONFIG
 # dump (2 blocks), fast_fid (checkpoints 6 and 9, 1 block each; the ensemble
 # samples 9 with 2 checkpoints: 2 evaluations a step), the cached rerun
 # (none).
-CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 202), "resume": _cli_launches(3, 1 + 202),
-                "video_gen": _cli_launches(0, 202), "test": _cli_launches(0, 3 * 2),
-                "sample": _cli_launches(0, 101), "sample_fid": _cli_launches(0, 2 * 101),
-                "fast_fid": _cli_launches(0, 2 * 101),
-                "fast_fid_ensemble": _cli_launches(0, 101 + 2 * 101),
+CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 2 * BLOCK),
+                "resume": _cli_launches(3, 1 + 2 * BLOCK),
+                "video_gen": _cli_launches(0, 2 * BLOCK), "test": _cli_launches(0, 3 * 2),
+                "sample": _cli_launches(0, BLOCK), "sample_fid": _cli_launches(0, 2 * BLOCK),
+                "fast_fid": _cli_launches(0, 2 * BLOCK),
+                "fast_fid_ensemble": _cli_launches(0, BLOCK + 2 * BLOCK),
                 "fast_fid_cached": _cli_launches(0, 0),
-                "spade_train": _cli_launches(3, 1 + 202),
-                "spade_video_gen_ddim": _cli_launches(0, 202)}
+                "spade_train": _cli_launches(3, 1 + 2 * BLOCK),
+                "spade_video_gen_ddim": _cli_launches(0, 2 * BLOCK)}
 # The SPADE runs, on SPADE_CONFIG in an experiment of their own: --train to 3
 # (3 steps, the validation loss and the in-training video_gen at 3, 2 blocks),
-# then --video_gen --ckpt 3 with DDIM (2 blocks of 100 steps + denoise).
+# then --video_gen --ckpt 3 with DDIM (2 blocks).
 CLI_SPADE_RUNS = [("spade_train", 3, ["--train"], []),
                   ("spade_video_gen_ddim", 3, ["--video_gen", "--ckpt", "3"],
                    ["model.version=DDIM"])]
@@ -283,11 +309,11 @@ DATA_WARM_BATCHES = 3
 # The CLI on the new datasets, at full width: (config, runs, config mods beside
 # CLI_DATA_MODS). Each --train validates once at its last step and writes
 # checkpoint_N there (no in-training video_gen); --video_gen predicts one
-# batch of 16 clips, 10 frames (2 blocks of 100 steps + denoise). The batch
+# batch of 16 clips, 10 frames (2 blocks). The batch
 # is the yml's 64 but for ucf101 (ngf 192: 32) and cityscapes_big (128 px,
 # fp32 on cuDNN's FFT-tiled convolution, PERF.md section 5: 4).
 CLI_DATA_MODS = ["training.snapshot_sampling=False", "training.log_freq=1",
-                 "sampling.subsample=100", "sampling.batch_size=16",
+                 f"sampling.subsample={CLI_SUBSAMPLE}", "sampling.batch_size=16",
                  "sampling.max_data_iter=1", "sampling.num_frames_pred=10"]
 CLI_STANDIN_MODS = ["eval.i3d_weights={w}/i3d_torchscript.pt",
                     "eval.lpips_weights={w}/lpips_alex_lin.pth",
@@ -300,6 +326,51 @@ CLI_DATA_RUNS = [
     ("ucf101", [("train", 2, ["--train"], ["training.batch_size=32"])]),
     ("cityscapes_big", [("train", 2, ["--train"], ["training.batch_size=4"])]),
 ]
+
+# The small5 phase: the two SMMNIST small configs at full width -- the
+# legacy UNet (`arch: unet`, smmnist_DDPM_small5.yml) and the 3D NCSN++
+# (smmnist_DDPM_small5_3d.yml) -- and the latter with the pseudo-3D convs:
+# name -> (yml, config mods, GroupNorm and attention calls of one
+# evaluation, the parameter count of jax.eval_shape of the JAX init).
+SMALL5 = {"small5": ("configs/smmnist_DDPM_small5.yml", [], 51, 6, 2_246_626),
+          "small5_3d": ("configs/smmnist_DDPM_small5_3d.yml", [], 57, 6, 1_619_601),
+          "small5_pseudo3d": ("configs/smmnist_DDPM_small5_3d.yml",
+                              ["model.arch=unetmorepseudo3d"], 57, 6, 1_248_733)}
+# The 3D model's attention (one head of D=24 over 256 or 16 space tokens and
+# over 7 or 2 frames) at these batches of clips: B*7 ... B*256 sequences.
+SMALL5_ATTN_B = (4, 64)
+# One call of each kernel with more sequences or examples than the grid's
+# 65,535 (the time attention at fast_fid's batch of 1000 has 256,000).
+PAST_GRID = 70_000
+# The CLI on the two configs: --train to 3 (the validation loss at 3, no
+# in-training video_gen), then --video_gen --ckpt 3 of one batch of 16 clips
+# with 4 predicted frames in 2 blocks of CLI_SUBSAMPLE steps + denoise. Cut
+# from the ymls' subsample 1000 and 20 frames (10 blocks of 1,001
+# evaluations).
+SMALL5_CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=3",
+                   "training.val_freq=3", "training.snapshot_sampling=False",
+                   "training.log_freq=1", f"sampling.subsample={CLI_SUBSAMPLE}",
+                   "sampling.batch_size=16", "sampling.max_data_iter=1",
+                   "sampling.num_frames_pred=4"]
+# The committed export of a JAX run (tools/export_jax_checkpoint.py; the
+# flagship yml at ngf 24, one level, 41,762 parameters), imported by
+# compat.jax_ckpt and sampled by --video_gen --ckpt 1 on the card.
+JAX_EXPORT = "tests/golden/jax_ckpt_tiny.npz"
+JAX_EXPORT_MODS = [f"sampling.subsample={CLI_SUBSAMPLE}", "sampling.batch_size=16",
+                   "sampling.max_data_iter=1", "sampling.num_frames_pred=4"]
+
+
+# Timing repetitions of the kernel phases' device times (the median of this
+# many runs of 10 calls; cut from 5 to keep the script inside its time limit
+# with the small5 phase).
+KERNEL_TIMING_REPS = 3
+
+
+def kernel_ms(fn):
+    """`profile_gn2.device_ms` at KERNEL_TIMING_REPS."""
+    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
+
+    return device_ms(fn, reps=KERNEL_TIMING_REPS)
 
 
 def emit(phase, **payload):
@@ -476,16 +547,301 @@ def host_us(fn, n=100, reps=3):
     return 1e6 * statistics.median(times)
 
 
+def _dn(dtype):
+    return str(dtype).split(".")[-1]
+
+
+def gn_inputs(g, B, C, H, W, N, fm, dtype, param_dtype):
+    """A GroupNorm call's inputs: x (channels_last NCHW, B x C*N x H x W),
+    the form's parameters (gamma and beta in `param_dtype`; AdaGN's scale
+    and shift as ActNorm passes them, chunks of one (B, 2*C*N) tensor) and
+    the leaves a gradient is taken of."""
+    affine, adagn, _ = GN_FORMS[fm]
+    CN = C * N
+    x = (torch.randn(B, H, W, CN, generator=g, device="cuda") * 2 + 0.5).to(dtype)
+    x = x.permute(0, 3, 1, 2)
+    prm = {"gamma": None, "beta": None, "scale": None, "shift": None}
+    leaves = [x]
+    if affine:
+        prm["gamma"] = (1 + 0.1 * torch.randn(C, generator=g, device="cuda")).to(param_dtype)
+        prm["beta"] = (0.1 * torch.randn(C, generator=g, device="cuda")).to(param_dtype)
+        leaves = [x, prm["gamma"], prm["beta"]]
+    if adagn:
+        ss = (0.1 * torch.randn(B, 2 * CN, generator=g, device="cuda")).to(dtype)
+        prm["scale"], prm["shift"] = ss.chunk(2, dim=1)
+        leaves = [x, ss]
+    return x, prm, leaves
+
+
+def gn_library(fm, N):
+    """Whether one PyTorch call (`F.group_norm`) computes the form: the
+    plain one, and the affine one of one frame; none does AdaGN or the
+    SiLU."""
+    return fm == "plain" or (fm == "affine" and N == 1)
+
+
+def gn_fwd_case(g, B, C, H, W, N, fm, G, eps, dtype, timed=True, compare=False):
+    """One GroupNorm call (form `fm`, C channels a frame, N frames) through
+    `gn_fused` against its plain version within TOL: its case, with the
+    plan. With `timed` its device ms; with `compare` also its host us, the
+    plain version's ms and host us, the bound and the one PyTorch call's
+    ms (`gn_library`, else None)."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.ops import groupnorm as GN
+
+    dn = _dn(dtype)
+    x, prm, _ = gn_inputs(g, B, C, H, W, N, fm, dtype, torch.float32)
+    kw = dict(eps=eps, frames_last=N, act=GN_FORMS[fm][2], **prm)
+    p = GN.plan(C * N, H, W, dtype, G)
+    what = f"group_norm {fm} eps={eps} B={B} C={C} H={H} W={W} N={N} {dn}"
+    with torch.inference_mode():
+        before = ops.LAUNCHES["gn_fused"]
+        got = GN.group_norm(x, G, **kw)
+        check(ops.LAUNCHES["gn_fused"] == before + 1, f"{what} launched no gn_fused")
+        with ops.reference_ops():
+            want = GN.group_norm(x, G, **kw)
+        err, ok = max_err(got, want, dn)
+        check(ok, f"{what}: max err {err}")
+        case = dict(op="group_norm", form=fm, eps=eps, B=B, C=C, H=H, W=W, frames_last=N,
+                    dtype=dn, max_abs_err=err, vec=p.vec, cluster=p.cluster,
+                    blocks=p.cluster * B, rows_per_block=p.rows, threads=p.threads,
+                    smem=p.smem)
+        if B <= 65_535:   # the occupancy query takes one launch's batch
+            case["max_active_clusters"] = GN.max_active_clusters(x, p, G)
+        if timed or compare:
+            case["ms"] = kernel_ms(lambda: GN.group_norm(x, G, **kw))
+        if compare:
+            case["host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
+            with ops.reference_ops():
+                case["plain_ms"] = kernel_ms(lambda: GN.group_norm(x, G, **kw))
+                case["plain_host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
+            case["bound_ms"], case["bound_by"] = bound(2 * nbytes(x), 8 * x.numel(), "fp32")
+            case["library_ms"] = None
+            if gn_library(fm, N):
+                w, b = (None, None) if fm == "plain" else (prm["gamma"].to(dtype),
+                                                           prm["beta"].to(dtype))
+                case["library_ms"] = kernel_ms(lambda: F.group_norm(x, G, w, b, eps))
+    return case
+
+
+def gn_bwd_case(g, B, C, H, W, N, fm, G, eps, dtype, timed=True, compare=False, cold=False):
+    """One GroupNorm call's backward through `gn_fused_bwd` (after `gn_fused`)
+    against the plain backward within `grad_err`, through autograd and on
+    both routes (cluster, split) alone from the forward's statistics, each
+    the same bits over two calls: its case. With `timed` its device ms;
+    with `cold` also with L2 flushed before each call; with `compare` the
+    plain backward's ms, the bound and autograd of the one PyTorch call's
+    (`gn_library`, else None)."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.ops import groupnorm as GN
+    from mcvd_tpu_torch.tools.profile_gn_bwd import cold_ms
+
+    dn = _dn(dtype)
+    affine, adagn, act = GN_FORMS[fm]
+    CN = C * N
+    # the parameters in the compute dtype, as the bf16 step casts them
+    x, prm, leaves = gn_inputs(g, B, C, H, W, N, fm, dtype, dtype)
+    dy = torch.randn(B, H, W, CN, generator=g, device="cuda").to(dtype).permute(0, 3, 1, 2)
+    for t in leaves:
+        t.requires_grad_()
+    if adagn:   # the chunks again, now of the leaf
+        prm["scale"], prm["shift"] = leaves[1].chunk(2, dim=1)
+    kw = dict(eps=eps, frames_last=N, act=act, **prm)
+    what = f"gn_fused_bwd {fm} eps={eps} B={B} C={C} H={H} W={W} N={N} {dn}"
+    before = dict(ops.LAUNCHES)
+    got = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
+    check(ops.LAUNCHES["gn_fused"] == before["gn_fused"] + 1 and
+          ops.LAUNCHES["gn_fused_bwd"] == before["gn_fused_bwd"] + 1,
+          f"{what}: group_norm's backward did not run gn_fused then gn_fused_bwd")
+    with ops.reference_ops():
+        want = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        e, ok = grad_err(a, b, dn)
+        check(ok, f"{what} input {i}: max err {e}")
+        err = max(err, e)
+    xd = x.detach()
+    pd = {k: None if v is None else v.detach() for k, v in prm.items()}
+    _, stats = GN.group_norm_fwd(xd, G, eps, pd["gamma"], pd["beta"], pd["scale"],
+                                 pd["shift"], N, act, want_stats=True)
+    args = (xd, dy, stats, G, pd["gamma"], pd["beta"], pd["scale"], pd["shift"], N, act)
+    picked = GN.bwd_plan(B, CN, H, W, dtype, G, N, affine)
+    for p in {picked, *GN.bwd_plans(B, CN, H, W, dtype, G, N)}:
+        route = "split" if p.split else "cluster"
+        once = GN.group_norm_bwd(*args, p=p)
+        check(all(torch.equal(a, b) for a, b in zip(once, GN.group_norm_bwd(*args, p=p))
+                  if a is not None), f"{what} {route}: two calls differ")
+        mine = [once[0]] + ([torch.cat(once[3:], dim=1)] if adagn else list(once[1:3]))
+        for i, (a, b) in enumerate(zip(mine, want)):
+            e, ok = grad_err(a, b, dn)
+            check(ok, f"{what} {route} input {i}: max err {e}")
+            err = max(err, e)
+    case = dict(op="group_norm_bwd", form=fm, eps=eps, B=B, C=C, H=H, W=W, frames_last=N,
+                dtype=dn, max_abs_err=err, vec=picked.vec,
+                route="split" if picked.split else "cluster",
+                launches_per_call=2 if picked.split or affine else 1)
+    if timed or compare:
+        case["ms"] = kernel_ms(lambda: GN.group_norm_bwd(*args))
+    if cold:
+        case["cold_ms"] = cold_ms(lambda: GN.group_norm_bwd(*args))
+    if compare:
+        case["plain_ms"] = kernel_ms(lambda: GN.group_norm_bwd_reference(
+            xd, dy, G, eps=eps, frames_last=N, act=act, **pd))
+        case["bound_ms"], case["bound_by"] = bound(3 * nbytes(x), 12 * x.numel(), "fp32")
+        case["library_ms"] = None
+        if gn_library(fm, N):   # autograd of F.group_norm
+            xl = xd.clone().requires_grad_()
+            lib_leaves = [xl]
+            if fm == "affine":
+                wl, bl = (pd[k].clone().requires_grad_() for k in ("gamma", "beta"))
+                lib_leaves += [wl, bl]
+                yl = F.group_norm(xl, G, wl, bl, eps)
+            else:
+                yl = F.group_norm(xl, G, eps=eps)
+            case["library_ms"] = kernel_ms(lambda: torch.autograd.grad(
+                yl, lib_leaves, dy, retain_graph=True))
+    return case
+
+
+def attn_fwd_case(g, B, T, h, d, dtype, timed=True):
+    """One attention call (packed (B, T, 3C) qkv, C = h*d) through
+    `attention_fwd` against its plain version: fp32 within TOL, bf16 per
+    element within `bf16_tolerances`' "plain" bound and, tighter, of its
+    emulation (`attention_tc_emulation`) within "emulation" (with whether
+    the old "emulation_no_flip" bound also held): its case. With `timed`
+    its device ms beside the plain version's, SDPA's and the bound, and the
+    share of idle query rows (a sequence takes ceil(T / 64) blocks of 64)."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.ops import attention as A
+
+    dn = _dn(dtype)
+    C, scale = h * d, d ** -0.5
+    what = f"attention B={B} T={T} h={h} D={d} {dn}"
+    qkv = torch.randn(B, T, 3 * C, generator=g, device="cuda").to(dtype)
+    with torch.inference_mode():
+        before = ops.LAUNCHES["attention_fwd"]
+        got = A.attention_packed(qkv, h, scale)
+        check(ops.LAUNCHES["attention_fwd"] == before + 1, f"{what} launched no attention_fwd")
+        with ops.reference_ops():
+            want = A.attention_packed(qkv, h, scale)
+        tols = A.bf16_tolerances(qkv, h, scale) if dn == "bfloat16" else {"plain": TOL[dn]}
+        tol = tols["plain"]
+        err, ok = max_err(got, want, dn, tol)
+        check(ok, f"{what}: max err {err}")
+        q, k, v = (packed_heads(t, B, T, h, d).contiguous() for t in qkv.split(C, dim=-1))
+        case = dict(op="attention", B=B, T=T, heads=h, head_dim=d, dtype=dn,
+                    path=ATTN_PATH[dn], max_abs_err=err,
+                    max_atol=float(torch.as_tensor(tol[0]).max()), rtol=tol[1])
+        if dn == "bfloat16":   # the kernel's own arithmetic in plain torch
+            emu = A.attention_tc_emulation(q, k, v, scale)
+            emu = emu.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, C)
+            e_err, e_ok = max_err(got, emu, dn, tols["emulation"])
+            check(e_ok, f"{what} vs its emulation: max err {e_err}")
+            case.update(emulation_err=e_err,
+                        emulation_max_atol=float(tols["emulation"][0].max()),
+                        emulation_rtol=tols["emulation"][1],
+                        no_flip_ok=max_err(got, emu, dn, tols["emulation_no_flip"])[1],
+                        flip_share=float((tols["emulation"][0] >
+                                          tols["emulation_no_flip"][0]).float().mean()))
+        if timed:
+            case["ms"] = kernel_ms(lambda: A.attention_packed(qkv, h, scale))
+            case["plain_ms"] = kernel_ms(lambda: A.attention_packed_reference(qkv, h, scale))
+            q4, k4, v4 = (t.view(B, h, T, d) for t in (q, k, v))   # the one PyTorch call
+            case["library_ms"] = kernel_ms(
+                lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
+            flops = 4 * B * h * T * T * d
+            case["bound_ms"], case["bound_by"] = attn_bound(nbytes(qkv) * 4 // 3, flops, dn)
+            case["tflops"] = flops / case["ms"] / 1e9
+            case["idle_rows_share"] = 1 - T / (64 * ceil(T / 64))
+    return case
+
+
+def attn_bwd_case(g, B, T, h, d, dtype, timed=True):
+    """One attention call's backward through `attention_bwd` (after
+    `attention_fwd`) against the plain VJP: each gradient within
+    ATTN_BWD_REL of its largest; the kernel alone, from the forward's output
+    and logsumexp, the same bits over two calls and in bf16 per element
+    within `bf16_bwd_tolerances`' "plain" bound and of its emulation
+    (`attention_bwd_tc_emulation`) within "emulation" (with whether the old
+    "emulation_no_flip" bound also held): its case. With `timed` its device
+    ms beside the plain VJP's, SDPA's autograd and the bound."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.ops import attention as A
+
+    dn = _dn(dtype)
+    C, scale = h * d, d ** -0.5
+    what = f"attention_bwd B={B} T={T} h={h} D={d} {dn}"
+    qkv = torch.randn(B, T, 3 * C, generator=g, device="cuda").to(dtype).requires_grad_()
+    dy = torch.randn(B, T, C, generator=g, device="cuda").to(dtype)
+    before = dict(ops.LAUNCHES)
+    got, = torch.autograd.grad(A.attention_packed(qkv, h, scale), [qkv], dy)
+    check(ops.LAUNCHES["attention_fwd"] == before["attention_fwd"] + 1 and
+          ops.LAUNCHES["attention_bwd"] == before["attention_bwd"] + 1,
+          f"{what}: attention_packed's backward did not run attention_bwd")
+    with ops.reference_ops():
+        want, = torch.autograd.grad(A.attention_packed(qkv, h, scale), [qkv], dy)
+    rel = ATTN_BWD_REL[dn]
+    err = 0.0
+    for i, part in enumerate("qkv"):
+        a, b = (t[..., i * C:(i + 1) * C].float() for t in (got, want))
+        check(bool(torch.isfinite(a).all()), f"{what}: non-finite gradient")
+        e = float((a - b).abs().max())
+        check(e <= rel * float(b.abs().max()), f"{what} d{part}: max err {e}")
+        err = max(err, e)
+    case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=d, dtype=dn,
+                path=ATTN_PATH[dn] + " (dq, then dk and dv)", max_abs_err=err, rel_tol=rel,
+                launches_per_call=2)
+    qd = qkv.detach()
+    o, lse = A.attention_packed_fwd(qd, h, scale, True)
+    once = A.attention_packed_bwd(qd, o, lse, dy, h, scale)
+    check(torch.equal(once, A.attention_packed_bwd(qd, o, lse, dy, h, scale)),
+          f"{what}: two calls differ")
+    case["deterministic"] = True
+    if dn == "bfloat16":
+        lse_h = lse.reshape(B * h, T)
+        tols = A.bf16_bwd_tolerances(qd, dy, h, scale, o=o, lse=lse_h)
+        p_err, p_ok = max_err(once, want, dn, tols["plain"])
+        check(p_ok, f"{what} per element: max err {p_err}")
+        heads = [packed_heads(t, B, T, h, d) for t in (*qd.split(C, dim=-1), dy, o)]
+        emu = A.attention_bwd_tc_emulation(*heads[:4], scale, o=heads[4], lse=lse_h)
+        emu = torch.cat([t.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, C)
+                         for t in emu], dim=-1)
+        e_err, e_ok = max_err(once, emu, dn, tols["emulation"])
+        check(e_ok, f"{what} vs its emulation: max err {e_err}")
+        case.update(per_element_err=p_err, max_atol=float(tols["plain"][0].max()),
+                    emulation_err=e_err,
+                    emulation_max_atol=float(tols["emulation"][0].max()),
+                    no_flip_ok=max_err(once, emu, dn, tols["emulation_no_flip"])[1],
+                    flip_share=float((tols["emulation"][0] >
+                                      tols["emulation_no_flip"][0]).float().mean()))
+    if timed:
+        case["ms"] = kernel_ms(lambda: A.attention_packed_bwd(qd, o, lse, dy, h, scale))
+        case["plain_ms"] = kernel_ms(lambda: A.attention_packed_bwd_reference(qd, dy, h, scale))
+        q4, k4, v4 = (t.reshape(B, T, h, d).transpose(1, 2).contiguous().requires_grad_()
+                      for t in qd.split(C, dim=-1))
+        o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
+        dy4 = dy.reshape(B, T, h, d).transpose(1, 2)
+        case["library_ms"] = kernel_ms(lambda: torch.autograd.grad(
+            o4, [q4, k4, v4], dy4, retain_graph=True))
+        flops = 10 * B * h * T * T * d   # 5 products of 2*T*T*d per (b, head)
+        case["bound_ms"], case["bound_by"] = attn_bound(
+            2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops, dn)
+        case["tflops"] = flops / case["ms"] / 1e9
+        case["idle_rows_share"] = 1 - T / (64 * ceil(T / 64))
+    return case
+
+
+def packed_heads(t, B, T, h, d):
+    """(B, T, h*d) -> (B*h, T, d)."""
+    return t.reshape(B, T, h, d).transpose(1, 2).reshape(B * h, T, d)
+
+
 def phase_kernels(card):
     from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
-    from mcvd_tpu_torch.ops import attention as A
-    from mcvd_tpu_torch.ops import groupnorm as GN
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(0)
-    dev = "cuda"
     B = 16
     cases = []
     summary = {k: {"max_abs_err": 0.0, "max_abs_err_fp32": 0.0} for k in ops.LAUNCHES}
@@ -494,100 +850,23 @@ def phase_kernels(card):
     # read from the models; plus frames_last=2
     gn_eval = {m: {"ms": 0.0, "plain_ms": 0.0, "host_us": 0.0, "plain_host_us": 0.0}
                for m in GN_CALLS}
-    shapes = gn_cases(B)
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[-1]
-            for C, H, N, fm, G, eps, per_eval in shapes:
-                affine, adagn, act = GN_FORMS[fm]
-                CN = C * N
-                x = (torch.randn(B, H, H, CN, generator=g, device=dev) * 2 + 0.5).to(dtype)
-                x = x.permute(0, 3, 1, 2)   # channels_last NCHW
-                kw = dict(eps=eps, frames_last=N, act=act)
-                if affine:
-                    kw["gamma"] = 1 + 0.1 * torch.randn(C, generator=g, device=dev)
-                    kw["beta"] = 0.1 * torch.randn(C, generator=g, device=dev)
-                if adagn:   # as ActNorm passes them: chunks of one (B, 2*C*N) tensor
-                    ss = (0.1 * torch.randn(B, 2 * CN, generator=g, device=dev)).to(dtype)
-                    kw["scale"], kw["shift"] = ss.chunk(2, dim=1)
-                p = GN.plan(CN, H, H, dtype, G)
-                before = ops.LAUNCHES["gn_fused"]
-                got = GN.group_norm(x, G, **kw)
-                check(ops.LAUNCHES["gn_fused"] == before + 1, "group_norm launched no gn_fused")
-                with ops.reference_ops():
-                    want = GN.group_norm(x, G, **kw)
-                err, ok = max_err(got, want, dn)
-                check(ok, f"group_norm {fm} eps={eps} C={C} H={H} N={N} {dn}: max err {err}")
-                record(summary, "gn_fused", dn, err)
-                case = dict(op="group_norm", form=fm, eps=eps, B=B, C=C, H=H, frames_last=N,
-                            dtype=dn, max_abs_err=err, cluster=p.cluster,
-                            blocks=p.cluster * B, rows_per_block=p.rows, threads=p.threads,
-                            smem=p.smem, max_active_clusters=GN.max_active_clusters(x, p, G),
-                            calls_per_eval=per_eval)
-                case["ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
-                if dn == "bfloat16" or (C, H) == (192, 64):
-                    case["host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
-                    with ops.reference_ops():
-                        case["plain_ms"] = device_ms(lambda: GN.group_norm(x, G, **kw))
-                        case["plain_host_us"] = host_us(lambda: GN.group_norm(x, G, **kw))
-                    case["bound_ms"], case["bound_by"] = bound(
-                        2 * nbytes(x), 8 * x.numel(), "fp32")
-                    case["library_ms"] = None   # no one PyTorch call does AdaGN or the SiLU
-                    if fm == "affine":   # one PyTorch call computes it, for comparison
-                        w, b = kw["gamma"].to(dtype), kw["beta"].to(dtype)
-                        case["library_ms"] = device_ms(lambda: F.group_norm(x, G, w, b, eps))
-                    elif fm == "plain":
-                        case["library_ms"] = device_ms(lambda: F.group_norm(x, G, eps=eps))
-                    if dn == "bfloat16":
-                        for m, n in per_eval.items():
-                            for k in gn_eval[m]:
-                                gn_eval[m][k] += n * case[k]
-                cases.append(case)
-
-    with torch.inference_mode():
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[-1]
-            for T, h, d in ATTN_CASES:
-                scale = d ** -0.5
-                qkv = torch.randn(B, T, 3 * h * d, generator=g, device=dev).to(dtype)
-                got = A.attention_packed(qkv, h, scale)
-                with ops.reference_ops():
-                    want = A.attention_packed(qkv, h, scale)
-                tols = (A.bf16_tolerances(qkv, h, scale) if dn == "bfloat16"
-                        else {"plain": TOL[dn]})
-                tol = tols["plain"]
-                err, ok = max_err(got, want, dn, tol)
-                check(ok, f"attention T={T} h={h} D={d} {dn}: max err {err}")
-                record(summary, "attention_fwd", dn, err)
-                # (B*h, T, d) views of q, k, v, made before timing
-                q, k, v = (t.reshape(B, T, h, d).transpose(1, 2).reshape(B * h, T, d)
-                           .contiguous() for t in qkv.split(h * d, dim=-1))
-                case = dict(op="attention", B=B, T=T, heads=h, head_dim=d, dtype=dn,
-                            path=ATTN_PATH[dn],
-                            max_abs_err=err, max_atol=float(torch.as_tensor(tol[0]).max()),
-                            rtol=tol[1])
-                if dn == "bfloat16":   # the kernel's own arithmetic in plain torch
-                    emu = A.attention_tc_emulation(q, k, v, scale)
-                    emu = emu.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, h * d)
-                    e_err, e_ok = max_err(got, emu, dn, tols["emulation"])
-                    check(e_ok, f"attention T={T} h={h} D={d} bf16 vs its emulation: "
-                                f"max err {e_err}")
-                    case.update(emulation_err=e_err,
-                                emulation_max_atol=float(tols["emulation"][0].max()),
-                                emulation_rtol=tols["emulation"][1])
-                if T != 100:   # every case but the ragged T is timed
-                    case["ms"] = device_ms(lambda: A.attention_packed(qkv, h, scale))
-                    case["plain_ms"] = device_ms(
-                        lambda: A.attention_packed_reference(qkv, h, scale))
-                    # the one PyTorch call, on (B, h, T, D)
-                    q4, k4, v4 = (t.view(B, h, T, d) for t in (q, k, v))
-                    case["library_ms"] = device_ms(
-                        lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=scale))
-                    flops = 4 * B * h * T * T * d
-                    case["bound_ms"], case["bound_by"] = attn_bound(
-                        nbytes(qkv) * 4 // 3, flops, dn)
-                    case["tflops"] = flops / case["ms"] / 1e9
-                cases.append(case)
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = _dn(dtype)
+        for C, H, N, fm, G, eps, per_eval in gn_cases(B):
+            full = dn == "bfloat16" or (C, H) == (192, 64)
+            case = gn_fwd_case(g, B, C, H, H, N, fm, G, eps, dtype, compare=full)
+            case["calls_per_eval"] = per_eval
+            record(summary, "gn_fused", dn, case["max_abs_err"])
+            if dn == "bfloat16":
+                for m, n in per_eval.items():
+                    for k in gn_eval[m]:
+                        gn_eval[m][k] += n * case[k]
+            cases.append(case)
+    for dtype in (torch.float32, torch.bfloat16):
+        for T, h, d in ATTN_CASES:   # every case but the ragged T is timed
+            case = attn_fwd_case(g, B, T, h, d, dtype, timed=T != 100)
+            record(summary, "attention_fwd", case["dtype"], case["max_abs_err"])
+            cases.append(case)
     torch.cuda.synchronize()
     emit("kernels", card=card, cases=cases, gn_per_eval_bf16_by_model=gn_eval)
     return cases, summary
@@ -697,15 +976,11 @@ def phase_profile_gn2(card, summary):
 
 
 def model_calls(config, B):
-    """(GroupNorm calls, attention blocks) of one evaluation of `config`'s
-    model, read from the model."""
-    from mcvd_tpu_torch.models import UNetMoreDDPM
-    from mcvd_tpu_torch.models.blocks import AttnBlock
-    from mcvd_tpu_torch.tools.gn_calls import group_norm_calls
+    """(GroupNorm calls, attention calls) of one evaluation of `config`'s
+    model, read from the model (`tools.gn_calls`)."""
+    from mcvd_tpu_torch.tools import gn_calls
 
-    with torch.device("meta"):
-        n_attn = sum(isinstance(m, AttnBlock) for m in UNetMoreDDPM(config).modules())
-    return len(group_norm_calls(config, batch=B)), n_attn
+    return tuple(len(c) for c in gn_calls.model_calls(config, B))
 
 
 def block_vs_plain(config, seed, B, evals, what, per_eval=False, witness=False):
@@ -824,7 +1099,7 @@ def phase_slice(card):
     emit("slice", card=card, denoise=True, **out)
 
 
-def headline(config, n_timed=3):
+def headline(config, n_timed):
     """The bench protocol on `config`'s model (random weights from a seed):
     B=16, 100-step DDPM + denoise, 16 frames of 64x64 predicted in 4 blocks
     on the cond frames, bf16 score network; one warm-up and `n_timed` timed
@@ -882,7 +1157,7 @@ def headline(config, n_timed=3):
 def phase_headline(card):
     from mcvd_tpu_torch.config import flagship_config
 
-    out = headline(flagship_config())
+    out = headline(flagship_config(), n_timed=2)
     emit("headline", card=card, **out)
     return out["launches"]
 
@@ -921,22 +1196,23 @@ def phase_spade(card):
 
 
 def phase_samplers(card):
-    """The flagship fp32 block (B=4, subsample 100) under DDIM (101
-    evaluations), F-PNDM (109) and DDPM with gamma noise (101, Gamma draws
-    fed to both runs): kernels on and off, each evaluation of the chain held
-    to the plain network (`block_vs_plain` with per_eval), launch counts
-    exact; the ends within SLICE_ATOL, DDIM's within its plain chain's own
-    spread (the witness)."""
+    """The flagship fp32 block (B=4, subsample 50, cut from 100 to keep the
+    script inside its time limit) under DDIM (51 evaluations),
+    F-PNDM (59) and DDPM with gamma noise (51, Gamma draws fed to both
+    runs): kernels on and off, each evaluation of the chain held to the
+    plain network (`block_vs_plain` with per_eval), launch counts exact; the
+    ends within SLICE_ATOL, DDIM's within its plain chain's own spread (the
+    witness)."""
     from mcvd_tpu_torch.config import flagship_config
 
     out = {}
-    for name, version, gamma, evals in (("ddim", "DDIM", False, 101),
-                                        ("fpndm", "FPNDM", False, 109),
-                                        ("ddpm_gamma", "DDPM", True, 101)):
+    for name, version, gamma, evals in (("ddim", "DDIM", False, 51),
+                                        ("fpndm", "FPNDM", False, 59),
+                                        ("ddpm_gamma", "DDPM", True, 51)):
         config = flagship_config()
         config.model.version = version
         config.model.gamma = gamma
-        config.sampling.subsample = 100
+        config.sampling.subsample = 50
         out[name] = block_vs_plain(config, 40, 4, evals, f"samplers {name}", per_eval=True,
                                    witness=version == "DDIM")
     emit("samplers", card=card, **out)
@@ -956,169 +1232,28 @@ def grad_err(got, want, dtype_name):
 
 
 def phase_train_kernels(card, summary):
-    from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.ops import attention as A
-    from mcvd_tpu_torch.ops import groupnorm as GN
-    from mcvd_tpu_torch.tools.profile_gn2 import device_ms
-    from mcvd_tpu_torch.tools.profile_gn_bwd import cold_ms
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(5)
-    dev, B = "cuda", 16
+    B = 16
     cases = []
-    shapes = gn_cases(B)
     # device ms of one step's GroupNorm backwards, by model and dtype
     gn_step = {m: {"float32": 0.0, "bfloat16": 0.0} for m in GN_CALLS}
     for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[-1]
-        for C, H, N, fm, G, eps, per_step in shapes:
-            affine, adagn, act = GN_FORMS[fm]
-            CN = C * N
-            x = (torch.randn(B, H, H, CN, generator=g, device=dev) * 2 + 0.5).to(dtype)
-            x = x.permute(0, 3, 1, 2)   # channels_last NCHW
-            dy = torch.randn(B, H, H, CN, generator=g, device=dev).to(dtype).permute(0, 3, 1, 2)
-            prm = {"gamma": None, "beta": None, "scale": None, "shift": None}
-            leaves = [x]
-            if affine:   # in the compute dtype, as the bf16 step casts the parameters
-                prm["gamma"] = (1 + 0.1 * torch.randn(C, generator=g, device=dev)).to(dtype)
-                prm["beta"] = (0.1 * torch.randn(C, generator=g, device=dev)).to(dtype)
-                leaves = [x, prm["gamma"], prm["beta"]]
-            if adagn:   # as ActNorm passes them: chunks of one (B, 2*C*N) tensor
-                ss = (0.1 * torch.randn(B, 2 * CN, generator=g, device=dev)).to(dtype)
-                leaves = [x, ss]
-            for t in leaves:
-                t.requires_grad_()
-            if adagn:
-                prm["scale"], prm["shift"] = ss.chunk(2, dim=1)
-            kw = dict(eps=eps, frames_last=N, act=act, **prm)
-            what = f"{fm} eps={eps} C={C} H={H} N={N} {dn}"
-            before = dict(ops.LAUNCHES)
-            got = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
-            check(ops.LAUNCHES["gn_fused"] == before["gn_fused"] + 1 and
-                  ops.LAUNCHES["gn_fused_bwd"] == before["gn_fused_bwd"] + 1,
-                  "group_norm's backward did not run gn_fused then gn_fused_bwd")
-            with ops.reference_ops():
-                want = torch.autograd.grad(GN.group_norm(x, G, **kw), leaves, dy)
-            err = 0.0
-            for i, (a, b) in enumerate(zip(got, want)):
-                e, ok = grad_err(a, b, dn)
-                check(ok, f"gn_fused_bwd {what} input {i}: max err {e}")
-                err = max(err, e)
-            # the backward alone, from the forward's saved statistics
-            xd = x.detach()
-            pd = {k: None if v is None else v.detach() for k, v in prm.items()}
-            _, stats = GN.group_norm_fwd(xd, G, eps, pd["gamma"], pd["beta"], pd["scale"],
-                                         pd["shift"], N, act, want_stats=True)
-            args = (xd, dy, stats, G, pd["gamma"], pd["beta"], pd["scale"], pd["shift"], N, act)
-            # both routes (cluster, split) and the plan bwd_plan picks: the
-            # plain backward's gradients, the same bits over two calls
-            picked = GN.bwd_plan(B, CN, H, H, dtype, G, N, affine)
-            for p in {picked, *GN.bwd_plans(B, CN, H, H, dtype, G, N)}:
-                route = "split" if p.split else "cluster"
-                once = GN.group_norm_bwd(*args, p=p)
-                check(all(torch.equal(a, b) for a, b in
-                          zip(once, GN.group_norm_bwd(*args, p=p)) if a is not None),
-                      f"gn_fused_bwd {route} {what}: two calls differ")
-                mine = [once[0]] + ([torch.cat(once[3:], dim=1)] if adagn else list(once[1:3]))
-                for i, (a, b) in enumerate(zip(mine, want)):
-                    e, ok = grad_err(a, b, dn)
-                    check(ok, f"gn_fused_bwd {route} {what} input {i}: max err {e}")
-                    err = max(err, e)
-            record(summary, "gn_fused_bwd", dn, err)
-            case = dict(op="group_norm_bwd", form=fm, eps=eps, B=B, C=C, H=H, frames_last=N,
-                        dtype=dn, max_abs_err=err, route="split" if picked.split else "cluster",
-                        launches_per_call=2 if picked.split or affine else 1,
-                        calls_per_step=per_step)
-            case["ms"] = device_ms(lambda: GN.group_norm_bwd(*args))
+        dn = _dn(dtype)
+        for C, H, N, fm, G, eps, per_step in gn_cases(B):
+            big = (C, H) == (192, 64)
+            case = gn_bwd_case(g, B, C, H, H, N, fm, G, eps, dtype,
+                               compare=dn == "bfloat16" or big, cold=big)
+            case["calls_per_step"] = per_step
+            record(summary, "gn_fused_bwd", dn, case["max_abs_err"])
             for m, n in per_step.items():
                 gn_step[m][dn] += n * case["ms"]
-            if (C, H) == (192, 64):   # and with L2 flushed before each call
-                case["cold_ms"] = cold_ms(lambda: GN.group_norm_bwd(*args))
-            if dn == "bfloat16" or (C, H) == (192, 64):
-                case["plain_ms"] = device_ms(lambda: GN.group_norm_bwd_reference(
-                    xd, dy, G, eps=eps, frames_last=N, act=act, **pd))
-                case["bound_ms"], case["bound_by"] = bound(3 * nbytes(x), 12 * x.numel(),
-                                                           "fp32")
-                case["library_ms"] = None   # no one PyTorch call does AdaGN or the SiLU
-                if fm in ("affine", "plain"):   # autograd of F.group_norm, for comparison
-                    xl = xd.clone().requires_grad_()
-                    lib_leaves = [xl]
-                    if fm == "affine":
-                        wl, bl = (pd[k].clone().requires_grad_() for k in ("gamma", "beta"))
-                        lib_leaves += [wl, bl]
-                        yl = F.group_norm(xl, G, wl, bl, eps)
-                    else:
-                        yl = F.group_norm(xl, G, eps=eps)
-                    case["library_ms"] = device_ms(lambda: torch.autograd.grad(
-                        yl, lib_leaves, dy, retain_graph=True))
             cases.append(case)
-
     for dtype in (torch.float32, torch.bfloat16):
-        dn = str(dtype).split(".")[-1]
-        for T, h, d in ATTN_CASES:
-            C, scale = h * d, d ** -0.5
-            qkv = torch.randn(B, T, 3 * C, generator=g, device=dev).to(dtype).requires_grad_()
-            dy = torch.randn(B, T, C, generator=g, device=dev).to(dtype)
-            before = dict(ops.LAUNCHES)
-            got, = torch.autograd.grad(A.attention_packed(qkv, h, scale), [qkv], dy)
-            check(ops.LAUNCHES["attention_fwd"] == before["attention_fwd"] + 1 and
-                  ops.LAUNCHES["attention_bwd"] == before["attention_bwd"] + 1,
-                  "attention_packed's backward did not run attention_bwd")
-            with ops.reference_ops():
-                want, = torch.autograd.grad(A.attention_packed(qkv, h, scale), [qkv], dy)
-            rel = ATTN_BWD_REL[dn]
-            err = 0.0
-            for i, part in enumerate("qkv"):
-                a, b = (t[..., i * C:(i + 1) * C].float() for t in (got, want))
-                check(bool(torch.isfinite(a).all()), "non-finite attention gradient")
-                e = float((a - b).abs().max())
-                check(e <= rel * float(b.abs().max()),
-                      f"attention_bwd T={T} h={h} D={d} {dn} d{part}: max err {e}")
-                err = max(err, e)
-            record(summary, "attention_bwd", dn, err)
-            case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=d, dtype=dn,
-                        path=ATTN_PATH[dn] + " (dq, then dk and dv)",
-                        max_abs_err=err, rel_tol=rel, launches_per_call=2)
-            # the kernel alone, from the forward's output and logsumexp: the
-            # same bits twice (no atomics); bf16 per element
-            qd = qkv.detach()
-            o, lse = A.attention_packed_fwd(qd, h, scale, True)
-            once = A.attention_packed_bwd(qd, o, lse, dy, h, scale)
-            check(torch.equal(once, A.attention_packed_bwd(qd, o, lse, dy, h, scale)),
-                  f"attention_bwd T={T} h={h} D={d} {dn}: two calls differ")
-            case["deterministic"] = True
-            if dn == "bfloat16":
-                tols = A.bf16_bwd_tolerances(qd, dy, h, scale)
-                p_err, p_ok = max_err(once, want, dn, tols["plain"])
-                check(p_ok, f"attention_bwd T={T} h={h} D={d} bf16 per element: "
-                            f"max err {p_err}")
-                heads = [t.reshape(B, T, h, d).transpose(1, 2).reshape(B * h, T, d)
-                         for t in (*qd.split(C, dim=-1), dy, o)]
-                emu = A.attention_bwd_tc_emulation(*heads[:4], scale, o=heads[4],
-                                                   lse=lse.reshape(B * h, T))
-                emu = torch.cat([t.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, C)
-                                 for t in emu], dim=-1)
-                e_err, e_ok = max_err(once, emu, dn, tols["emulation"])
-                check(e_ok, f"attention_bwd T={T} h={h} D={d} bf16 vs its emulation: "
-                            f"max err {e_err}")
-                case.update(per_element_err=p_err, max_atol=float(tols["plain"][0].max()),
-                            emulation_err=e_err,
-                            emulation_max_atol=float(tols["emulation"][0].max()))
-            if T != 100:   # every case but the ragged T is timed
-                case["ms"] = device_ms(lambda: A.attention_packed_bwd(qd, o, lse, dy, h, scale))
-                case["plain_ms"] = device_ms(
-                    lambda: A.attention_packed_bwd_reference(qd, dy, h, scale))
-                q4, k4, v4 = (t.reshape(B, T, h, d).transpose(1, 2).contiguous()
-                              .requires_grad_() for t in qd.split(C, dim=-1))
-                o4 = F.scaled_dot_product_attention(q4, k4, v4, scale=scale)
-                dy4 = dy.reshape(B, T, h, d).transpose(1, 2)
-                case["library_ms"] = device_ms(lambda: torch.autograd.grad(
-                    o4, [q4, k4, v4], dy4, retain_graph=True))
-                flops = 10 * B * h * T * T * d   # 5 products of 2*T*T*d per (b, head)
-                case["bound_ms"], case["bound_by"] = attn_bound(
-                    2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops, dn)
-                case["tflops"] = flops / case["ms"] / 1e9
+        for T, h, d in ATTN_CASES:   # every case but the ragged T is timed
+            case = attn_bwd_case(g, B, T, h, d, dtype, timed=T != 100)
+            record(summary, "attention_bwd", case["dtype"], case["max_abs_err"])
             cases.append(case)
     torch.cuda.synchronize()
     emit("train_kernels", card=card, cases=cases, gn_bwd_ms_per_step_at_B16_by_model=gn_step)
@@ -1139,14 +1274,18 @@ def _slice_model(config, seed):
     return model
 
 
-def train_step_vs_plain(config, seed, B, want_launches, what, model=None):
+def train_step_vs_plain(config, seed, B, want_launches, what, model=None, exact_zero=()):
     """One fp32 training step of `config`'s model (zero-scale layers redrawn,
     dropout 0, warmup 0) through the kernels and under `ops.reference_ops()`
     from the same weights and draws: loss, grad_norm, every gradient
     (through Adam's first moment), the updated parameters and the EMA held
     to the train tolerances, and the kernels' exact launch counts. `model` is
     `_slice_model(config, seed)` built by the caller with dropout 0, else it
-    is built here. Returns the phase's payload."""
+    is built here. The parameters named in `exact_zero` have a gradient that
+    is zero in exact arithmetic (`exact_zero_grads`): both sides' moments
+    are held to its rounding noise, the floor, and the parameter to Adam's
+    own bound, 2*lr (the noise's sign sets the update's). Returns the
+    phase's payload."""
     import contextlib
 
     from mcvd_tpu_torch import ops
@@ -1200,12 +1339,18 @@ def train_step_vs_plain(config, seed, B, want_launches, what, model=None):
         for slot, rel, floor in (("mu", TRAIN_GRAD_REL, 0.1 * 1e-6 * gmax),
                                  ("nu", 2 * TRAIN_GRAD_REL, 1e-3 * (1e-6 * gmax) ** 2)):
             a, b = got[slot][n], want[slot][n]
+            if n in exact_zero:
+                big = max(float(a.abs().max()), float(b.abs().max()))
+                check(big <= floor, f"{what} {slot} {n}: {big}, not rounding noise")
+                continue
             e = float((a - b).abs().max()) / max(float(b.abs().max()), floor)
             check(e <= rel, f"{what} {slot} {n}: error {e} of its largest entry")
             worst["grad" if slot == "mu" else "nu"] = max(worst["grad" if slot == "mu"
                                                                 else "nu"], e)
         mu = want["mu"][n]
         atol = torch.where(mu.abs() < 1e-2 * float(mu.abs().max()), 2 * lr, 0.1 * lr)
+        if n in exact_zero:
+            atol = torch.full_like(mu, 2 * lr)
         e = float(((got["params"][n] - want["params"][n]).abs() / atol).max())
         check(e <= 1.0, f"{what} param {n}: {e} of its tolerance")
         ema_e = float(((got["ema"][n] - want["ema"][n]).abs() / (1e-3 * atol + 1e-6)).max())
@@ -1230,7 +1375,8 @@ def phase_wide_heads(card):
     read with the port's load_config): bair_big (D=96, 64 px),
     cityscapes_big (D=128, 128 px), bair_big_spade (D=96) and
     cityscapes_big_spade (D=192, 128 px), random weights from a seed: one
-    fp32 network evaluation and one fp32 training step (B=4) through the
+    fp32 network evaluation and one fp32 training step (B=2, cut from 4 to
+    keep the script inside its time limit) through the
     kernels against `reference_ops()`, with exact launch counts (the model's
     GroupNorm and attention calls)."""
     from mcvd_tpu_torch import ops
@@ -1241,7 +1387,7 @@ def phase_wide_heads(card):
     for name, (head_dim, n_jax) in WIDE_CONFIGS.items():
         config = load_config(repo_path(f"configs/{name}.yml"))
         config.model.dropout = 0.0   # as train_step_vs_plain, which reuses the model
-        B = 4
+        B = 2
         n_gn, n_attn = model_calls(config, B)
         model = _slice_model(config, 20)
         attn = [m for m in model.modules() if isinstance(m, AttnBlock)]
@@ -1270,12 +1416,13 @@ def phase_wide_heads(card):
                            f"{name} evaluation")
             with ops.reference_ops():
                 want = model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
-            eval_ms = []   # the evaluation's wall, synchronised, after the two above
-            for _ in range(3):
-                t0 = time.perf_counter()
-                model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
-                torch.cuda.synchronize()
-                eval_ms.append(1e3 * (time.perf_counter() - t0))
+            # the evaluation's wall, synchronised, after the two above: one
+            # run (cut from three: cityscapes_big_spade's fp32 evaluation
+            # takes ~8 s, section 5 of PERF.md)
+            t0 = time.perf_counter()
+            model(x.permute(0, 3, 1, 2), t, cond.permute(0, 3, 1, 2))
+            torch.cuda.synchronize()
+            eval_ms = [1e3 * (time.perf_counter() - t0)]
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f"{name} evaluation output {tuple(got.shape)} not finite")
         big = float(want.abs().max())
@@ -1296,6 +1443,241 @@ def phase_wide_heads(card):
              train_step=step)
         torch.cuda.empty_cache()
     return launches
+
+
+def exact_zero_grads(model):
+    """The parameters whose gradient is zero in exact arithmetic: each
+    attention's key bias (softmax takes out a constant added to a query's
+    scores: NCSN++'s NIN_1.b, the legacy UNet's K.bias), and in the legacy
+    UNet the biases that add a constant to each channel (of each example) at
+    the input of a GroupNorm of one channel a group (32 groups over 32
+    channels), which takes it out: in the 32-channel resblocks conv0's bias
+    and the time embedding's projection `dense` (before normalize1), and in
+    the last resblock, whose output only the head's `normalize` reads,
+    conv1's and the shortcut `nin`'s biases."""
+    from mcvd_tpu_torch.models.blocks import AttnBlock
+    from mcvd_tpu_torch.models.unet import UNet, AttnBlock as LegacyAttnBlock
+    from mcvd_tpu_torch.models.unet import ResnetBlock
+
+    def one_a_group(gn):
+        return gn.num_groups == gn.channels
+
+    out = []
+    for name, m in model.named_modules():
+        if isinstance(m, AttnBlock):
+            out.append(f"{name}.NIN_1.b")
+        elif isinstance(m, LegacyAttnBlock):
+            out.append(f"{name}.K.bias")
+        elif isinstance(m, ResnetBlock) and one_a_group(m.normalize1):
+            out.append(f"{name}.conv0.bias")
+            if hasattr(m, "dense"):
+                out += [f"{name}.dense.weight", f"{name}.dense.bias"]
+        elif isinstance(m, UNet) and one_a_group(m.normalize):
+            last = f"{name}.upblocks.{len(m.upblocks) - 1}"
+            out.append(f"{last}.conv1.bias")
+            if hasattr(m.upblocks[-1], "nin"):
+                out.append(f"{last}.nin.bias")
+    return tuple(out)
+
+
+def small5_model(card, name, yml, mods, n_gn, n_attn, n_jax):
+    """One of the SMALL5 models at full width (random weights, zero-scale
+    layers redrawn): one fp32 evaluation at B=64 through the kernels against
+    `reference_ops()` (within TRAIN_GRAD_REL of the largest output, as
+    wide_heads), exact launch counts; the bf16 evaluation (the model cast,
+    as the sampler casts it), finite, exact launch counts and its distance
+    to the fp32 plain output; one fp32 training step against
+    `reference_ops()` (train_step_vs_plain) and 3 timed steps (train_steps)."""
+    import copy
+
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.tools.gn_calls import model_calls
+
+    config = load_config(repo_path(yml), mods)
+    config.model.dropout = 0.0
+    B = 64
+    gn, attn = model_calls(config, B)
+    check((len(gn), len(attn)) == (n_gn, n_attn),
+          f"{name}: {len(gn)} GroupNorm and {len(attn)} attention calls, want "
+          f"{n_gn} and {n_attn}")
+    model = _slice_model(config, 30)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == n_jax, f"{name}: {n_params} params, JAX has {n_jax}")
+    d = config.data
+    sz = d.image_size
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x = torch.randn(B, d.channels * d.num_frames, sz, sz, generator=g, device="cuda")
+    cond = torch.rand(B, d.channels * d.num_frames_cond, sz, sz, generator=g,
+                      device="cuda") * 2 - 1
+    t = torch.randint(0, config.model.num_classes, (B,), generator=g, device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want_eval = {"gn_fused": n_gn, "attention_fwd": n_attn}
+    model.eval()
+    out = {}
+    with torch.inference_mode():
+        for dn, net in (("float32", model),
+                        ("bfloat16", copy.deepcopy(model).to(torch.bfloat16))):
+            dt = next(net.parameters()).dtype
+            xs, cs = x.to(dt), cond.to(dt)
+            ops.reset_launches()
+            got = net(xs, t, cs)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            check_launches(launches, want_eval, f"{name} {dn} evaluation")
+            check(bool(torch.isfinite(got).all()), f"{name} {dn} evaluation not finite")
+            if dn == "float32":
+                with ops.reference_ops():
+                    want = net(xs, t, cs)
+            ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                net(xs, t, cs)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            big = float(want.abs().max())
+            diff = float((got.float() - want).abs().max())
+            if dn == "float32":
+                check(diff <= TRAIN_GRAD_REL * big,
+                      f"{name} evaluation: kernels vs plain max abs diff {diff}, largest {big}")
+            out[dn] = dict(B=B, max_abs_diff_to_fp32_plain=diff, largest=big, launches=launches,
+                           ms=statistics.median(ms), ms_all=ms)
+    want_step = {**want_eval, "gn_fused_bwd": n_gn, "attention_bwd": n_attn}
+    step = train_step_vs_plain(config, 30, B, want_step, name, model=model,
+                               exact_zero=exact_zero_grads(model))
+    del model
+    torch.cuda.empty_cache()
+    timed = train_steps(config, "float32", 3, want_step)
+    emit("small5", card=card, model=name, config=yml, config_mod=mods,
+         arch=config.model.arch, params=n_params, eval=out, train_step=step,
+         train_steps=timed)
+    return dict(eval_fp32_ms=out["float32"]["ms"], eval_bf16_ms=out["bfloat16"]["ms"],
+                step_fp32_ms=timed["ms_per_step"], launches=step["launches"])
+
+
+def small5_cli():
+    """The CLI on the two small configs (`SMALL5_CLI_MODS`), each in an
+    experiment of its own: --train to 3, then --video_gen --ckpt 3; exact
+    launch counts, checkpoint_3 loaded bit-equal, finite losses and metrics,
+    the loop's ms a step."""
+    from mcvd_tpu_torch.compat import yaml_subset
+
+    out = {}
+    for name in ("small5", "small5_3d"):
+        yml, _, n_gn, n_attn, _ = SMALL5[name]
+        want = {"train": _cli_launches(3, 1, n_gn, n_attn),
+                "video_gen": _cli_launches(0, 2 * BLOCK, n_gn, n_attn)}
+        with tempfile.TemporaryDirectory(prefix=f"mcvd_{name}_") as exp:
+            res = {}
+            for run, flags in (("train", ["--train"]), ("video_gen", ["--video_gen", "--ckpt",
+                                                                       "3"])):
+                log, launches, wall_s = run_cli(exp, 3, *flags, config=yml,
+                                                base_mods=SMALL5_CLI_MODS)
+                check_launches(launches, want[run], f"cli {name} {run}")
+                res[run] = dict(launches=launches, wall_s=wall_s)
+                if run == "train":
+                    steps = _steps_waits(log)
+                    check(sorted(steps) == [1, 2, 3] and "training done at step 3" in log
+                          and all(np.isfinite(v[0]) for v in steps.values()),
+                          f"cli {name}: steps {steps}")
+                    res[run].update(ms_by_step={k: v[1] for k, v in steps.items()},
+                                    checkpoint_tensors_bit_equal=check_checkpoint(
+                                        os.path.join(exp, "logs"), yml, 3, SMALL5_CLI_MODS))
+                else:
+                    vid = yaml_subset.load_file(
+                        os.path.join(exp, "video_samples", "videos", "vid_metrics.yml"))
+                    res[run]["vid_metrics"] = _finite_metrics(vid, f"{name} vid_metrics.yml")
+            out[name] = res
+    return out
+
+
+def small5_jax_export():
+    """The committed JAX export (`JAX_EXPORT`): imported by compat.jax_ckpt
+    into a temporary log directory, its checkpoint's params and EMA bit-equal
+    to the export's arrays, then --video_gen --ckpt 1 from it on the card
+    with exact launch counts and finite metrics."""
+    from mcvd_tpu_torch.compat import jax_ckpt, torch_state_dict_from_flax, yaml_subset
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.tools.gn_calls import model_calls
+    from mcvd_tpu_torch.train import checkpoints
+
+    with tempfile.TemporaryDirectory(prefix="mcvd_jax_export_") as exp:
+        logs = os.path.join(exp, "logs")
+        step = jax_ckpt.import_checkpoint(repo_path(JAX_EXPORT), logs)
+        parts, _ = jax_ckpt.read_export(repo_path(JAX_EXPORT))
+        saved = checkpoints.load_checkpoint(logs, name=f"checkpoint_{step}")
+        n_equal = 0
+        for which in ("params", "ema_params"):
+            want = torch_state_dict_from_flax(parts[which])
+            got = getattr(saved, which)
+            check(set(got) == set(want), f"jax export {which}: other tensors")
+            for k, v in want.items():
+                check(torch.equal(got[k].contiguous(), v), f"jax export {which} {k} differs")
+                n_equal += 1
+        config_path = os.path.join(logs, "config.yml")
+        n_gn, n_attn = (len(c) for c in model_calls(load_config(config_path), 16))
+        log, launches, wall_s = run_cli(exp, step, "--video_gen", "--ckpt", str(step),
+                                        config=config_path, base_mods=JAX_EXPORT_MODS)
+        check_launches(launches, _cli_launches(0, 2 * BLOCK, n_gn, n_attn),
+                       "cli video_gen from the JAX export")
+        vid = _finite_metrics(yaml_subset.load_file(
+            os.path.join(exp, "video_samples", "videos", "vid_metrics.yml")),
+            "JAX export vid_metrics.yml")
+    return dict(export=JAX_EXPORT, step=step, tensors_bit_equal=n_equal, launches=launches,
+                wall_s=wall_s, vid_metrics=vid)
+
+
+def phase_small5(card):
+    """The slice of the legacy UNet and the 3D family on the card: the
+    kernels at the new shapes (every GroupNorm and attention call of one
+    evaluation of the three SMALL5 models, read from them, both dtypes,
+    forward and backward; the attention at B=4 and B=64 clips; one call of
+    each past the grid's 65,535), the three models at full width, the CLI
+    on the two shipped configs, and a --video_gen from the committed JAX
+    export. The kernels' timed cases are bf16 and fp32 at B=64 (attention)
+    and the bf16 GroupNorm calls at C=84, of the legacy UNet and of the
+    attention blocks (the time attention's B*256 examples of 7 or 2 rows)."""
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.tools.gn_calls import form, model_calls
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(40)
+    gn_shapes = {}   # distinct calls of the three models at B=16, in order
+    for name, (yml, mods, *_rest) in SMALL5.items():
+        for c in model_calls(load_config(repo_path(yml), mods), 16)[0]:
+            gn_shapes.setdefault(tuple(sorted(c.items())), name)
+    cases = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for key, name in gn_shapes.items():
+            c = dict(key)
+            timed = dtype == torch.bfloat16 and (c["C"] == 84 or name == "small5" or
+                                                 (c["affine"] and not c["act"]))
+            N = c["frames_last"]
+            shape = (c["B"], c["C"] // N, c["H"], c["W"], N, form(c), c["num_groups"],
+                     c["eps"], dtype)
+            cases += [dict(gn_fwd_case(g, *shape, timed=timed, compare=timed), model=name),
+                      dict(gn_bwd_case(g, *shape, timed=timed, compare=timed), model=name)]
+        big = (PAST_GRID, 24, 7, 1, 1, "affine", 6, 1e-6, dtype)
+        cases += [dict(gn_fwd_case(g, *big, timed=False), model="past_grid"),
+                  dict(gn_bwd_case(g, *big, timed=False), model="past_grid")]
+        for B in SMALL5_ATTN_B:
+            config = load_config(repo_path(SMALL5["small5_3d"][0]))
+            for a in model_calls(config, B)[1]:
+                shape = (a["B"], a["T"], a["heads"], a["D"], dtype)
+                cases += [attn_fwd_case(g, *shape, timed=B == 64),
+                          attn_bwd_case(g, *shape, timed=B == 64)]
+        cases += [attn_fwd_case(g, PAST_GRID, 7, 1, 24, dtype, timed=False),
+                  attn_bwd_case(g, PAST_GRID, 7, 1, 24, dtype, timed=False)]
+    torch.cuda.synchronize()
+    emit("small5_kernels", card=card, cases=cases)
+    models = {name: small5_model(card, name, yml, mods, n_gn, n_attn, n_jax)
+              for name, (yml, mods, n_gn, n_attn, n_jax) in SMALL5.items()}
+    cli = small5_cli()
+    export = small5_jax_export()
+    emit("small5_cli", card=card, config_mod=SMALL5_CLI_MODS, runs=cli, jax_export=export)
+    return models
 
 
 def train_steps(config, dn, n_steps, want_launches):
@@ -1514,16 +1896,17 @@ def _eval_modes(exp, runs):
     return out
 
 
-def check_checkpoint(logs, config_path, step):
+def check_checkpoint(logs, config_path, step, mods=CLI_MODS):
     """checkpoint_{step} loaded into a fresh state (other weights) of the
-    config's model, here: the same bits as the file (parameters, EMA, Adam's
-    moments). Returns the number of tensors compared."""
+    config's model (with `mods`), here: the same bits as the file
+    (parameters, EMA, Adam's moments). Returns the number of tensors
+    compared."""
     from mcvd_tpu_torch.config import load_config
     from mcvd_tpu_torch.models import get_model
     from mcvd_tpu_torch.train import checkpoints, create_train_state
 
     name = f"checkpoint_{step}"
-    config = load_config(repo_path(config_path), CLI_MODS)
+    config = load_config(repo_path(config_path), mods)
     model = get_model(config, generator=torch.Generator().manual_seed(99), device="cuda")
     state = checkpoints.load_checkpoint(
         logs, name=name, target=create_train_state(config, model, device="cuda"))
@@ -1845,13 +2228,13 @@ def phase_data(card, root):
 
 def cli_data_launches(config, runs):
     """Each run's launches: a training step's GroupNorm and attention calls
-    forward and backward, one validation evaluation, and 101 evaluations
-    (100 steps + denoise) a block of video_gen."""
+    forward and backward, one validation evaluation, and BLOCK evaluations a
+    block of video_gen."""
     n_gn, n_attn = model_calls(config, 1)
     blocks = -(-10 // config.data.num_frames)   # sampling.num_frames_pred=10
     out = {}
     for name, n_iters, flags, _ in runs:
-        steps, evals = (n_iters, 1) if "--train" in flags else (0, 101 * blocks)
+        steps, evals = (n_iters, 1) if "--train" in flags else (0, BLOCK * blocks)
         out[name] = {"gn_fused": n_gn * (steps + evals), "gn_fused_bwd": n_gn * steps,
                      "attention_fwd": n_attn * (steps + evals),
                      "attention_bwd": n_attn * steps}
@@ -1941,6 +2324,7 @@ def main():
     train_cases = timed("train_kernels", phase_train_kernels, card, summary)
     timed("train_slice", phase_train_slice, card)
     timed("wide_heads", phase_wide_heads, card)
+    timed("small5", phase_small5, card)
     train_launches, headline_ms = timed("train_headline", phase_train_headline, card)
     timed("eval_nets", phase_eval_nets, card)
     timed("cli", phase_cli, card, headline_ms)

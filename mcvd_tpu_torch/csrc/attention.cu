@@ -1,4 +1,4 @@
-// Softmax attention for NVIDIA Hopper (sm_90a), head dims 64, 96, 128 and 192, on
+// Softmax attention for NVIDIA Hopper (sm_90a), head dims 24, 64, 96, 128 and 192, on
 // the tensor cores: the forward attention_fwd and its VJP attention_bwd (two
 // launches, see "backward" below), each in bf16 and fp32. Every kernel is a
 // template over the element type and the head dim D; the C entry points
@@ -40,6 +40,24 @@
 //   walks its tiles through one stage instead of a 2-stage ring (kStages:
 //   the copy of tile j + 1 waits for tile j's math), three tiles forward
 //   and four backward.
+// At D = 24 (the 3D family's one-head attention: ngf 12 at two channel
+// multipliers) a row is padded to 32 columns in shared memory, the pad
+// written as zeros by the copy (cp.async with no source bytes) and never
+// loaded from device memory: in AttnBlock's packed (B, T, 3C) qkv, column
+// 24 of q's row is k's first column, so a 32-wide read would take k's data
+// into q. Every product then runs at depth 32 (bf16 m16n8k16 takes depth
+// in steps of 16): the pad's zeros add exact zeros to S = Q K^T and dP =
+// dO V^T, and the outputs' pad columns (O, dQ, dK, dV) are zeros that are
+// not stored. A quarter of those products is the pad's (kPad).
+// Short sequences: the 3D family's time attention runs over T = 7 or 2
+// tokens and the 4-px space attention over 16, each in one 64-row block
+// with the rows past T zero-filled and masked, as any ragged last tile (see
+// the forward below): most of such a block idles. Packing several short
+// sequences into one block is later work.
+// The grid's batch axis (gridDim.z) stops at 65,535, and the time
+// attention's batch is B*H*W (256,000 at fast_fid's batch of 1000): a call
+// with more launches once for each run of up to 65,535 (launch_fwd_d,
+// launch_bwd_d), on pointers moved to the run.
 // Each product runs on
 // mma.sync with fp32 accumulators, and an accumulator (scores, p or ds) is
 // reused from registers as the A operand of the next product, so no
@@ -233,7 +251,9 @@ template <typename T, int D> struct Tile;
 template <int D> struct Tile<bf16, D> {
   static_assert(D % 32 == 0, "head dim: a multiple of 32");
   // rows of D/8 16-byte chunks, permuted by chunk ^ (row % 8) where D is a
-  // multiple of 64; a 96-wide row is padded to 13 chunks instead
+  // multiple of 64; a 96-wide row is padded to 13 chunks instead, a 32-wide
+  // one (D = 24 padded) to 5: an odd count spreads eight rows' reads of one
+  // chunk over the eight bank groups
   static constexpr bool kSwizzle = D % 64 == 0;
   static constexpr int kPitch = kSwizzle ? D : D + 8;
   static constexpr int kElems = kRows * kPitch;
@@ -243,6 +263,8 @@ template <int D> struct Tile<bf16, D> {
     return kSwizzle ? row * D + ((((col >> 3) ^ (row & 7)) << 3) | (col & 7))
                     : row * kPitch + col;
   }
+  // DR <= D: the row's real columns; the chunks past them are zero-filled
+  template <int DR = D>
   static __device__ __forceinline__ void load(bf16* dst, const bf16* src, int row0, int T_len,
                                               int64_t ts, int tid) {
     constexpr int kChunks = D / 8;
@@ -250,7 +272,7 @@ template <int D> struct Tile<bf16, D> {
     for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int row = idx / kChunks, ch = idx % kChunks;
-      const bool valid = row0 + row < T_len;
+      const bool valid = row0 + row < T_len && ch < DR / 8;
       const bf16* g = src + (valid ? (int64_t)(row0 + row) * ts + ch * 8 : 0);
       cp_async16(smem_u32(dst + at(row, ch * 8)), g, valid);
     }
@@ -332,6 +354,7 @@ template <int D> struct Tile<float, D> {
   static constexpr int kElems = kRows * kPitch;
   static constexpr int kK = D / 8;       // k slices of a row
 
+  template <int DR = D>
   static __device__ __forceinline__ void load(float* dst, const float* src, int row0,
                                               int T_len, int64_t ts, int tid) {
     constexpr int kChunks = D / 4;
@@ -339,7 +362,7 @@ template <int D> struct Tile<float, D> {
     for (int i = 0; i < kRows * kChunks / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int row = idx / kChunks, ch = idx % kChunks;
-      const bool valid = row0 + row < T_len;
+      const bool valid = row0 + row < T_len && ch < DR / 4;
       const float* g = src + (valid ? (int64_t)(row0 + row) * ts + ch * 4 : 0);
       cp_async16(smem_u32(dst + row * kPitch + ch * 4), g, valid);
     }
@@ -439,6 +462,9 @@ static_assert(!kHeldRows<64> || (kStages<bf16, 64> == 2 && kStages<float, 64> ==
 // Blocks that share a backward block's rows, each owning D / kColSplit of
 // the output columns.
 template <int D> constexpr int kColSplit = D > 128 ? 2 : 1;
+// The tiles' width for head dim D: D rounded up to a multiple of 32 (24 ->
+// 32; the other dims are their own).
+template <int D> constexpr int kPad = (D + 31) / 32 * 32;
 
 // Brings tile j of a walk into its ring stage and returns the stage; tile 0
 // was issued before the walk, and load(stage, tile) issues a tile's copies.
@@ -491,8 +517,9 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                      int T_len, int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts,
                      int64_t o_bs, int64_t o_ts, float scale_log2) {
-  using Tl = Tile<T, D>;
-  constexpr int kSt = kStages<T, D>;
+  constexpr int DP = kPad<D>;   // the tiles' width
+  using Tl = Tile<T, DP>;
+  constexpr int kSt = kStages<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);   // [tile]
   T* sK = sQ + Tl::kElems;              // [kSt][tile]
@@ -508,17 +535,17 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ob = o + b * o_bs + h_off;
   const int n_tiles = (T_len + kRows - 1) / kRows;
   const auto load_kv = [&](int st, int j) {
-    Tl::load(sK + st * Tl::kElems, kb, j * kRows, T_len, kv_ts, tid);
-    Tl::load(sV + st * Tl::kElems, vb, j * kRows, T_len, kv_ts, tid);
+    Tl::template load<D>(sK + st * Tl::kElems, kb, j * kRows, T_len, kv_ts, tid);
+    Tl::template load<D>(sV + st * Tl::kElems, vb, j * kRows, T_len, kv_ts, tid);
   };
 
   // Q has a tile of its own, so tile 1's copy starts before Q has landed
-  Tl::load(sQ, qb, m0, T_len, q_ts, tid);
+  Tl::template load<D>(sQ, qb, m0, T_len, q_ts, tid);
   load_kv(0, 0);
   cp_async_commit();
 
-  QRows<T, D> qf;         // this warp's 16 query rows, read after tile 0 lands
-  float acc[D / 8][4];    // O: 16 rows x D
+  QRows<T, DP> qf;        // this warp's 16 query rows, read after tile 0 lands
+  float acc[DP / 8][4];   // O: 16 rows x DP
   float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (scaled)
   float l_r[2] = {0.f, 0.f};              // this thread's share of the running sums
   zero(acc);
@@ -560,7 +587,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       l_r[r] = l_r[r] * alpha + sum;
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb) {
+      for (int nb = 0; nb < DP / 8; ++nb) {
         acc[nb][2 * r] *= alpha;
         acc[nb][2 * r + 1] *= alpha;
       }
@@ -580,7 +607,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (row < T_len) {
       T* orow = ob + (int64_t)row * o_ts + (lane & 3) * 2;
 #pragma unroll
-      for (int nb = 0; nb < D / 8; ++nb)
+      for (int nb = 0; nb < D / 8; ++nb)   // the real columns; the pad's are zeros
         Tl::store2(orow + nb * 8, acc[nb][2 * r] * inv, acc[nb][2 * r + 1] * inv);
       if (lse != nullptr && (lane & 3) == 0)   // natural log: (m + log2 l) * ln 2
         lse[((int64_t)blockIdx.z * gridDim.y + blockIdx.y) * T_len + row] =
@@ -640,19 +667,21 @@ struct BwdArgs {
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
-  using Tl = Tile<T, D>;
-  constexpr int kSt = kStages<T, D>, kSplit = kColSplit<D>, NB = D / 8 / kSplit;
+  constexpr int DP = kPad<D>;   // the tiles' width
+  using Tl = Tile<T, DP>;
+  constexpr int kSt = kStages<T, DP>, kSplit = kColSplit<DP>, NB = DP / 8 / kSplit;
+  constexpr int NB_OUT = D / 8 / kSplit;   // the real column blocks a block stores
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);                        // [kSt][tile]
   T* sV = sK + kSt * Tl::kElems;                             // [kSt][tile]
   // Q and dO: the rings' second stages when held, else tiles of their own
-  T* sQ = kHeldRows<D> ? sK + Tl::kElems : sV + kSt * Tl::kElems;
-  T* sG = kHeldRows<D> ? sV + Tl::kElems : sQ + Tl::kElems;
-  float* sD = reinterpret_cast<float*>(sK + kBwdTiles<T, D> * Tl::kElems);   // [64]: row terms
+  T* sQ = kHeldRows<DP> ? sK + Tl::kElems : sV + kSt * Tl::kElems;
+  T* sG = kHeldRows<DP> ? sV + Tl::kElems : sQ + Tl::kElems;
+  float* sD = reinterpret_cast<float*>(sK + kBwdTiles<T, DP> * Tl::kElems);   // [64]: row terms
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = (blockIdx.x / kSplit) * kRows;
-  const int c0 = (blockIdx.x % kSplit) * (D / kSplit);   // this block's dQ columns
+  const int c0 = (blockIdx.x % kSplit) * (DP / kSplit);   // this block's dQ columns
   const int64_t h_off = (int64_t)blockIdx.y * D;
   const int64_t b = blockIdx.z;
   const int64_t bh = b * gridDim.y + blockIdx.y;
@@ -665,12 +694,12 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   const float sl2 = a.scale * kLog2e;
   const int n_tiles = (T_len + kRows - 1) / kRows;
   const auto load_kv = [&](int st, int j) {
-    Tl::load(sK + st * Tl::kElems, kb, j * kRows, T_len, a.ts, tid);
-    Tl::load(sV + st * Tl::kElems, vb, j * kRows, T_len, a.ts, tid);
+    Tl::template load<D>(sK + st * Tl::kElems, kb, j * kRows, T_len, a.ts, tid);
+    Tl::template load<D>(sV + st * Tl::kElems, vb, j * kRows, T_len, a.ts, tid);
   };
 
-  Tl::load(sQ, qb, m0, T_len, a.ts, tid);
-  Tl::load(sG, gb, m0, T_len, a.o_ts, tid);
+  Tl::template load<D>(sQ, qb, m0, T_len, a.ts, tid);
+  Tl::template load<D>(sG, gb, m0, T_len, a.o_ts, tid);
   load_kv(0, 0);
   cp_async_commit();
 
@@ -689,7 +718,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   }
   cp_async_wait<0>();
   __syncthreads();
-  OwnRows<T, D> qf, gf;   // this warp's 16 rows of Q and dO
+  OwnRows<T, DP> qf, gf;  // this warp's 16 rows of Q and dO
   qf.load(sQ, warp * 16, lane);
   gf.load(sG, warp * 16, lane);
   float lse2[2], Dr[2];   // rows g and g + 8
@@ -741,7 +770,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
       if ((lane & 3) == 0 && c0 == 0) a.delta[bh * T_len + row] = d;
       T* out = dqb + (int64_t)row * a.ts + c0 + (lane & 3) * 2;
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
+      for (int nb = 0; nb < NB_OUT; ++nb)
         Tl::store2(out + nb * 8, dq[nb][2 * r] * a.scale, dq[nb][2 * r + 1] * a.scale);
     }
   }
@@ -749,20 +778,22 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
-  using Tl = Tile<T, D>;
-  constexpr int kSt = kStages<T, D>, kSplit = kColSplit<D>, NB = D / 8 / kSplit;
+  constexpr int DP = kPad<D>;   // the tiles' width
+  using Tl = Tile<T, DP>;
+  constexpr int kSt = kStages<T, DP>, kSplit = kColSplit<DP>, NB = DP / 8 / kSplit;
+  constexpr int NB_OUT = D / 8 / kSplit;   // the real column blocks a block stores
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);                          // [kSt][tile]
   T* sG = sQ + kSt * Tl::kElems;                               // [kSt][tile]: dO
   // K and V: the rings' second stages when held, else tiles of their own
-  T* sK = kHeldRows<D> ? sQ + Tl::kElems : sG + kSt * Tl::kElems;
-  T* sV = kHeldRows<D> ? sG + Tl::kElems : sK + Tl::kElems;
-  float* sL = reinterpret_cast<float*>(sQ + kBwdTiles<T, D> * Tl::kElems);   // [2][64]: lse
+  T* sK = kHeldRows<DP> ? sQ + Tl::kElems : sG + kSt * Tl::kElems;
+  T* sV = kHeldRows<DP> ? sG + Tl::kElems : sK + Tl::kElems;
+  float* sL = reinterpret_cast<float*>(sQ + kBwdTiles<T, DP> * Tl::kElems);   // [2][64]: lse
   float* sDq = sL + 2 * kRows;                                 // [2][64]: D
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int k0 = (blockIdx.x / kSplit) * kRows;
-  const int c0 = (blockIdx.x % kSplit) * (D / kSplit);   // this block's dK, dV columns
+  const int c0 = (blockIdx.x % kSplit) * (DP / kSplit);   // this block's dK, dV columns
   const int64_t h_off = (int64_t)blockIdx.y * D;
   const int64_t b = blockIdx.z;
   const int64_t bh = b * gridDim.y + blockIdx.y;
@@ -777,21 +808,21 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   // query tile j: Q and dO rows, and the tile's lse and D (one thread each)
   const auto load_queries = [&](int st, int j) {
     const int i0 = j * kRows;
-    Tl::load(sQ + st * Tl::kElems, qb, i0, T_len, a.ts, tid);
-    Tl::load(sG + st * Tl::kElems, gb, i0, T_len, a.o_ts, tid);
+    Tl::template load<D>(sQ + st * Tl::kElems, qb, i0, T_len, a.ts, tid);
+    Tl::template load<D>(sG + st * Tl::kElems, gb, i0, T_len, a.o_ts, tid);
     const int c = tid & (kRows - 1), i = i0 + c;
     const float* src = tid < kRows ? a.lse : a.delta;
     float* dst = (tid < kRows ? sL : sDq) + st * kRows + c;
     cp_async4(smem_u32(dst), src + bh * T_len + (i < T_len ? i : 0), i < T_len);
   };
 
-  Tl::load(sK, kb, k0, T_len, a.ts, tid);
-  Tl::load(sV, vb, k0, T_len, a.ts, tid);
+  Tl::template load<D>(sK, kb, k0, T_len, a.ts, tid);
+  Tl::template load<D>(sV, vb, k0, T_len, a.ts, tid);
   load_queries(0, 0);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  OwnRows<T, D> kf, vf;   // this warp's 16 keys of K and V
+  OwnRows<T, DP> kf, vf;  // this warp's 16 keys of K and V
   kf.load(sK, warp * 16, lane);
   vf.load(sV, warp * 16, lane);
   bool key_ok[2];
@@ -842,7 +873,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     if (!key_ok[r]) continue;
     const int64_t off = (int64_t)(k0 + warp * 16 + (lane >> 2) + 8 * r) * a.ts + (lane & 3) * 2;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+    for (int nb = 0; nb < NB_OUT; ++nb) {
       Tl::store2(dkb + off + nb * 8, dk[nb][2 * r] * a.scale, dk[nb][2 * r + 1] * a.scale);
       Tl::store2(dvb + off + nb * 8, dv[nb][2 * r], dv[nb][2 * r + 1]);
     }
@@ -854,21 +885,28 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
 // Dynamic shared memory of each kernel, in bytes: the forward's tiles (Q
 // and the K and V rings), the backward's (kBwdTiles) and its row values.
 template <typename T, int D>
-constexpr int kFwdSmem = (1 + 2 * kStages<T, D>) * kTileBytes<T, D>;
+constexpr int kFwdSmem = (1 + 2 * kStages<T, kPad<D>>) * kTileBytes<T, kPad<D>>;
 template <typename T, int D>
-constexpr int kDqSmem = kBwdTiles<T, D> * kTileBytes<T, D> + kRows * 4;
+constexpr int kDqSmem = kBwdTiles<T, kPad<D>> * kTileBytes<T, kPad<D>> + kRows * 4;
 template <typename T, int D>
-constexpr int kDkvSmem = kBwdTiles<T, D> * kTileBytes<T, D> + 4 * kRows * 4;
+constexpr int kDkvSmem = kBwdTiles<T, kPad<D>> * kTileBytes<T, kPad<D>> + 4 * kRows * 4;
 template <typename T, int D>
 constexpr bool kFits =
     kFwdSmem<T, D> <= kSmemLimit && kDqSmem<T, D> <= kSmemLimit && kDkvSmem<T, D> <= kSmemLimit;
-static_assert(kFits<float, 128> && kFits<float, 192> && kFits<bf16, 192>,
+static_assert(kFits<float, 128> && kFits<float, 192> && kFits<bf16, 192> && kFits<float, 24>,
               "every instantiation must fit one block's shared memory");
 
 bool bad_shape(int B, int H, int T_len, int D) {
-  return (D != 64 && D != 96 && D != 128 && D != 192) || B <= 0 || H <= 0 || T_len <= 0 ||
-         B > 65535 || H > 65535;
+  return (D != 24 && D != 64 && D != 96 && D != 128 && D != 192) || B <= 0 || H <= 0 ||
+         T_len <= 0 || H > 65535;
 }
+
+constexpr int kMaxGridZ = 65535;   // the grid's batch axis; a larger B launches in runs
+
+template <typename T>
+const void* shift(const void* p, int64_t n) { return static_cast<const T*>(p) + n; }
+template <typename T>
+void* shift(void* p, int64_t n) { return static_cast<T*>(p) + n; }
 
 // 16-byte copies: every pointer 16-byte aligned, every stride a multiple of
 // 16 bytes.
@@ -917,12 +955,18 @@ template <typename T, int D>
 int launch_fwd_d(const FwdArgs& f, cudaStream_t stream) {
   cudaError_t err = set_attributes<T, D>();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((f.T_len + kRows - 1) / kRows, f.H, f.B);
-  attention_fwd_kernel<T, D><<<grid, kThreads, kFwdSmem<T, D>, stream>>>(
-      static_cast<const T*>(f.q), static_cast<const T*>(f.k), static_cast<const T*>(f.v),
-      static_cast<T*>(f.o), f.lse, f.T_len, f.q_bs, f.q_ts, f.kv_bs, f.kv_ts, f.o_bs, f.o_ts,
-      f.scale * kLog2e);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < f.B; b0 += kMaxGridZ) {
+    const int nb = f.B - b0 < kMaxGridZ ? f.B - b0 : kMaxGridZ;
+    const dim3 grid((f.T_len + kRows - 1) / kRows, f.H, nb);
+    attention_fwd_kernel<T, D><<<grid, kThreads, kFwdSmem<T, D>, stream>>>(
+        static_cast<const T*>(f.q) + b0 * f.q_bs, static_cast<const T*>(f.k) + b0 * f.kv_bs,
+        static_cast<const T*>(f.v) + b0 * f.kv_bs, static_cast<T*>(f.o) + b0 * f.o_bs,
+        f.lse == nullptr ? nullptr : f.lse + (int64_t)b0 * f.H * f.T_len, f.T_len, f.q_bs,
+        f.q_ts, f.kv_bs, f.kv_ts, f.o_bs, f.o_ts, f.scale * kLog2e);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -935,6 +979,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
   const FwdArgs f{q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 24: return launch_fwd_d<T, 24>(f, s);
     case 64: return launch_fwd_d<T, 64>(f, s);
     case 96: return launch_fwd_d<T, 96>(f, s);
     case 128: return launch_fwd_d<T, 128>(f, s);
@@ -946,12 +991,22 @@ template <typename T, int D>
 int launch_bwd_d(const BwdArgs& a, int B, int H, cudaStream_t stream) {
   cudaError_t err = set_attributes<T, D>();
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.T_len + kRows - 1) / kRows * kColSplit<D>, H, B);
-  attention_bwd_dq_kernel<T, D><<<grid, kThreads, kDqSmem<T, D>, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  attention_bwd_dkv_kernel<T, D><<<grid, kThreads, kDkvSmem<T, D>, stream>>>(a);
-  return (int)cudaGetLastError();
+  for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
+    const int nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
+    const int64_t x0 = b0 * a.bs, o0 = b0 * a.o_bs, r0 = (int64_t)b0 * H * a.T_len;
+    const BwdArgs c{shift<T>(a.q, x0), shift<T>(a.k, x0), shift<T>(a.v, x0),
+                    shift<T>(a.o, o0), shift<T>(a.dout, o0), a.lse + r0, shift<T>(a.dq, x0),
+                    shift<T>(a.dk, x0), shift<T>(a.dv, x0), a.delta + r0, a.T_len, a.bs,
+                    a.ts, a.o_bs, a.o_ts, a.scale};
+    const dim3 grid((a.T_len + kRows - 1) / kRows * kColSplit<kPad<D>>, H, nb);
+    attention_bwd_dq_kernel<T, D><<<grid, kThreads, kDqSmem<T, D>, stream>>>(c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    attention_bwd_dkv_kernel<T, D><<<grid, kThreads, kDkvSmem<T, D>, stream>>>(c);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 template <typename T>
@@ -965,6 +1020,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, delta, T_len, bs, ts, o_bs, o_ts, scale};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 24: return launch_bwd_d<T, 24>(a, B, H, s);
     case 64: return launch_bwd_d<T, 64>(a, B, H, s);
     case 96: return launch_bwd_d<T, 96>(a, B, H, s);
     case 128: return launch_bwd_d<T, 128>(a, B, H, s);

@@ -11,8 +11,10 @@
 // Input x is (B, C*N, H, W) stored channels_last, that is (B, S = H*W, C*N)
 // in memory. Grid (cluster, B): block `rank` of example b's cluster owns the
 // contiguous run of rows [rank*rows, min(S, (rank+1)*rows)), each row C*N
-// channels. Thread t always sees the same VEC = 16/sizeof(T) channels
-// (blockDim is a multiple of C*N/VEC), so it sums x and x^2 for them in fp32
+// channels. Thread t always sees the same VEC = VB/sizeof(T) channels, one
+// vector of VB bytes: 16, or 8 for bf16 rows whose channels are a multiple
+// of 4 but not of 8 (84 = 12 x 7 in the 3D family), at half the bytes a
+// load (blockDim is a multiple of C*N/VEC), so it sums x and x^2 for them in fp32
 // registers; those sums reduce through shared memory in a fixed order to
 // channels, then to this block's per-group partials, which it publishes in
 // its shared memory. After a cluster barrier every block reads all peers'
@@ -35,6 +37,11 @@
 // where one block per example left 116 of the 132 SMs idle.
 // __launch_bounds__(512, 2) caps registers at 64 so that two blocks fit an
 // SM, which keeps enough loads in flight.
+//
+// The grid's example axis stops at 65,535 (the 3D family's time attention
+// normalises B*256 token sequences, 256,000 at fast_fid's batch of 1000): a
+// call with more examples launches once for each run of up to 65,535, on
+// pointers moved to the run (gn_fused, gn_fused_bwd below).
 //
 // The forward also writes the (B, 2, G) mean and rstd when given a pointer
 // for them, for gn_fused_bwd (below), the backward, which runs on a plan of
@@ -74,6 +81,14 @@ struct GnArgs {
   int act, gb_bf16, ss_bf16;
 };
 
+// A thread's vector of channels: 16 bytes (8 bf16 or 4 fp32 values), or
+// 8 bytes (4 bf16) where bf16's channels are a multiple of 4 but not of 8
+// (the 3D family's 84 folded channels); VB is its size in bytes.
+template <int VB> struct VecOf;
+template <> struct VecOf<16> { using type = uint4; };
+template <> struct VecOf<8> { using type = uint2; };
+template <int VB> using Vec = typename VecOf<VB>::type;
+
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
@@ -103,24 +118,24 @@ inline int64_t smem_layout(int threads, int vec, int CN, int G) {
   return 4 * ((int64_t)threads * vec + 2 * CN + 4 * G);
 }
 
-template <typename T>
-__device__ __forceinline__ void accumulate(const uint4& raw, float (&s1)[16 / sizeof(T)],
-                                           float (&s2)[16 / sizeof(T)]) {
+template <typename T, int VB>
+__device__ __forceinline__ void accumulate(const Vec<VB>& raw, float (&s1)[VB / sizeof(T)],
+                                           float (&s2)[VB / sizeof(T)]) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) {
+  for (int i = 0; i < (int)(VB / sizeof(T)); ++i) {
     const float v = to_f32(e[i]);
     s1[i] += v;
     s2[i] += v * v;
   }
 }
 
-template <typename T>
-__device__ __forceinline__ uint4 apply(uint4 raw, const float (&A)[16 / sizeof(T)],
-                                       const float (&Bc)[16 / sizeof(T)], int act) {
+template <typename T, int VB>
+__device__ __forceinline__ Vec<VB> apply(Vec<VB> raw, const float (&A)[VB / sizeof(T)],
+                                       const float (&Bc)[VB / sizeof(T)], int act) {
   T* e = reinterpret_cast<T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < (int)(16 / sizeof(T)); ++i) {
+  for (int i = 0; i < (int)(VB / sizeof(T)); ++i) {
     float v = fmaf(to_f32(e[i]), A[i], Bc[i]);
     if (act) v = v / (1.f + expf(-v));  // SiLU
     e[i] = from_f32<T>(v);
@@ -128,9 +143,9 @@ __device__ __forceinline__ uint4 apply(uint4 raw, const float (&A)[16 / sizeof(T
   return raw;
 }
 
-template <typename T>
+template <typename T, int VB>
 __global__ void __launch_bounds__(kMaxThreads, 2) gn_fused_kernel(const GnArgs a) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = VB / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -158,15 +173,15 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_fused_kernel(const GnArgs a
 #pragma unroll
   for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
   for (int rr = r0; rr < nrows; rr += kUnroll * rstep) {
-    uint4 raw[kUnroll];
+    Vec<VB> raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int r = rr + u * rstep;
-      raw[u] = r < nrows ? *reinterpret_cast<const uint4*>(xb + (int64_t)r * CN + oct * VEC)
-                         : make_uint4(0, 0, 0, 0);   // zeros add nothing
+      raw[u] = r < nrows ? *reinterpret_cast<const Vec<VB>*>(xb + (int64_t)r * CN + oct * VEC)
+                         : Vec<VB>{};   // zeros add nothing
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) accumulate<T>(raw[u], s1, s2);
+    for (int u = 0; u < kUnroll; ++u) accumulate<T, VB>(raw[u], s1, s2);
   }
 
   // per channel, then per group of this block, in a fixed order
@@ -241,18 +256,18 @@ __global__ void __launch_bounds__(kMaxThreads, 2) gn_fused_kernel(const GnArgs a
 
   // pass 2: read again (from L2), apply and store
   for (int rr = r0; rr < nrows; rr += kUnroll * rstep) {
-    uint4 raw[kUnroll];
+    Vec<VB> raw[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int r = rr + u * rstep;
-      if (r < nrows) raw[u] = *reinterpret_cast<const uint4*>(xb + (int64_t)r * CN + oct * VEC);
+      if (r < nrows) raw[u] = *reinterpret_cast<const Vec<VB>*>(xb + (int64_t)r * CN + oct * VEC);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int r = rr + u * rstep;
       if (r < nrows)
-        *reinterpret_cast<uint4*>(yb + (int64_t)r * CN + oct * VEC) =
-            apply<T>(raw[u], A, Bc, a.act);
+        *reinterpret_cast<Vec<VB>*>(yb + (int64_t)r * CN + oct * VEC) =
+            apply<T, VB>(raw[u], A, Bc, a.act);
     }
   }
   cluster_wait();   // no block leaves while a peer may still read its partials
@@ -384,9 +399,9 @@ __device__ __forceinline__ void channel_grads(const GnBwdArgs& a, int b, int c, 
 
 // The split route: the rows a block owns (chunk `run` of example b), and
 // this thread's channels' statistics and the forward's fold A*x + Bc.
-template <typename T>
+template <typename T, int VB>
 struct BwdRows {
-  static constexpr int VEC = 16 / sizeof(T);
+  static constexpr int VEC = VB / sizeof(T);
   int oct, r0, rstep, nrows;
   int64_t base;
   float rstd[VEC], nmr[VEC], A[VEC], Bc[VEC];   // nmr = -mean*rstd
@@ -432,13 +447,13 @@ struct BwdRows {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
     for (int rr = r0; rr < nrows; rr += kBwdUnroll * rstep) {
-      uint4 rx[kBwdUnroll], rg[kBwdUnroll];
+      Vec<VB> rx[kBwdUnroll], rg[kBwdUnroll];
 #pragma unroll
       for (int u = 0; u < kBwdUnroll; ++u) {
         const int r = rr + u * rstep;
         const int64_t off = (int64_t)r * a.CN;
-        rx[u] = r < nrows ? *reinterpret_cast<const uint4*>(xb + off) : make_uint4(0, 0, 0, 0);
-        rg[u] = r < nrows ? *reinterpret_cast<const uint4*>(gb + off) : make_uint4(0, 0, 0, 0);
+        rx[u] = r < nrows ? *reinterpret_cast<const Vec<VB>*>(xb + off) : Vec<VB>{};
+        rg[u] = r < nrows ? *reinterpret_cast<const Vec<VB>*>(gb + off) : Vec<VB>{};
       }
 #pragma unroll
       for (int u = 0; u < kBwdUnroll; ++u) {
@@ -485,13 +500,13 @@ struct BwdRows {
     const T* gb = static_cast<const T*>(a.dy) + base;
     T* dxb = static_cast<T*>(a.dx) + base;
     for (int rr = r0; rr < nrows; rr += kBwdUnroll * rstep) {
-      uint4 rx[kBwdUnroll], rg[kBwdUnroll];
+      Vec<VB> rx[kBwdUnroll], rg[kBwdUnroll];
 #pragma unroll
       for (int u = 0; u < kBwdUnroll; ++u) {
         const int r = rr + u * rstep;
         if (r < nrows) {
-          rx[u] = *reinterpret_cast<const uint4*>(xb + (int64_t)r * a.CN);
-          rg[u] = *reinterpret_cast<const uint4*>(gb + (int64_t)r * a.CN);
+          rx[u] = *reinterpret_cast<const Vec<VB>*>(xb + (int64_t)r * a.CN);
+          rg[u] = *reinterpret_cast<const Vec<VB>*>(gb + (int64_t)r * a.CN);
         }
       }
 #pragma unroll
@@ -500,7 +515,7 @@ struct BwdRows {
         if (r >= nrows) continue;
         const T* ex = reinterpret_cast<const T*>(&rx[u]);
         const T* eg = reinterpret_cast<const T*>(&rg[u]);
-        uint4 out;
+        Vec<VB> out;
         T* eo = reinterpret_cast<T*>(&out);
 #pragma unroll
         for (int i = 0; i < VEC; ++i) {
@@ -508,7 +523,7 @@ struct BwdRows {
           const float dz = grad_pre_act_fast(xv, to_f32(eg[i]), A[i], Bc[i], a.act);
           eo[i] = from_f32<T>(fmaf(k1[i], dz, fmaf(k2[i], fmaf(xv, rstd[i], nmr[i]), k0[i])));
         }
-        *reinterpret_cast<uint4*>(dxb + (int64_t)r * a.CN) = out;
+        *reinterpret_cast<Vec<VB>*>(dxb + (int64_t)r * a.CN) = out;
       }
     }
   }
@@ -555,9 +570,9 @@ __device__ __forceinline__ void sum_chunks(const float* src, int64_t stride, int
 }
 
 // The cluster route: one launch, grid (cluster, B).
-template <typename T>
+template <typename T, int VB>
 __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_cluster_kernel(const GnBwdArgs a) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = VB / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -611,13 +626,13 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_cluster_kernel(const Gn
 #pragma unroll
   for (int i = 0; i < VEC; ++i) s1[i] = s2[i] = 0.f;
   for (int rr = r0; rr < nrows; rr += kClusterUnroll * rstep) {
-    uint4 rx[kClusterUnroll], rg[kClusterUnroll];
+    Vec<VB> rx[kClusterUnroll], rg[kClusterUnroll];
 #pragma unroll
     for (int u = 0; u < kClusterUnroll; ++u) {
       const int r = rr + u * rstep;
       const int64_t off = (int64_t)r * CN + oct * VEC;
-      rx[u] = r < nrows ? *reinterpret_cast<const uint4*>(xb + off) : make_uint4(0, 0, 0, 0);
-      rg[u] = r < nrows ? *reinterpret_cast<const uint4*>(gb + off) : make_uint4(0, 0, 0, 0);
+      rx[u] = r < nrows ? *reinterpret_cast<const Vec<VB>*>(xb + off) : Vec<VB>{};
+      rg[u] = r < nrows ? *reinterpret_cast<const Vec<VB>*>(gb + off) : Vec<VB>{};
     }
 #pragma unroll
     for (int u = 0; u < kClusterUnroll; ++u) {
@@ -703,14 +718,14 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_cluster_kernel(const Gn
     m2[i] = gm[G + g];
   }
   for (int rr = r0; rr < nrows; rr += kClusterUnroll * rstep) {
-    uint4 rx[kClusterUnroll], rg[kClusterUnroll];
+    Vec<VB> rx[kClusterUnroll], rg[kClusterUnroll];
 #pragma unroll
     for (int u = 0; u < kClusterUnroll; ++u) {
       const int r = rr + u * rstep;
       const int64_t off = (int64_t)r * CN + oct * VEC;
       if (r < nrows) {
-        rx[u] = *reinterpret_cast<const uint4*>(xb + off);
-        rg[u] = *reinterpret_cast<const uint4*>(gb + off);
+        rx[u] = *reinterpret_cast<const Vec<VB>*>(xb + off);
+        rg[u] = *reinterpret_cast<const Vec<VB>*>(gb + off);
       }
     }
 #pragma unroll
@@ -719,7 +734,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_cluster_kernel(const Gn
       if (r >= nrows) continue;
       const T* ex = reinterpret_cast<const T*>(&rx[u]);
       const T* eg = reinterpret_cast<const T*>(&rg[u]);
-      uint4 out;
+      Vec<VB> out;
       T* eo = reinterpret_cast<T*>(&out);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) {
@@ -728,22 +743,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_cluster_kernel(const Gn
         const float xh = (xv - mean[i]) * rstd[i];
         eo[i] = from_f32<T>(rstd[i] * (ac[i] * dz - m1[i] - xh * m2[i]));
       }
-      *reinterpret_cast<uint4*>(dxb + (int64_t)r * CN + oct * VEC) = out;
+      *reinterpret_cast<Vec<VB>*>(dxb + (int64_t)r * CN + oct * VEC) = out;
     }
   }
   cluster_wait();   // no block leaves while a peer may still read its sums
 }
 
 // The split route's first launch, grid (chunks, B).
-template <typename T>
+template <typename T, int VB>
 __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_sums_kernel(const GnBwdArgs a) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = VB / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   const int chunk = blockIdx.x, b = blockIdx.y, chunks = gridDim.x;
   const int CN = a.CN, G = a.G;
   float* red = reinterpret_cast<float*>(smem);
   float* chan = red + blockDim.x * VEC;   // [2][CN]: this chunk's S1, S2
-  const BwdRows<T> w(a, chunk, b);
+  const BwdRows<T, VB> w(a, chunk, b);
   w.sums(a, red, chan);
   float* pc = a.part_c + ((int64_t)b * chunks + chunk) * 2 * CN;
   for (int c = threadIdx.x; c < 2 * CN; c += blockDim.x) pc[c] = chan[c];
@@ -755,9 +770,9 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_sums_kernel(const GnBwd
 }
 
 // The split route's second launch, grid (chunks, B), walked in reverse.
-template <typename T>
+template <typename T, int VB>
 __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_apply_kernel(const GnBwdArgs a) {
-  constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = VB / sizeof(T);
   extern __shared__ __align__(128) unsigned char smem[];
   const int chunks = gridDim.x;
   const int chunk = chunks - 1 - blockIdx.x, b = gridDim.y - 1 - blockIdx.y;
@@ -765,7 +780,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_apply_kernel(const GnBw
   float* red = reinterpret_cast<float*>(smem);   // scratch of the sums over chunks
   float* tot = red + blockDim.x * VEC + 2 * CN;  // [2][CN]: S1, S2 of this block's channels
   float* gm = tot + 2 * CN;                      // [2][G]: m1, m2
-  const BwdRows<T> w(a, chunk, b);
+  const BwdRows<T, VB> w(a, chunk, b);
 
   // the first launch's sums are complete and visible after this
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
@@ -788,19 +803,38 @@ __global__ void __launch_bounds__(kMaxThreads, 1) gn_bwd_apply_kernel(const GnBw
   w.dx(a, b, gm);
 }
 
-// dgamma[c] = sum_b sum_n part[b, c*N + n], dbeta likewise, in a fixed order.
-__global__ void gn_bwd_params_kernel(const float* __restrict__ part, float* __restrict__ dgb,
-                                     int B, int CN, int C, int N) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
+// dgamma[c] = sum_b sum_n part[b, c*N + n], dbeta likewise, in a fixed
+// order: block c, thread t sums the examples t, t + kParamThreads, ... (each
+// example's N frames in order), then the threads' sums meet in a fixed tree.
+// One thread a channel walking all B examples took ~1 ms at the 3D family's
+// B*256 = 4,096 examples of its time attention (PERF.md).
+constexpr int kParamThreads = 256;
+
+__global__ void __launch_bounds__(kParamThreads)
+gn_bwd_params_kernel(const float* __restrict__ part, float* __restrict__ dgb, int B, int CN,
+                     int C, int N) {
+  __shared__ float sg[kParamThreads], sb[kParamThreads];
+  const int c = blockIdx.x, t = threadIdx.x;
   float dg = 0.f, db = 0.f;
-  for (int b = 0; b < B; ++b)
+  for (int b = t; b < B; b += kParamThreads)
     for (int n = 0; n < N; ++n) {
       dg += part[(int64_t)b * 2 * CN + c * N + n];
       db += part[(int64_t)b * 2 * CN + CN + c * N + n];
     }
-  dgb[c] = dg;
-  dgb[C + c] = db;
+  sg[t] = dg;
+  sb[t] = db;
+  __syncthreads();
+  for (int h = kParamThreads / 2; h > 0; h >>= 1) {
+    if (t < h) {
+      sg[t] += sg[t + h];
+      sb[t] += sb[t + h];
+    }
+    __syncthreads();
+  }
+  if (t == 0) {
+    dgb[c] = sg[0];
+    dgb[C + c] = sb[0];
+  }
 }
 
 constexpr int kMaxDevices = 64;
@@ -819,11 +853,11 @@ cudaError_t opt_in(K kernel, bool (&done)[kMaxDevices]) {
   return err;
 }
 
-template <typename T>
+template <typename T, int VB>
 cudaError_t config(int B, int cluster, int threads, int smem, cudaStream_t stream,
                    cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   static bool done[kMaxDevices] = {};
-  cudaError_t err = opt_in(gn_fused_kernel<T>, done);
+  cudaError_t err = opt_in(gn_fused_kernel<T, VB>, done);
   if (err != cudaSuccess) return err;
   *cfg = cudaLaunchConfig_t{};
   cfg->gridDim = dim3(cluster, B);
@@ -839,68 +873,69 @@ cudaError_t config(int B, int cluster, int threads, int smem, cudaStream_t strea
   return cudaSuccess;
 }
 
-template <typename T>
+template <typename T, int VB>
 int launch(const GnArgs& a, int B, int cluster, int threads, int smem, void* stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = config<T>(B, cluster, threads, smem, (cudaStream_t)stream, &cfg, &attr);
+  cudaError_t err = config<T, VB>(B, cluster, threads, smem, (cudaStream_t)stream, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, gn_fused_kernel<T>, a);
+  err = cudaLaunchKernelEx(&cfg, gn_fused_kernel<T, VB>, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 // The backward: the cluster route's one launch, or the split route's sums
 // and then the dependent apply.
-template <typename T>
+template <typename T, int VB>
 int launch_bwd(const GnBwdArgs& a, int B, int blocks, int threads, int smem, bool split,
                void* stream) {
   static bool done[3][kMaxDevices] = {};
   cudaError_t err;
   if (!split) {
-    err = opt_in(gn_bwd_cluster_kernel<T>, done[0]);
+    err = opt_in(gn_bwd_cluster_kernel<T, VB>, done[0]);
     if (err != cudaSuccess) return (int)err;
     cudaLaunchConfig_t cfg;
     cudaLaunchAttribute attr;
-    err = config<T>(B, blocks, threads, smem, (cudaStream_t)stream, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, gn_bwd_cluster_kernel<T>, a);
+    err = config<T, VB>(B, blocks, threads, smem, (cudaStream_t)stream, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaLaunchKernelEx(&cfg, gn_bwd_cluster_kernel<T, VB>, a);
     return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
   }
-  err = opt_in(gn_bwd_sums_kernel<T>, done[1]);
-  if (err == cudaSuccess) err = opt_in(gn_bwd_apply_kernel<T>, done[2]);
+  err = opt_in(gn_bwd_sums_kernel<T, VB>, done[1]);
+  if (err == cudaSuccess) err = opt_in(gn_bwd_apply_kernel<T, VB>, done[2]);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(blocks, B);
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
-  err = cudaLaunchKernelEx(&cfg, gn_bwd_sums_kernel<T>, a);
+  err = cudaLaunchKernelEx(&cfg, gn_bwd_sums_kernel<T, VB>, a);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr{};
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gn_bwd_apply_kernel<T>, a);
+  err = cudaLaunchKernelEx(&cfg, gn_bwd_apply_kernel<T, VB>, a);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int VB>
 int max_clusters(int B, int cluster, int threads, int smem, int* out) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = config<T>(B, cluster, threads, smem, 0, &cfg, &attr);
+  cudaError_t err = config<T, VB>(B, cluster, threads, smem, 0, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveClusters(out, gn_fused_kernel<T>, &cfg);
+  return (int)cudaOccupancyMaxActiveClusters(out, gn_fused_kernel<T, VB>, &cfg);
 }
 
 // The plans' checks, against the kernels' own layouts: `blocks` row runs of
 // `rows` rows cover S with none empty (a cluster of at most 8, or any
-// number of chunks in the backward's split route).
-bool bad_plan(int bf16, int B, int S, int CN, int G, int N, int rows, int blocks,
+// number of chunks in the backward's split route); `vec` channels a vector
+// (8 bf16 or 4 fp32 in 16 bytes, or 4 bf16 in 8).
+bool bad_plan(int bf16, int vec, int B, int S, int CN, int G, int N, int rows, int blocks,
               int threads, int smem, bool bwd, bool split) {
-  const int vec = bf16 ? 8 : 4;
-  if (B <= 0 || B > 65535 || S <= 0 || CN <= 0 || G <= 0 || N <= 0 || rows <= 0 ||
+  if (vec != (bf16 ? 8 : 4) && !(bf16 && vec == 4)) return true;
+  if (B <= 0 || S <= 0 || CN <= 0 || G <= 0 || N <= 0 || rows <= 0 ||
       blocks < 1 || (!split && blocks > kMaxCluster) || CN % vec || CN % G || CN % N)
     return true;
   const int nv = CN / vec;
@@ -911,22 +946,43 @@ bool bad_plan(int bf16, int B, int S, int CN, int G, int N, int rows, int blocks
   return smem != want || smem > kSmemLimit;
 }
 
+// The grid's example axis (gridDim.y) stops at 65,535: a call with more
+// examples launches once for each run of up to that many, on pointers
+// moved to the run's first example.
+constexpr int kMaxGridY = 65535;
+
+const void* at(const void* p, int64_t bytes) {
+  return p == nullptr ? nullptr : static_cast<const char*>(p) + bytes;
+}
+void* at(void* p, int64_t bytes) {
+  return p == nullptr ? nullptr : static_cast<char*>(p) + bytes;
+}
+
 }  // namespace
 
 extern "C" {
 
 int gn_fused(const void* x, void* y, const void* gamma, const void* beta, const void* scale,
              const void* shift, float* stats, int64_t ss_stride, int gb_bf16, int ss_bf16,
-             int bf16, int B, int S, int CN, int G, int N, int rows, int cluster, int threads,
-             int smem, float eps, float n_per_group, int act, void* stream) {
-  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem, false, false) ||
+             int bf16, int vec, int B, int S, int CN, int G, int N, int rows, int cluster,
+             int threads, int smem, float eps, float n_per_group, int act, void* stream) {
+  if (bad_plan(bf16, vec, B, S, CN, G, N, rows, cluster, threads, smem, false, false) ||
       (uintptr_t)x % 16 || (uintptr_t)y % 16 || (gamma == nullptr) != (beta == nullptr) ||
       (scale == nullptr) != (shift == nullptr))
     return (int)cudaErrorInvalidValue;
-  const GnArgs a{x, y, gamma, beta, scale, shift, stats, ss_stride, S, CN, G, N, rows,
-                 eps, n_per_group, act, gb_bf16, ss_bf16};
-  return bf16 ? launch<__nv_bfloat16>(a, B, cluster, threads, smem, stream)
-              : launch<float>(a, B, cluster, threads, smem, stream);
+  const int64_t esz = bf16 ? 2 : 4, psz = ss_bf16 ? 2 : 4;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+    const int64_t xo = (int64_t)b0 * S * CN * esz, so = (int64_t)b0 * ss_stride * psz;
+    const GnArgs a{at(x, xo), at(y, xo), gamma, beta, at(scale, so), at(shift, so),
+                   stats == nullptr ? nullptr : stats + (int64_t)b0 * 2 * G, ss_stride, S,
+                   CN, G, N, rows, eps, n_per_group, act, gb_bf16, ss_bf16};
+    const int err = !bf16 ? launch<float, 16>(a, nb, cluster, threads, smem, stream)
+                    : vec == 8 ? launch<__nv_bfloat16, 16>(a, nb, cluster, threads, smem, stream)
+                               : launch<__nv_bfloat16, 8>(a, nb, cluster, threads, smem, stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // ws: fp32 workspace of B*P*2*(CN + G) + 4*B*CN + 2*C floats, P = blocks on
@@ -934,13 +990,14 @@ int gn_fused(const void* x, void* y, const void* gamma, const void* beta, const 
 // (B, P, 2, CN) and group sums (B, P, 2, G), [d_scale | d_shift] (B, 2CN),
 // the per-example parameter sums (B, 2CN), then [dgamma | dbeta] (2C).
 // `blocks` runs of `rows` rows per example: a cluster of at most 8, or the
-// split route's chunks. With gamma, a last small launch sums dgamma, dbeta.
+// split route's chunks. With gamma, a last small launch sums dgamma, dbeta
+// over all B examples.
 int gn_fused_bwd(const void* x, const void* dy, void* dx, const float* stats,
                  const void* gamma, const void* beta, const void* scale, const void* shift,
-                 int64_t ss_stride, int gb_bf16, int ss_bf16, int bf16, int B, int S, int CN,
-                 int G, int N, int rows, int blocks, int threads, int smem, int split,
+                 int64_t ss_stride, int gb_bf16, int ss_bf16, int bf16, int vec, int B, int S,
+                 int CN, int G, int N, int rows, int blocks, int threads, int smem, int split,
                  float n_per_group, int act, float* ws, int C, void* stream) {
-  if (bad_plan(bf16, B, S, CN, G, N, rows, blocks, threads, smem, true, split) ||
+  if (bad_plan(bf16, vec, B, S, CN, G, N, rows, blocks, threads, smem, true, split) ||
       (uintptr_t)x % 16 || (uintptr_t)dy % 16 || (uintptr_t)dx % 16 || stats == nullptr ||
       ws == nullptr || C * N != CN || (gamma == nullptr) != (beta == nullptr) ||
       (scale == nullptr) != (shift == nullptr))
@@ -951,22 +1008,34 @@ int gn_fused_bwd(const void* x, const void* dy, void* dx, const float* stats,
   float* d_ss = part_g + (int64_t)B * P * 2 * G;
   float* part = d_ss + (int64_t)2 * B * CN;
   float* dgb = part + (int64_t)2 * B * CN;
-  const GnBwdArgs a{x, dy, dx, stats, gamma, beta, scale, shift, ss_stride, S, CN, G, N,
-                    rows, n_per_group, act, gb_bf16, ss_bf16, part_c, part_g, d_ss, part};
-  int err = bf16 ? launch_bwd<__nv_bfloat16>(a, B, blocks, threads, smem, split, stream)
-                 : launch_bwd<float>(a, B, blocks, threads, smem, split, stream);
-  if (err != 0 || gamma == nullptr) return err;
-  gn_bwd_params_kernel<<<(C + 255) / 256, 256, 0, (cudaStream_t)stream>>>(part, dgb, B, CN,
-                                                                           C, N);
+  const int64_t esz = bf16 ? 2 : 4, psz = ss_bf16 ? 2 : 4;
+  for (int b0 = 0; b0 < B; b0 += kMaxGridY) {
+    const int nb = B - b0 < kMaxGridY ? B - b0 : kMaxGridY;
+    const int64_t xo = (int64_t)b0 * S * CN * esz, so = (int64_t)b0 * ss_stride * psz;
+    const GnBwdArgs a{at(x, xo), at(dy, xo), at(dx, xo), stats + (int64_t)b0 * 2 * G, gamma,
+                      beta, at(scale, so), at(shift, so), ss_stride, S, CN, G, N, rows,
+                      n_per_group, act, gb_bf16, ss_bf16, part_c + b0 * P * 2 * CN,
+                      part_g + b0 * P * 2 * G, d_ss + (int64_t)b0 * 2 * CN,
+                      part + (int64_t)b0 * 2 * CN};
+    const int err =
+        !bf16 ? launch_bwd<float, 16>(a, nb, blocks, threads, smem, split, stream)
+        : vec == 8 ? launch_bwd<__nv_bfloat16, 16>(a, nb, blocks, threads, smem, split, stream)
+                   : launch_bwd<__nv_bfloat16, 8>(a, nb, blocks, threads, smem, split, stream);
+    if (err != 0) return err;
+  }
+  if (gamma == nullptr) return 0;
+  gn_bwd_params_kernel<<<C, kParamThreads, 0, (cudaStream_t)stream>>>(part, dgb, B, CN, C, N);
   return (int)cudaGetLastError();
 }
 
-int gn_fused_max_active_clusters(int bf16, int B, int S, int CN, int G, int N, int rows,
-                                 int cluster, int threads, int smem, int* out) {
-  if (bad_plan(bf16, B, S, CN, G, N, rows, cluster, threads, smem, false, false))
+int gn_fused_max_active_clusters(int bf16, int vec, int B, int S, int CN, int G, int N,
+                                 int rows, int cluster, int threads, int smem, int* out) {
+  if (bad_plan(bf16, vec, B, S, CN, G, N, rows, cluster, threads, smem, false, false))
     return (int)cudaErrorInvalidValue;
-  return bf16 ? max_clusters<__nv_bfloat16>(B, cluster, threads, smem, out)
-              : max_clusters<float>(B, cluster, threads, smem, out);
+  const int nb = B < kMaxGridY ? B : kMaxGridY;
+  return !bf16 ? max_clusters<float, 16>(nb, cluster, threads, smem, out)
+         : vec == 8 ? max_clusters<__nv_bfloat16, 16>(nb, cluster, threads, smem, out)
+                    : max_clusters<__nv_bfloat16, 8>(nb, cluster, threads, smem, out);
 }
 
 }  // extern "C"

@@ -23,7 +23,6 @@ from math import ceil
 from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
-import scipy.stats as st
 import torch
 from torch.func import functional_call
 
@@ -240,6 +239,8 @@ def autoregressive_predict(config, block_sampler, params, cond, cond_mask,
 
 
 def _metric_stats(values: np.ndarray):
+    import scipy.stats as st   # here, not at the top: its import costs a CLI process ~2 s
+
     avg, std = float(values.mean()), float(values.std())
     sem = st.sem(values) if len(values) > 1 else 0.0
     if sem and sem > 0:
@@ -439,6 +440,8 @@ def run_video_gen(config, model, params, sched: DiffusionSchedule, test_loader,
             fvds = [frechet_distance(fake[t::preds_per_test], real_)
                     for t in range(preds_per_test)]
             mean, stdv = float(np.mean(fvds)), float(np.std(fvds))
+            import scipy.stats as st
+
             sem = st.sem(fvds)
             conf = mean - float(st.norm.interval(0.95, loc=mean, scale=sem)[0]) if sem > 0 else 0.0
             return avg_fvd, mean, stdv, conf

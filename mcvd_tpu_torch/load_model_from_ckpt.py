@@ -10,7 +10,10 @@ Two checkpoint forms are read:
     the state dict when model.ema is set (as upstream evaluates).
 `params` are the weights evaluation uses (the EMA where model.ema is set),
 also loaded into the model, as a state dict for `get_sampler`. The JAX
-package's Orbax checkpoints are not read (ROADMAP Queue 1 item 10).
+package's Orbax checkpoints come in through their export: on a host with
+jax and orbax, `tools/export_jax_checkpoint.py` writes one `.npz`; on any
+host, `python -m mcvd_tpu_torch.compat.jax_ckpt OUT.npz EXP/logs` turns it
+into the port's own checkpoints, which this reads.
 """
 
 from __future__ import annotations

@@ -5,7 +5,25 @@ import torch
 from ..device import DEFAULT_DEVICE, resolve_device
 from . import blocks, layers, resample
 from .layers import init_weights
-from .ncsnpp import NCSNpp, UNetMoreDDPM
+from .ncsnpp import ARCHS, NCSNpp, UNetMoreDDPM
+from .unet import UNetLegacy
+
+
+def build(config) -> torch.nn.Module:
+    """The module of `config.model.arch`, built with zeros (nothing drawn, on
+    the current default device): `unetmore`, `unetmore3d` and
+    `unetmorepseudo3d` build `UNetMoreDDPM`, `unet` the legacy `UNetLegacy`;
+    ncsn and ncsnv2 raise (ROADMAP Queue 1 item 12-left)."""
+    arch = getattr(config.model, "arch", "unetmore")
+    if arch in ARCHS:
+        return UNetMoreDDPM(config)
+    if arch == "unet":
+        return UNetLegacy(config)
+    if arch in ("ncsn", "ncsnv2"):
+        raise NotImplementedError(
+            f"arch {arch!r} not ported yet (ROADMAP Queue 1 item 12-left: ncsnv2)")
+    raise ValueError(f"arch not valid: {arch} (expected unet/unetmore/unetmore3d/"
+                     f"unetmorepseudo3d/ncsn/ncsnv2)")
 
 
 def get_model(config, *, generator: Optional[torch.Generator] = None,
@@ -13,17 +31,18 @@ def get_model(config, *, generator: Optional[torch.Generator] = None,
     """Build the model for `config.model.arch`, draw its weights from
     `generator` (a CPU generator seeded 0 when None) and move it to `device`
     (the card unless `device="cpu"`; raises without CUDA) with 4-D weights
-    channels_last. Only `unetmore` (2D) is ported."""
+    channels_last (`build` says which archs are ported)."""
     device = resolve_device(device, "get_model")
-    arch = getattr(config.model, "arch", "unetmore")
-    if arch != "unetmore":
-        raise NotImplementedError(
-            f"arch {arch!r} not ported yet (ROADMAP Queue 1 item 13: model variants)")
-    model = UNetMoreDDPM(config)
+    model = build(config)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     init_weights(model, generator)
-    return model.to(device=device, memory_format=torch.channels_last)
+    model.to(device=device)
+    for p in model.parameters():   # the 3D family's 5-D conv weights stay as they are
+        if p.ndim == 4:
+            p.data = p.data.contiguous(memory_format=torch.channels_last)
+    return model
 
 
-__all__ = ["NCSNpp", "UNetMoreDDPM", "get_model", "blocks", "layers", "resample"]
+__all__ = ["NCSNpp", "UNetLegacy", "UNetMoreDDPM", "build", "get_model", "blocks", "layers",
+           "resample"]

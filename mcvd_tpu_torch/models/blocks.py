@@ -4,8 +4,12 @@ AdaGN or SPADE conditioning, multi-head attention, FIR up/down resampling.
 
 Attribute names are upstream's (Conv_0, GroupNorm_0, NIN_0, Dense_0,
 actnorm0, Norm_0, mlp_shared.0, Conv2d_0, ...), so upstream state dicts load
-by name. The 3D/pseudo-3D conv families raise NotImplementedError: ROADMAP
-Queue 1 item 13 ports them.
+by name. The 3D and pseudo-3D families (`conv_mode` "3d", "pseudo3d") keep
+the frames folded into the channels channel-major (c*N + n, the JAX
+package's layout): their convs are `layers.Conv3d` and `layers.PseudoConv3d`
+(`make_convs`), their norms group the N copies of a channel together
+(`frames_last`), and their attention runs over space, then over time
+(`AttnBlock3d`), or over both at once (`AttnBlock3dFull`).
 """
 
 from __future__ import annotations
@@ -19,13 +23,10 @@ from torch import nn
 
 from .. import ops
 from . import resample
-from .layers import NIN, Conv2d, GroupNorm, Linear, UpDownConv2d, num_groups_for
+from .layers import (NIN, Conv2d, Conv3d, GroupNorm, Linear, PseudoConv3d, UpDownConv2d,
+                     nchw_unfold, nhwc_fold, num_groups_for)
 
-_LATER = "not ported yet (ROADMAP Queue 1 item 13: model variants)"
 FIR_KERNEL = (1, 3, 3, 1)
-
-# the DDPM-init 'same' conv; one class serves both names here
-Conv2dSame = Conv2d
 
 def nearest_resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Resize (B, C, H, W) to `size` by taking row floor(i*H/H_out) and
@@ -87,25 +88,119 @@ class AttnBlock(nn.Module):
         return (x + h) / math.sqrt(2.0)
 
 
+def make_convs(mode: str, n_frames: int, act: bool = True):
+    """(conv3x3, conv1x1) factories (in_planes, out_planes, init_scale=1.0)
+    of a conv family, planes counted folded (the JAX package's
+    `make_convs`): 2d `Conv2d`, 3d `layers.Conv3d`, pseudo3d
+    `layers.PseudoConv3d` with SiLU between its space and time convs where
+    `act`."""
+    if mode == "2d":
+        def conv(k):
+            return lambda i, o, init_scale=1.0: Conv2d(i, o, k, init_scale=init_scale)
+    elif mode == "3d":
+        def conv(k):
+            return lambda i, o, init_scale=1.0: Conv3d(i, o, k, n_frames,
+                                                       init_scale=init_scale)
+    elif mode == "pseudo3d":
+        def conv(k):
+            return lambda i, o, init_scale=1.0: PseudoConv3d(i, o, k, n_frames,
+                                                             init_scale=init_scale, act=act)
+    else:
+        raise ValueError(f"conv mode {mode!r} is not 2d, 3d or pseudo3d")
+    return conv(3), conv(1)
+
+
+def _tokens_as_image(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """(B, T, C) tokens, T = H*W, as a (B, C, H, W) channels_last image."""
+    return t.reshape(t.shape[0], H, W, t.shape[2]).permute(0, 3, 1, 2)
+
+
+class AttnBlock3d(nn.Module):
+    """Factorized attention over the folded layout (upstream layers3d.py
+    AttnBlockpp3d, the JAX package's `AttnBlock3d`): `space_att` over the
+    H*W tokens of each frame, then `time_att` over the N frames of each
+    pixel, each an `AttnBlock` on the true channels C."""
+
+    def __init__(self, channels: int, n_frames: int, init_scale: float = 0.0,
+                 n_head_channels: int = -1):
+        super().__init__()
+        self.n_frames = n_frames
+        C = channels // n_frames
+        self.space_att = AttnBlock(C, init_scale, n_head_channels=n_head_channels)
+        self.time_att = AttnBlock(C, init_scale, n_head_channels=n_head_channels)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        N = self.n_frames
+        f = nhwc_fold(x, N).permute(0, 4, 1, 2, 3)                    # (B, N, H, W, C)
+        C = f.shape[-1]
+        h = self.space_att(_tokens_as_image(f.reshape(B * N, H * W, C), H, W))
+        t = h.permute(0, 2, 3, 1).reshape(B, N, H, W, C).permute(0, 2, 3, 1, 4)
+        h = self.time_att(_tokens_as_image(t.reshape(B * H * W, N, C), N, 1))
+        return nchw_unfold(h.permute(0, 2, 3, 1).reshape(B, H, W, N, C).transpose(3, 4))
+
+
+class AttnBlock3dFull(nn.Module):
+    """Joint space-time attention over the folded layout (upstream
+    layers3d.py AttnBlockpp3d_old, the JAX package's `AttnBlock3dFull`): one
+    `AttnBlock` named `att` over all N*H*W tokens."""
+
+    def __init__(self, channels: int, n_frames: int, init_scale: float = 0.0,
+                 n_head_channels: int = -1):
+        super().__init__()
+        self.n_frames = n_frames
+        self.att = AttnBlock(channels // n_frames, init_scale, n_head_channels=n_head_channels)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        N = self.n_frames
+        f = nhwc_fold(x, N).permute(0, 4, 1, 2, 3)                    # (B, N, H, W, C)
+        h = self.att(_tokens_as_image(f.reshape(B, N * H * W, f.shape[-1]), N * H, W))
+        return nchw_unfold(h.permute(0, 2, 3, 1).reshape(B, N, H, W, -1)
+                           .permute(0, 2, 3, 4, 1))
+
+
 class MySPADE(nn.Module):
-    """Spatially adaptive normalization, 2D (upstream layerspp.py:101-173):
+    """Spatially adaptive normalization (upstream layerspp.py:101-173):
     GroupNorm without affine at eps 1e-6 (one `gn_fused` call with no
     affine, no AdaGN and no act), then gamma and beta predicted by convs
     over the cond frames resized to x's size: mlp_shared (conv 3x3 + SiLU),
     mlp_gamma and mlp_beta (conv 3x3); out = n*(1 + gamma) + beta. The
     spatial gamma/beta cannot fold into the kernel's per-channel A*x + B,
     so that tail is PyTorch elementwise code, as it is XLA code beside the
-    JAX package's norm."""
+    JAX package's norm.
 
-    def __init__(self, norm_nc: int, label_nc: int, spade_dim: int = 128):
+    3D family (`is3d`, N = `n_frames`): the norm groups each channel's N
+    frames; the segmap's `num_frames_cond` frames first map to N by
+    `converter`, a 1x1 conv of the model's family with the image channels
+    in the frame role (`conv1x1_cond`), and the mlp convs are the family's
+    (`conv3x3`) over spade_dim // N * N folded channels."""
+
+    def __init__(self, norm_nc: int, label_nc: int, spade_dim: int = 128,
+                 is3d: bool = False, n_frames: int = 1, num_frames_cond: int = 0,
+                 conv3x3=None, conv1x1_cond=None):
         super().__init__()
-        self.norm_nc = norm_nc
-        self.mlp_shared = nn.Sequential(Conv2d(label_nc, spade_dim, 3), nn.SiLU())
-        self.mlp_gamma = Conv2d(spade_dim, norm_nc, 3)
-        self.mlp_beta = Conv2d(spade_dim, norm_nc, 3)
+        self.norm_nc, self.is3d = norm_nc, is3d
+        N = n_frames if is3d else 1
+        self.n_frames, self.num_frames_cond = N, num_frames_cond
+        conv3x3 = conv3x3 or (lambda i, o: Conv2d(i, o, 3))
+        if is3d:
+            img_ch = label_nc // num_frames_cond
+            self.converter = conv1x1_cond(label_nc, img_ch * N)
+            label_nc = img_ch * N
+        hidden = spade_dim // N * N
+        self.mlp_shared = nn.Sequential(conv3x3(label_nc, hidden), nn.SiLU())
+        self.mlp_gamma = conv3x3(hidden, norm_nc * N)
+        self.mlp_beta = conv3x3(hidden, norm_nc * N)
 
     def forward(self, x, segmap):
-        normalized = ops.groupnorm.group_norm(x, num_groups_for(self.norm_nc), eps=1e-6)
+        N = self.n_frames
+        normalized = ops.groupnorm.group_norm(x, num_groups_for(self.norm_nc), eps=1e-6,
+                                              frames_last=N)
+        if self.is3d:   # (C_img, Nc) -> (Nc, C_img) fold, frames Nc -> N, back
+            seg = nchw_unfold(nhwc_fold(segmap, self.num_frames_cond).transpose(3, 4))
+            segmap = nchw_unfold(nhwc_fold(self.converter(seg), seg.shape[1] //
+                                           self.num_frames_cond).transpose(3, 4))
         actv = self.mlp_shared(nearest_resize(segmap, x.shape[2:]))
         gamma = self.mlp_gamma(actv)
         beta = self.mlp_beta(actv)
@@ -119,36 +214,49 @@ class ActNorm(nn.Module):
     (affine=False) at eps 1e-5, Dense_0(SiLU(emb)) -> (scale, shift),
     x*(1+scale)+shift; without, affine Norm_0 at eps 1e-5.
     spade: Norm_0 is `MySPADE` over `cond`; with emb the AdaGN
-    ·(1+scale)+shift follows it, then SiLU, in PyTorch elementwise code."""
+    ·(1+scale)+shift follows it, then SiLU, in PyTorch elementwise code.
+    3D family (`is3d`): `ch` counts folded channels, the norm groups each
+    true channel's `n_frames` copies, and gamma/beta and scale/shift are
+    per true channel, repeated over the frames."""
 
     def __init__(self, ch: int, emb_dim: Optional[int] = None, norm: str = "group",
-                 is3d: bool = False, cond_ch: int = 0, spade_dim: int = 128):
+                 is3d: bool = False, cond_ch: int = 0, spade_dim: int = 128,
+                 n_frames: int = 1, num_frames_cond: int = 0, conv3x3=None,
+                 conv1x1_cond=None):
         super().__init__()
         if norm not in ("group", "spade"):
             raise ValueError(f"ActNorm norm={norm!r} is not group or spade")
-        if is3d:
-            raise NotImplementedError(f"ActNorm over 3D frames: {_LATER}")
-        self.ch = ch
+        self.N = n_frames if is3d else 1
+        self.ch = ch // self.N    # true channels
         self.norm = norm
         if emb_dim is not None:
-            self.Dense_0 = Linear(emb_dim, 2 * ch)
+            self.Dense_0 = Linear(emb_dim, 2 * self.ch)
         if norm == "spade":
-            self.Norm_0 = MySPADE(ch, cond_ch, spade_dim)
+            self.Norm_0 = MySPADE(self.ch, cond_ch, spade_dim, is3d=is3d, n_frames=n_frames,
+                                  num_frames_cond=num_frames_cond, conv3x3=conv3x3,
+                                  conv1x1_cond=conv1x1_cond)
         elif emb_dim is None:
-            self.Norm_0 = GroupNorm(ch, eps=1e-5)
+            self.Norm_0 = GroupNorm(self.ch, eps=1e-5, frames_last=self.N)
+
+    def _scale_shift(self, emb):
+        scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+        if self.N > 1:
+            scale, shift = (t.repeat_interleave(self.N, dim=1) for t in (scale, shift))
+        return scale, shift
 
     def forward(self, x, emb=None, cond=None):
         if self.norm == "spade":
             h = self.Norm_0(x, cond)
             if emb is not None:
-                scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+                scale, shift = self._scale_shift(emb)
                 h = torch.addcmul(shift[:, :, None, None], h, 1 + scale[:, :, None, None])
             return F.silu(h)
         if emb is None:
             return self.Norm_0(x, act=True)
-        scale, shift = self.Dense_0(F.silu(emb)).chunk(2, dim=1)
+        scale, shift = self._scale_shift(emb)
         return ops.groupnorm.group_norm(
-            x, num_groups_for(self.ch), eps=1e-5, scale=scale, shift=shift, act=True)
+            x, num_groups_for(self.ch), eps=1e-5, scale=scale, shift=shift,
+            frames_last=self.N, act=True)
 
 
 class Upsample(nn.Module):
@@ -203,6 +311,20 @@ class Downsample(nn.Module):
         return self.Conv2d_0(x)
 
 
+def _norm_kwargs(conv_mode, norm, cond_ch, spade_dim, n_frames, num_frames_cond, conv3x3,
+                 act3d):
+    """`ActNorm`'s arguments in a resblock of `conv_mode` (the JAX blocks'
+    spade_kwargs: SPADE's converter is a 1x1 conv of the family with the
+    image channels as its frames)."""
+    kw = dict(norm=norm, cond_ch=cond_ch, spade_dim=spade_dim, is3d=conv_mode != "2d",
+              n_frames=n_frames)
+    if norm == "spade":
+        img_ch = cond_ch // max(num_frames_cond, 1)
+        kw.update(num_frames_cond=num_frames_cond, conv3x3=conv3x3,
+                  conv1x1_cond=make_convs(conv_mode, img_ch, act3d)[1])
+    return kw
+
+
 class ResnetBlockBigGAN(nn.Module):
     """actnorm0 -> [FIR (1,3,3,1) up/down] -> Conv_0 -> actnorm1 -> dropout
     -> Conv_1 (init 0) -> (+ Conv_2 1x1 shortcut) / sqrt(2)
@@ -216,19 +338,20 @@ class ResnetBlockBigGAN(nn.Module):
     def __init__(self, in_ch: int, out_ch: Optional[int] = None,
                  temb_dim: Optional[int] = None, up: bool = False, down: bool = False,
                  dropout: float = 0.1, init_scale: float = 0.0, conv_mode: str = "2d",
-                 norm: str = "group", cond_ch: int = 0, spade_dim: int = 128):
+                 norm: str = "group", cond_ch: int = 0, spade_dim: int = 128,
+                 n_frames: int = 1, num_frames_cond: int = 0, act3d: bool = True):
         super().__init__()
-        if conv_mode != "2d":
-            raise NotImplementedError(f"ResnetBlockBigGAN conv_mode={conv_mode!r}: {_LATER}")
         out_ch = out_ch or in_ch
         self.up, self.down = up, down
-        spade = dict(norm=norm, cond_ch=cond_ch, spade_dim=spade_dim)
-        self.actnorm0 = ActNorm(in_ch, temb_dim, **spade)
-        self.Conv_0 = Conv2dSame(in_ch, out_ch, 3)
-        self.actnorm1 = ActNorm(out_ch, temb_dim, **spade)
+        conv3x3, conv1x1 = make_convs(conv_mode, n_frames, act3d)
+        norm_kw = _norm_kwargs(conv_mode, norm, cond_ch, spade_dim, n_frames,
+                               num_frames_cond, conv3x3, act3d)
+        self.actnorm0 = ActNorm(in_ch, temb_dim, **norm_kw)
+        self.Conv_0 = conv3x3(in_ch, out_ch)
+        self.actnorm1 = ActNorm(out_ch, temb_dim, **norm_kw)
         self.Dropout_0 = nn.Dropout(dropout)
-        self.Conv_1 = Conv2dSame(out_ch, out_ch, 3, init_scale=init_scale)
-        self.Conv_2 = (Conv2dSame(in_ch, out_ch, 1)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale)
+        self.Conv_2 = (conv1x1(in_ch, out_ch)
                        if in_ch != out_ch or up or down else None)
 
     def forward(self, x, temb=None, cond=None, generator=None):
@@ -261,29 +384,36 @@ class ResnetBlockDDPM(nn.Module):
                  temb_dim: Optional[int] = None, conv_shortcut: bool = False,
                  dropout: float = 0.1, skip_rescale: bool = False, init_scale: float = 0.0,
                  conv_mode: str = "2d", norm: str = "group", cond_ch: int = 0,
-                 spade_dim: int = 128):
+                 spade_dim: int = 128, n_frames: int = 1, num_frames_cond: int = 0,
+                 act3d: bool = False):
         super().__init__()
-        if conv_mode != "2d":
-            raise NotImplementedError(f"ResnetBlockDDPM conv_mode={conv_mode!r}: {_LATER}")
         if norm not in ("group", "spade"):
             raise ValueError(f"ResnetBlockDDPM norm={norm!r} is not group or spade")
         out_ch = out_ch or in_ch
         self.spade = norm == "spade"
         self.skip_rescale = skip_rescale
+        conv3x3, _ = make_convs(conv_mode, n_frames, act3d)
+        N = n_frames if conv_mode != "2d" else 1
+        norm_kw = _norm_kwargs(conv_mode, norm, cond_ch, spade_dim, n_frames,
+                               num_frames_cond, conv3x3, act3d)
 
         def norm_layer(ch):
-            return MySPADE(ch, cond_ch, spade_dim) if self.spade else GroupNorm(ch, eps=1e-6)
+            if self.spade:
+                return MySPADE(ch // N, cond_ch, spade_dim, is3d=conv_mode != "2d",
+                               n_frames=n_frames, num_frames_cond=num_frames_cond,
+                               conv3x3=conv3x3, conv1x1_cond=norm_kw.get("conv1x1_cond"))
+            return GroupNorm(ch // N, eps=1e-6, frames_last=N)
 
         self.GroupNorm_0 = norm_layer(in_ch)
-        self.Conv_0 = Conv2dSame(in_ch, out_ch, 3)
+        self.Conv_0 = conv3x3(in_ch, out_ch)
         if temb_dim is not None:
             self.Dense_0 = Linear(temb_dim, out_ch)
         self.GroupNorm_1 = norm_layer(out_ch)
         self.Dropout_0 = nn.Dropout(dropout)
-        self.Conv_1 = Conv2dSame(out_ch, out_ch, 3, init_scale=init_scale)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale)
         if in_ch != out_ch:
             if conv_shortcut:
-                self.Conv_2 = Conv2dSame(in_ch, out_ch, 3)
+                self.Conv_2 = conv3x3(in_ch, out_ch)
             else:
                 self.NIN_0 = NIN(in_ch, out_ch)
 

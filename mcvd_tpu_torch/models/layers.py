@@ -121,15 +121,137 @@ class UpDownConv2d(nn.Module):
         return x
 
 
+class LegacyNin(nn.Module):
+    """The legacy UNet's per-pixel channel map on a channels-last tensor
+    (..., in) -> (..., out), `weights` (out, in) as upstream stores it
+    (upstream models/unet.py:49-58)."""
+
+    def __init__(self, in_ch: int, out_ch: int, init_scale: float = 1.0):
+        super().__init__()
+        self.weights = nn.Parameter(torch.zeros(out_ch, in_ch))
+        self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.init_scale = init_scale
+
+    def forward(self, x):
+        return torch.addmm(self.bias, x.reshape(-1, x.shape[-1]), self.weights.t()).view(
+            *x.shape[:-1], -1)
+
+
+# ------------------------------------------------- the 3D family's folded convs
+#
+# The 3D family folds N frames into the channel axis channel-major: channel
+# c*N + n of (B, C*N, H, W) is channel c of frame n (the JAX package's
+# `blocks.py` layout note). In channels_last memory that is (B, H, W, C, N).
+
+def nhwc_fold(x: torch.Tensor, N: int) -> torch.Tensor:
+    """(B, C*N, H, W) channel-major -> (B, H, W, C, N)."""
+    B, CN, H, W = x.shape
+    return x.permute(0, 2, 3, 1).reshape(B, H, W, CN // N, N)
+
+
+def nchw_unfold(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C, N) -> (B, C*N, H, W), stored channels_last."""
+    B, H, W, C, N = x.shape
+    return x.reshape(B, H, W, C * N).permute(0, 3, 1, 2)
+
+
+class _ZeroInit:
+    """A torch conv built with zeros (construction draws nothing), its
+    weights drawn later by `init_weights` at `init_scale`."""
+
+    def __init__(self, *args, init_scale: float = 1.0, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.init_scale = init_scale
+
+    def reset_parameters(self) -> None:
+        nn.init.zeros_(self.weight)
+        nn.init.zeros_(self.bias)
+
+
+class _Conv3d(_ZeroInit, nn.Conv3d):
+    pass
+
+
+class _Conv1d(_ZeroInit, nn.Conv1d):
+    pass
+
+
+class Conv3d(nn.Module):
+    """True 3D conv over the folded frames (upstream layers3d.py MyConv3d,
+    the JAX package's `Conv3dFolded`): (B, Cin*N, H, W) -> (B, Cout*N, H, W),
+    'same' padding; `conv` is the nn.Conv3d, weight (O, I, kd, kh, kw), as
+    upstream names it."""
+
+    def __init__(self, in_planes: int, out_planes: int, kernel: int, n_frames: int, *,
+                 init_scale: float = 1.0):
+        super().__init__()
+        self.n_frames = n_frames
+        self.conv = _Conv3d(in_planes // n_frames, out_planes // n_frames, kernel,
+                            padding=kernel // 2, init_scale=init_scale)
+
+    def forward(self, x):
+        x5 = nhwc_fold(x, self.n_frames).permute(0, 3, 4, 1, 2)   # (B, C, N, H, W)
+        y = self.conv(x5.contiguous(memory_format=torch.channels_last_3d))
+        return nchw_unfold(y.permute(0, 3, 4, 1, 2))
+
+
+class PseudoConv3d(nn.Module):
+    """Factorized 3D conv (upstream layers3d.py PseudoConv3d, the JAX
+    package's `PseudoConv3dFolded`): `space_conv` (Conv2d) on each frame,
+    SiLU where `act`, then `time_conv` (Conv1d, weight (O, I, k)) along the
+    frames of each pixel."""
+
+    def __init__(self, in_planes: int, out_planes: int, kernel: int, n_frames: int, *,
+                 init_scale: float = 1.0, act: bool = True):
+        super().__init__()
+        self.n_frames, self.act = n_frames, act
+        cin, cout = in_planes // n_frames, out_planes // n_frames
+        self.space_conv = Conv2d(cin, cout, kernel, init_scale=init_scale)
+        self.time_conv = _Conv1d(cout, cout, kernel, padding=kernel // 2,
+                                 init_scale=init_scale)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        N = self.n_frames
+        f = nhwc_fold(x, N).permute(0, 4, 1, 2, 3)                 # (B, N, H, W, C)
+        h = self.space_conv(f.reshape(B * N, H, W, -1).permute(0, 3, 1, 2))
+        if self.act:
+            h = F.silu(h)
+        C = h.shape[1]
+        t = h.permute(0, 2, 3, 1).reshape(B, N, H, W, C).permute(0, 2, 3, 4, 1)
+        t = self.time_conv(t.reshape(B * H * W, C, N))             # (B*H*W, C, N)
+        return nchw_unfold(t.reshape(B, H, W, C, N))
+
+
+class FrameConverter(nn.Module):
+    """1x1 map over the frame axis, (B, C*Nin, H, W) -> (B, C*Nout, H, W)
+    (upstream's conv1x1 frame converters, ncsnpp_more.py:215-218, 327-334):
+    `weight` (Nout, Nin, 1, 1) and `bias` (Nout,) as upstream stores them."""
+
+    def __init__(self, n_in: int, n_out: int, init_scale: float = 1.0):
+        super().__init__()
+        self.n_in = n_in
+        self.weight = nn.Parameter(torch.zeros(n_out, n_in, 1, 1))
+        self.bias = nn.Parameter(torch.zeros(n_out))
+        self.init_scale = init_scale
+
+    def forward(self, x):
+        f = nhwc_fold(x, self.n_in)
+        return nchw_unfold(torch.matmul(f, self.weight[:, :, 0, 0].t()) + self.bias)
+
+
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight of `module` in `modules()` order from `generator`
     (CPU). Biases and GroupNorm shifts are zero, GroupNorm scales one, the
     cond-mask embedding N(0, 1)."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear, UpDownConv2d)):
+        if isinstance(m, (Conv2d, Linear, UpDownConv2d, FrameConverter, _ZeroInit)):
             default_init_(m.weight, m.init_scale, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
+        elif isinstance(m, LegacyNin):
+            default_init_(m.weights, m.init_scale, generator)
+            nn.init.zeros_(m.bias)
         elif isinstance(m, NIN):
             default_init_(m.W, m.init_scale, generator, in_out=True)
             nn.init.zeros_(m.b)
@@ -206,17 +328,22 @@ def group_norm_folded(
 
 class GroupNorm(nn.Module):
     """Affine GroupNorm over NCHW with an optional fused SiLU, through the
-    GroupNorm kernel (`ops.groupnorm.group_norm`). (The AdaGN norms have no
+    GroupNorm kernel (`ops.groupnorm.group_norm`): `num_groups` groups
+    (`num_groups_for(channels)` by default) over `channels` true channels,
+    each folded `frames_last` times channel-major. (The AdaGN norms have no
     affine and call the kernel directly, from `blocks.ActNorm`.)"""
 
-    def __init__(self, channels: int, eps: float = 1e-6):
+    def __init__(self, channels: int, eps: float = 1e-6, num_groups: Optional[int] = None,
+                 frames_last: int = 1):
         super().__init__()
         self.channels = channels
         self.eps = eps
+        self.num_groups = num_groups or num_groups_for(channels)
+        self.frames_last = frames_last
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x, act: bool = False):
         return ops.groupnorm.group_norm(
-            x, num_groups_for(self.channels), eps=self.eps, gamma=self.weight,
-            beta=self.bias, act=act)
+            x, self.num_groups, eps=self.eps, gamma=self.weight, beta=self.bias,
+            frames_last=self.frames_last, act=act)

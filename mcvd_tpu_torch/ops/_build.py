@@ -112,15 +112,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn.restype = i
     # x, y, gamma, beta, scale, shift, stats, ss_stride, gb_bf16, ss_bf16, bf16, B,
     # S, CN, G, N, rows, cluster, threads, smem, eps, n_per_group, act, stream
-    lib.gn_fused.argtypes = [p, p, p, p, p, p, p, i64, *[i] * 12, f, f, i, p]
+    lib.gn_fused.argtypes = [p, p, p, p, p, p, p, i64, *[i] * 13, f, f, i, p]
     lib.gn_fused.restype = i
     # x, dy, dx, stats, gamma, beta, scale, shift, ss_stride, gb_bf16, ss_bf16,
     # bf16, B, S, CN, G, N, rows, blocks, threads, smem, split, n_per_group, act,
     # ws, C, stream
-    lib.gn_fused_bwd.argtypes = [p] * 8 + [i64, *[i] * 13, f, i, p, i, p]
+    lib.gn_fused_bwd.argtypes = [p] * 8 + [i64, *[i] * 14, f, i, p, i, p]
     lib.gn_fused_bwd.restype = i
     # bf16, B, S, CN, G, N, rows, cluster, threads, smem, out
-    lib.gn_fused_max_active_clusters.argtypes = [*[i] * 10, ctypes.POINTER(i)]
+    lib.gn_fused_max_active_clusters.argtypes = [*[i] * 11, ctypes.POINTER(i)]
     lib.gn_fused_max_active_clusters.restype = i
     lib.mcvd_cuda_error_string.argtypes = [i]
     lib.mcvd_cuda_error_string.restype = ctypes.c_char_p

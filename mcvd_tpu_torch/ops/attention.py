@@ -18,15 +18,19 @@ its arithmetic on the CPU). fp32 (m16n8k8) runs 3xTF32: each operand is
 split into two tf32 parts and a product takes three tf32 products, which
 keeps ~21-22 bits of each (fp32-class, not TF32; `tf32_split` and
 `tf32x3_matmul` emulate it). Scores and softmax are fp32 on both (online
-softmax over key tiles). Head dims 64, 96, 128 and 192 (`SUPPORTED_HEAD_DIMS`,
-one instantiation of each kernel per dim; at 192 each backward block owns
-half of the output columns, and fp32 walks its tiles through one stage of
-shared memory, neither of which changes the arithmetic, so the emulations
-below hold at every dim); other head dims raise on a CUDA
-tensor, and so do pointers or strides that are not 16-byte aligned (the
-kernels copy 16-byte chunks). The T>2048 einsum fallback of the Pallas
-version is not carried over: the kernel tiles keys and has no length
-limit.
+softmax over key tiles). Head dims 24, 64, 96, 128 and 192
+(`SUPPORTED_HEAD_DIMS`, one instantiation of each kernel per dim; at 192
+each backward block owns half of the output columns, and fp32 walks its
+tiles through one stage of shared memory; at 24 the tiles are 32 wide with
+the pad zero-filled in shared memory and never read from q, k or v, whose
+packed rows put k's first column right after q's last; none of which
+changes the arithmetic, so the emulations below hold at every dim); other
+head dims raise on a CUDA tensor, and so do pointers or strides that are
+not 16-byte aligned (the kernels copy 16-byte chunks). The T>2048 einsum
+fallback of the Pallas version is not carried over: the kernel tiles keys
+and has no length limit. A sequence shorter than 64 tokens (the 3D
+family's time attention over 7 or 2 frames) takes one tile with its rows
+past T masked, and a batch past the grid's 65,535 launches in runs.
 
 Gradients: when autograd needs them the entry points run through
 `torch.autograd.Function`s. On the card the forward also writes each row's
@@ -54,12 +58,23 @@ import torch
 
 from . import count_launch, use_kernel
 
-SUPPORTED_HEAD_DIMS = (64, 96, 128, 192)
+SUPPORTED_HEAD_DIMS = (24, 64, 96, 128, 192)
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_KEYS_PER_TILE = 64
 # bf16's unit roundoff: rounding p to bf16 moves sum_j p_j v_j / l by at
 # most 2^-8 * sum_j p_j |v_j| / l (l sums the unrounded p).
 BF16_P_ROUNDOFF = 2.0 ** -8
+_LOG2E = 1.4426950408889634
+_LN2 = 0.6931471805599453
+# The bf16 kernels' fp32 values against their emulations' (which take each
+# product and row sum in fp64 and round it once): a depth-n sum or dot
+# product of the kernel within n * U32 of the sum of its terms' magnitudes
+# (U32 = 2^-23, a whole ulp a term: the tensor cores' fp32 accumulation may
+# truncate), a product, scaling or difference of the two within U32 of its
+# magnitude, and exp2 (CUDA's exp2f and torch's, 2 ulp each) within
+# EXP2_REL of its value.
+U32 = 2.0 ** -23
+EXP2_REL = 2.0 ** -21
 
 
 def attention_reference(q, k, v, scale: float):
@@ -70,61 +85,80 @@ def attention_reference(q, k, v, scale: float):
     return torch.matmul(p, v.float()).to(q.dtype)
 
 
+def _mm64(a, b):
+    """a @ b^T on (BH, T, n), taken in fp64 and rounded once to fp32."""
+    return torch.matmul(a.double(), b.double().transpose(-1, -2)).float()
+
+
+def _tc_tiles(qf, kf, scale: float):
+    """The bf16 forward's softmax tile by tile, on fp32 (BH, T, D) q and k:
+    for each tile of 64 keys, (n0, alpha, p, t, m) with t the scores scaled
+    by scale*log2(e), m the running max after the tile, p = exp2(t - m) the
+    values the kernel rounds to bf16, and alpha = exp2(m_before - m)."""
+    BH, T, _ = qf.shape
+    m = torch.full((BH, T, 1), float("-inf"), device=qf.device)
+    for n0 in range(0, T, TC_KEYS_PER_TILE):
+        t = _mm64(qf, kf[:, n0:n0 + TC_KEYS_PER_TILE]) * (scale * _LOG2E)
+        m_new = torch.maximum(m, t.amax(-1, keepdim=True))
+        yield n0, torch.exp2(m - m_new), torch.exp2(t - m_new), t, m_new
+        m = m_new
+
+
 def attention_tc_emulation(q, k, v, scale: float, want_lse: bool = False):
     """The bf16 kernel's arithmetic in plain torch on (BH, T, D), for the
-    tests: per tile of 64 keys, fp32 scores scaled by scale*log2(e), a
+    tests: per tile of 64 keys, fp32 scores (each rounded once from fp64)
+    scaled by scale*log2(e), a
     running max m and sum l of exp2(s - m) in fp32, p rounded to bf16 before
     the PV product with fp32 accumulation; o = acc / l rounded once. With
     `want_lse`, also the (BH, T) logsumexp the kernel writes,
     (m + log2 l) * ln 2."""
-    log2e = 1.4426950408889634
     qf, kf, vf = q.float(), k.float(), v.float()
     BH, T, D = q.shape
-    m = torch.full((BH, T, 1), float("-inf"), device=q.device)
     l = torch.zeros(BH, T, 1, device=q.device)
     acc = torch.zeros(BH, T, D, device=q.device)
-    for n0 in range(0, T, TC_KEYS_PER_TILE):
-        s = torch.matmul(qf, kf[:, n0:n0 + TC_KEYS_PER_TILE].transpose(-1, -2))
-        s = s * (scale * log2e)
-        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
-        alpha = torch.exp2(m - m_new)
-        p = torch.exp2(s - m_new)
+    for n0, alpha, p, _, m in _tc_tiles(qf, kf, scale):
         l = l * alpha + p.sum(-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(),
                                          vf[:, n0:n0 + TC_KEYS_PER_TILE])
-        m = m_new
     o = (acc * (1.0 / l)).to(q.dtype)
     if want_lse:
-        return o, ((m + torch.log2(l)) * 0.6931471805599453).squeeze(-1)
+        return o, ((m + torch.log2(l)) * _LN2).squeeze(-1)
     return o
+
+
+def _tc_bwd_terms(q, k, v, g, scale: float, o, lse):
+    """The bf16 backward kernels' fp32 terms on (BH, T, D), from the
+    forward's output o and logsumexp lse (BH, T), each product and row sum
+    taken in fp64 and rounded once: the scaled scores
+    t = s * scale*log2(e) and p = exp2(t - lse*log2(e)), dp = g v^T, the dq
+    launch's row term D = rowsum(g * o) and ds = p (dp - D), the dk/dv
+    launch's D' = rowsum(p * dp) and ds' = p (dp - D')."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    D = (gf.double() * o.double()).sum(-1, keepdim=True).float()
+    t = _mm64(qf, kf) * (scale * _LOG2E)
+    p = torch.exp2(t - lse.float().reshape(D.shape) * _LOG2E)
+    dp = _mm64(gf, vf)
+    D1 = (p.double() * dp.double()).sum(-1, keepdim=True).float()
+    return dict(t=t, p=p, dp=dp, D=D, ds=p * (dp - D), D1=D1, ds1=p * (dp - D1))
 
 
 def attention_bwd_tc_emulation(q, k, v, g, scale: float, o=None, lse=None):
     """The bf16 backward kernels' arithmetic in plain torch on (BH, T, D),
     for the tests: (dq, dk, dv) in q's dtype. From the forward's output o and
-    logsumexp lse (by default `attention_tc_emulation`'s):
-    p = exp2(s * scale*log2(e) - lse*log2(e)) and dp = g v^T in fp32; the dq
-    launch takes the row term D = rowsum(g * o), the dk/dv launch the one the
-    dq launch sums from its own p and dp, D' = rowsum(p * dp); ds = p (dp - D)
-    and ds' = p (dp - D') and p^T are rounded to bf16 as the operands of
+    logsumexp lse (by default `attention_tc_emulation`'s), the terms of
+    `_tc_bwd_terms`: ds, ds' and p^T are rounded to bf16 as the operands of
     dq = ds k, dk = ds'^T q and dv = p^T g (fp32 accumulation); dq and dk
     scaled; each gradient rounded once."""
-    log2e = 1.4426950408889634
     if o is None or lse is None:
         o, lse = attention_tc_emulation(q, k, v, scale, want_lse=True)
-    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
-    D = (gf * o.float()).sum(-1, keepdim=True)
-    s = torch.matmul(qf, kf.transpose(-1, -2))
-    p = torch.exp2(s * (scale * log2e) - lse.float().reshape(D.shape) * log2e)
-    dp = torch.matmul(gf, vf.transpose(-1, -2))
-    D1 = (p * dp).sum(-1, keepdim=True)
+    f = _tc_bwd_terms(q, k, v, g, scale, o, lse)
 
     def bf(t):
         return t.to(torch.bfloat16).float()
 
-    dq = torch.matmul(bf(p * (dp - D)), kf) * scale
-    dk = torch.matmul(bf(p * (dp - D1)).transpose(-1, -2), qf) * scale
-    dv = torch.matmul(bf(p).transpose(-1, -2), gf)
+    dq = torch.matmul(bf(f["ds"]), k.float()) * scale
+    dk = torch.matmul(bf(f["ds1"]).transpose(-1, -2), q.float()) * scale
+    dv = torch.matmul(bf(f["p"]).transpose(-1, -2), g.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -179,6 +213,64 @@ def abs_v_weights(qkv, n_heads: int, scale: float):
     return attention_packed_reference(qkv, n_heads, scale)
 
 
+def bf16_flip(x, window):
+    """The step between fp32 x's two bf16 neighbours (2^-7 to 2^-8 of |x|)
+    where x lies within `window` (per element) of the midpoint between
+    them, else 0: only there may a second computation of x, off by at most
+    `window`, round to the other neighbour, and it then moves by that
+    step."""
+    bits = x.float().contiguous().view(torch.int32)
+    mid = ((bits & -0x10000) | 0x8000).view(torch.float32)
+    step = (bits & 0x7F800000).view(torch.float32) * 2.0 ** -7
+    return torch.where((x - mid).abs() <= window, step, torch.zeros_like(step))
+
+
+def _dot_err(a, b):
+    """How far the kernel's fp32 a @ b^T on (BH, T, n) may lie from the
+    emulation's (`_mm64`): n * U32 * |a| @ |b|^T."""
+    return a.shape[-1] * U32 * torch.matmul(a.abs(), b.abs().transpose(-1, -2))
+
+
+def _heads_f32(t, n_heads):
+    """(B, T, h*d) -> (B*h, T, d) in fp32."""
+    B, T, C = t.shape
+    d = C // n_heads
+    return t.float().reshape(B, T, n_heads, d).transpose(1, 2).reshape(B * n_heads, T, d)
+
+
+def _packed(t, B):
+    """(B*h, T, d) -> (B, T, h*d)."""
+    BH, T, d = t.shape
+    return t.reshape(B, BH // B, T, d).transpose(1, 2).reshape(B, T, BH // B * d)
+
+
+def _fwd_flips(q, k, v, scale: float):
+    """sum_j (step_j / p_j) P_j |v_j| per output on fp32 (BH, T, D), over
+    the keys j whose p the emulation (`_tc_tiles`, the same computation on
+    the same fp32 q and k, so the same bits) finds within reach of a bf16
+    midpoint (`bf16_flip`; step_j the flip, P the softmax): the kernel's t
+    lies within e = `_dot_err` * scale*log2(e) + 2 U32 |t| of the
+    emulation's, its running max within the largest e of the keys seen that
+    lie within twice the row's largest e of that max, t - m within
+    U32 |t - m| more, so its p = exp2(t - m) within ln 2 times their sum
+    plus EXP2_REL of p, relative; a p so far from every midpoint rounds as
+    the emulation's, and one that flips moves the output by step_j / p_j
+    of its share P_j v_j."""
+    t_all = torch.matmul(q, k.transpose(-1, -2)) * (scale * _LOG2E)
+    e = _dot_err(q, k) * (scale * _LOG2E) + 2 * U32 * t_all.abs()
+    reach = 2 * e.amax(-1, keepdim=True)
+    rel_flip = []
+    for n0, _, p, t, m in _tc_tiles(q, k, scale):
+        # the running max moves by at most the e of a key that may be the max
+        seen = slice(0, n0 + TC_KEYS_PER_TILE)
+        e_m = torch.where(t_all[..., seen] >= m - reach, e[..., seen],
+                          torch.zeros_like(t)[..., :1]).amax(-1, keepdim=True)
+        rel = _LN2 * (e[..., n0:n0 + TC_KEYS_PER_TILE] + e_m + U32 * (t - m).abs()) + EXP2_REL
+        rel_flip.append(bf16_flip(p, rel * p) / p.clamp_min(torch.finfo(p.dtype).tiny))
+    P = torch.softmax(t_all * _LN2, dim=-1)
+    return torch.matmul(P * torch.cat(rel_flip, dim=-1), v.abs())
+
+
 def bf16_tolerances(qkv, n_heads: int, scale: float) -> dict:
     """(atol per output, rtol) of the bf16 route on packed qkv, with
     w = `abs_v_weights`:
@@ -187,18 +279,62 @@ def bf16_tolerances(qkv, n_heads: int, scale: float) -> dict:
       for the fp32 sums); both sides then round once: two bf16 steps
       relative;
     - "emulation", against `attention_tc_emulation`, the same arithmetic in
-      torch: the fp32 scores differ in summation order only (~1e-6
-      relative), so a p rounds to another bf16 value only that close to a
-      rounding midpoint (under 0.1% of them), by one step (2^-7 p); 2^-10 * w
-      lets an eighth of a row's weight do so. rtol as for "plain": the
-      output's one rounding step, plus one for a flipped p of a key that
-      carries the row."""
+      torch: the fp32 sums differ in order only, so a p rounds to another
+      bf16 value only that close to a rounding midpoint, by one step
+      (2^-7 p). "emulation_no_flip", 2^-10 * w, lets an eighth of a row's
+      weight do so: the bound of the long rows. "emulation" is the larger
+      of that and the whole flip of every key whose p lies within reach of
+      a midpoint (`_fwd_flips`, 1% slack) plus the fp32 sums' own spread
+      (2 T U32 w): so it is the old bound wherever the flips stay under it,
+      and only where they do not (at the 3D family's 7-key rows one such
+      key may carry most of a row whose output cancels to near 0) the
+      flips. rtol as for "plain": the output's one rounding step, plus one
+      for a flipped p of a key that carries the row."""
+    B, C = qkv.shape[0], qkv.shape[-1] // 3
     w = abs_v_weights(qkv, n_heads, scale)
+    q, k, v = (_heads_f32(t, n_heads) for t in qkv.split(C, dim=-1))
+    old = 2.0 ** -10 * w
+    flips = _packed(1.01 * _fwd_flips(q, k, v, scale), B) + 2 * q.shape[1] * U32 * w
     return {"plain": (1.01 * BF16_P_ROUNDOFF * w, 1.6e-2),
-            "emulation": (2.0 ** -10 * w, 1.6e-2)}
+            "emulation": (torch.maximum(old, flips), 1.6e-2),
+            "emulation_no_flip": (old, 1.6e-2)}
 
 
-def bf16_bwd_tolerances(qkv, g, n_heads: int, scale: float) -> dict:
+def _bwd_flips(q, k, v, g, scale: float, o, lse):
+    """(dq, dk, dv) flips on fp32 (BH, T, D), as `_fwd_flips` for the
+    backward: with f the flips (`bf16_flip`) of the p, ds and ds' of
+    `_tc_bwd_terms`, scale * sum_j f(ds_ij) |k_j| (dq), scale * sum_i
+    f(ds'_ij) |q_i| (dk) and sum_i f(p_ij) |g_i| (dv). Reach: p = exp2(t - L)
+    (L = lse*log2(e)) within
+    rel = ln 2 (`_dot_err`(q, k) * scale*log2(e) + U32 (2 |t| + |t - L| + |L|))
+    + EXP2_REL of itself; dp = g v^T within e_dp = `_dot_err`(g, v); D
+    within e_D = D U32 sum |g||o|; D' within e_D' = sum_j (rel p |dp| +
+    p e_dp) + T U32 sum_j p |dp|; ds = p (dp - D) within rel |ds| +
+    p (e_dp + e_D + U32 |dp - D|) + U32 |ds|, and ds' alike."""
+    f = _tc_bwd_terms(q, k, v, g, scale, o, lse)
+    t, p, dp = f["t"], f["p"], f["dp"]
+    L = lse.float().reshape(f["D"].shape) * _LOG2E
+    rel = _LN2 * (_dot_err(q, k) * (scale * _LOG2E)
+                  + U32 * (2 * t.abs() + (t - L).abs() + L.abs())) + EXP2_REL
+    e_dp = _dot_err(g, v)
+    e_D = q.shape[-1] * U32 * (g.abs() * o.float().abs()).sum(-1, keepdim=True)
+    pdp = p * dp.abs()
+    e_D1 = (rel * pdp + p * e_dp).sum(-1, keepdim=True) \
+        + q.shape[1] * U32 * pdp.sum(-1, keepdim=True)
+
+    def flips(ds, Dr, e_Dr):
+        win = rel * ds.abs() + p * (e_dp + e_Dr + U32 * (dp - Dr).abs()) + U32 * ds.abs()
+        return bf16_flip(ds, win)
+
+    fq = flips(f["ds"], f["D"], e_D)
+    fk = flips(f["ds1"], f["D1"], e_D1)
+    fv = bf16_flip(p, rel * p)
+    return (scale * torch.matmul(fq, k.abs()),
+            scale * torch.matmul(fk.transpose(-1, -2), q.abs()),
+            torch.matmul(fv.transpose(-1, -2), g.abs()))
+
+
+def bf16_bwd_tolerances(qkv, g, n_heads: int, scale: float, o=None, lse=None) -> dict:
     """(atol per element of d(qkv), packed as qkv; rtol) of the bf16
     backward on packed qkv and output gradient g, from the fp32 plain VJP's
     p, ds, o and |q|, |k|, |g| (all per (batch, head)):
@@ -213,23 +349,28 @@ def bf16_bwd_tolerances(qkv, g, n_heads: int, scale: float) -> dict:
       fp32, as the plain VJP's. 1% slack for the fp32 sums; both sides then
       round once: two bf16 steps relative.
     - "emulation", against `attention_bwd_tc_emulation` on the kernel's own
-      o and lse: the same arithmetic, the fp32 sums in another order
-      (~1e-6 relative), so a p or ds rounds to another bf16 value only that
-      close to a rounding midpoint, by one step (2^-7 of it); half the
-      rounding terms above (no D term) let a quarter of a sum's weight do
-      so. rtol as for "plain"."""
-    B, T, C3 = qkv.shape
-    C = C3 // 3
-    d = C // n_heads
-
-    def heads(t):
-        return t.float().reshape(B, T, n_heads, d).transpose(1, 2)
+      packed output o and logsumexp lse (both by default
+      `attention_tc_emulation`'s): the same arithmetic, the fp32 sums in
+      another order, so a p or ds rounds to another bf16 value only that
+      close to a rounding midpoint, by one step (2^-7 of it).
+      "emulation_no_flip", half the rounding terms above (no D term), lets
+      a quarter of a sum's weight do so: the bound of the long rows.
+      "emulation" is the larger of that and the whole flip of each term
+      within reach of a midpoint (`_bwd_flips`, 1% slack) plus the fp32
+      sums' own spread over T terms (2 T U32 of the sums of magnitudes):
+      the old bound wherever the flips stay under it. rtol as for
+      "plain"."""
+    B, C = qkv.shape[0], qkv.shape[-1] // 3
 
     def packed(*ts):
-        return torch.cat([t.transpose(1, 2).reshape(B, T, C) for t in ts], dim=-1)
+        return torch.cat([_packed(t, B) for t in ts], dim=-1)
 
-    q, k, v = (heads(t) for t in qkv.split(C, dim=-1))
-    gf = heads(g)
+    q, k, v = (_heads_f32(t, n_heads) for t in qkv.split(C, dim=-1))
+    gf = _heads_f32(g, n_heads)
+    if o is None or lse is None:
+        of, lse = attention_tc_emulation(q, k, v, scale, want_lse=True)
+    else:
+        of = _heads_f32(o, n_heads)
     p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
     dp = torch.matmul(gf, v.transpose(-1, -2))
     ds = (p * (dp - (dp * p).sum(dim=-1, keepdim=True))).abs()
@@ -241,8 +382,14 @@ def bf16_bwd_tolerances(qkv, g, n_heads: int, scale: float) -> dict:
     e_o = u * (torch.matmul(p, v.abs()) + torch.matmul(p, v).abs())
     e_D = (gf.abs() * e_o).sum(dim=-1, keepdim=True)
     d_dq = scale * e_D * torch.matmul(p, ak)
+    r = packed(r_dq, r_dk, r_dv)   # 2^-8 of the sums of magnitudes
+    old = 0.5 * r
+    flips = packed(*(1.01 * t for t in _bwd_flips(q, k, v, gf, scale, of,
+                                                   lse.reshape(q.shape[:2]))))
+    flips = flips + 2 * q.shape[1] * U32 / u * r
     return {"plain": (1.01 * packed(r_dq + d_dq, r_dk, r_dv), 1.6e-2),
-            "emulation": (0.5 * packed(r_dq, r_dk, r_dv), 1.6e-2)}
+            "emulation": (torch.maximum(old, flips), 1.6e-2),
+            "emulation_no_flip": (old, 1.6e-2)}
 
 
 def attention_packed_reference(qkv, n_heads: int, scale: float):

@@ -34,6 +34,13 @@ versions (`group_norm_folded`, `group_norm_bwd_reference`, which follows
 `_fgn_bwd` line by line). With no input needing a gradient the forward
 saves nothing.
 
+Channels are read as 16-byte vectors, or as 8-byte ones in bf16 where the
+channels are a multiple of 4 but not of 8 (`vector_width`: the 3D family's
+84 = 12 x 7 folded channels). An example of fewer than 16 rows takes one
+block (`MIN_ROWS`: the 3D family's time attention normalises sequences of 7
+or 2 tokens), and a call past the grid's 65,535 examples launches in runs of
+that many (`csrc/groupnorm.cu`).
+
 Bound on the card: bytes. The host side of a forward is one `torch.empty`
 and one ctypes call: the 67 calls of one model evaluation are host-bound
 otherwise.
@@ -67,17 +74,23 @@ BWD_UNROLL = 4
 BWD_CLUSTER = 4
 SPLIT_BYTES = 5 * 2**18          # 1.25 MiB
 AFFINE_SPLIT_BYTES = 24 * 2**20
+# A block of a cluster owns at least MIN_ROWS rows where the example has
+# them: an example of a few rows (the 3D family's time attention sees 7 or 2
+# a token sequence) takes one block, not one block a row.
+MIN_ROWS = 8
 
 
 @dataclass(frozen=True)
 class Plan:
     """How `gn_fused` runs one shape: `cluster` blocks per example, each
     owning `rows` rows of H*W (the last block possibly fewer), with
-    `threads` threads and `smem` bytes of dynamic shared memory."""
+    `threads` threads, `smem` bytes of dynamic shared memory and `vec`
+    channels a thread's vector (`vector_width`)."""
     cluster: int
     rows: int
     threads: int
     smem: int
+    vec: int
 
 
 @dataclass(frozen=True)
@@ -87,13 +100,37 @@ class BwdPlan:
     last possibly fewer), with `threads` threads and `smem` bytes of dynamic
     shared memory; the `blocks` of an example are one cluster (at most 8) in
     one launch, or with `split` the chunks of two launches. `ws_floats` is
-    the fp32 scratch the wrapper allocates (`bwd_workspace`)."""
+    the fp32 scratch the wrapper allocates (`bwd_workspace`); `vec` as
+    `Plan`'s."""
     split: bool
     blocks: int
     rows: int
     threads: int
     smem: int
     ws_floats: int
+    vec: int
+
+
+def vector_width(CN: int, dtype: torch.dtype) -> int:
+    """Channels a thread loads as one vector: 16 bytes (8 bf16, 4 fp32), or
+    8 bytes (4 bf16) where bf16's channels are a multiple of 4 but not of 8
+    (the 3D family's 84 = 12 x 7 folded channels). Raises where neither
+    divides the channels."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"gn_fused: dtype {dtype} not in {_DTYPES}")
+    vec = 16 // dtype.itemsize
+    if CN % vec and CN % 4 == 0:
+        vec = 4
+    if CN % vec:
+        raise ValueError(f"gn_fused: {CN} channels must be a multiple of 4")
+    return vec
+
+
+def _rows(S: int, size: int):
+    """(blocks, rows): up to `size` blocks over S rows, each at least
+    MIN_ROWS rows where S has them, none empty."""
+    rows = -(-S // max(1, min(size, S // MIN_ROWS)))
+    return -(-S // rows), rows
 
 
 def smem_bytes(threads: int, vec: int, CN: int, G: int) -> int:
@@ -123,23 +160,18 @@ def bwd_workspace(B: int, CN: int, G: int, C: int, chunks: int) -> dict:
 @functools.lru_cache(maxsize=None)
 def plan(CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int) -> Plan:
     """The launch plan of `gn_fused` for x (B, CN, H, W) of `dtype`: the
-    largest cluster up to 8 with no empty block, one thread per 16-byte
-    channel vector per row up to 512 threads."""
-    if dtype not in _DTYPES:
-        raise TypeError(f"gn_fused: dtype {dtype} not in {_DTYPES}")
-    elem = dtype.itemsize
-    vec = 16 // elem
-    if CN % vec or CN % num_groups:
-        raise ValueError(f"gn_fused: {CN} channels must be a multiple of {vec} and of "
-                         f"{num_groups} groups")
+    largest cluster up to 8 with no empty block and at least `MIN_ROWS` rows
+    a block where the example has them, one thread per channel vector
+    (`vector_width`) per row up to 512 threads."""
+    vec = vector_width(CN, dtype)
+    if CN % num_groups:
+        raise ValueError(f"gn_fused: {CN} channels must be a multiple of {num_groups} groups")
     nv = CN // vec
     if nv > MAX_THREADS:
         raise ValueError(f"gn_fused: {CN} channels exceed {MAX_THREADS * vec}")
-    S = H * W
-    rows = -(-S // min(MAX_CLUSTER, S))
-    cluster = -(-S // rows)
+    cluster, rows = _rows(H * W, MAX_CLUSTER)
     threads = nv * max(1, min(MAX_THREADS // nv, rows))
-    return Plan(cluster, rows, threads, smem_bytes(threads, vec, CN, num_groups))
+    return Plan(cluster, rows, threads, smem_bytes(threads, vec, CN, num_groups), vec)
 
 
 def cluster_bwd_plan(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int,
@@ -147,28 +179,26 @@ def cluster_bwd_plan(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_gr
     """`gn_fused_bwd`'s cluster route with clusters of up to `size` blocks
     per example (at most `MAX_CLUSTER`), sized as the forward's plan sizes
     its clusters of 8; `tools.profile_gn_bwd` times other sizes."""
-    plan(CN, H, W, dtype, num_groups)   # the forward's checks of the shape
-    vec = 16 // dtype.itemsize
+    vec = plan(CN, H, W, dtype, num_groups).vec   # the forward's checks of the shape
     nv = CN // vec
-    S = H * W
-    rows = -(-S // min(size, S))
+    blocks, rows = _rows(H * W, size)
     threads = nv * max(1, min(MAX_THREADS // nv, rows))
-    return BwdPlan(False, -(-S // rows), rows, threads,
+    return BwdPlan(False, blocks, rows, threads,
                    bwd_smem_bytes(threads, vec, CN, num_groups),
-                   bwd_workspace(B, CN, num_groups, CN // frames_last, 0)["total"])
+                   bwd_workspace(B, CN, num_groups, CN // frames_last, 0)["total"], vec)
 
 
 def bwd_plans(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: int,
               frames_last: int = 1) -> tuple:
     """Both candidate plans of `gn_fused_bwd` for x (B, CN, H, W) of
     `dtype`, (cluster, split): the cluster route (`cluster_bwd_plan`); the
-    split route with one thread per 16-byte channel vector per row, up to
+    split route with one thread per channel vector (`vector_width`) per row, up to
     `BWD_THREADS` threads (more only where one row has more vectors), and
     about `BWD_BLOCKS` blocks over the B examples where every thread gets
     `BWD_UNROLL` rows, fewer where not, with no empty block. `bwd_plan`
     picks one; `tools.profile_gn_bwd` times both."""
     cluster = cluster_bwd_plan(B, CN, H, W, dtype, num_groups, frames_last)
-    vec = 16 // dtype.itemsize
+    vec = cluster.vec
     nv = CN // vec
     C = CN // frames_last
     threads = nv * max(1, BWD_THREADS // nv)
@@ -177,7 +207,7 @@ def bwd_plans(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: i
     rows = -(-S // chunks)
     chunks = -(-S // rows)
     split = BwdPlan(True, chunks, rows, threads, bwd_smem_bytes(threads, vec, CN, num_groups),
-                    bwd_workspace(B, CN, num_groups, C, chunks)["total"])
+                    bwd_workspace(B, CN, num_groups, C, chunks)["total"], vec)
     return cluster, split
 
 
@@ -245,8 +275,8 @@ def max_active_clusters(x: torch.Tensor, p: Plan, num_groups: int) -> int:
     out = ctypes.c_int(0)
     with torch.cuda.device(x.device):
         err = lib.gn_fused_max_active_clusters(
-            int(x.dtype == torch.bfloat16), B, H * W, CN, num_groups, 1, p.rows, p.cluster,
-            p.threads, p.smem, ctypes.byref(out))
+            int(x.dtype == torch.bfloat16), p.vec, B, H * W, CN, num_groups, 1, p.rows,
+            p.cluster, p.threads, p.smem, ctypes.byref(out))
     check_launch(lib, "gn_fused occupancy query", err)
     if out.value < 1:
         raise RuntimeError(f"gn_fused: no cluster of plan {p} fits on the card")
@@ -278,8 +308,8 @@ def group_norm_fwd(x, num_groups, eps, gamma, beta, scale, shift, frames_last, a
         err = lib.gn_fused(
             x.data_ptr(), y.data_ptr(), g_ptr, b_ptr, s_ptr, h_ptr,
             None if stats is None else stats.data_ptr(), ss_stride, gb_bf16, ss_bf16,
-            int(x.dtype == torch.bfloat16), B, H * W, CN, num_groups, frames_last, p.rows,
-            p.cluster, p.threads, p.smem, eps, H * W * (CN // num_groups),
+            int(x.dtype == torch.bfloat16), p.vec, B, H * W, CN, num_groups, frames_last,
+            p.rows, p.cluster, p.threads, p.smem, eps, H * W * (CN // num_groups),
             int(bool(act)), torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(lib, "gn_fused", err)
     count_launch("gn_fused")
@@ -358,7 +388,7 @@ def group_norm_bwd(x, g, stats, num_groups, gamma, beta, scale, shift, frames_la
     C = CN // N
     p = p or bwd_plan(B, CN, H, W, x.dtype, num_groups, N, gamma is not None)
     g = g.to(x.dtype).contiguous(memory_format=torch.channels_last)
-    if g.data_ptr() % 16:   # a view at an odd offset: the kernel reads 16-byte vectors
+    if g.data_ptr() % 16:   # a view at an odd offset: the kernel reads 8- or 16-byte vectors
         g = g.clone(memory_format=torch.channels_last)
     g_ptr, b_ptr, s_ptr, h_ptr, ss_stride, gb_bf16, ss_bf16 = _params(
         x, gamma, beta, scale, shift, frames_last)
@@ -371,8 +401,8 @@ def group_norm_bwd(x, g, stats, num_groups, gamma, beta, scale, shift, frames_la
     with torch.cuda.device(x.device):
         err = lib.gn_fused_bwd(
             x.data_ptr(), g.data_ptr(), dx.data_ptr(), stats.data_ptr(), g_ptr, b_ptr, s_ptr,
-            h_ptr, ss_stride, gb_bf16, ss_bf16, int(x.dtype == torch.bfloat16), B, H * W, CN,
-            num_groups, N, p.rows, p.blocks, p.threads, p.smem, int(p.split),
+            h_ptr, ss_stride, gb_bf16, ss_bf16, int(x.dtype == torch.bfloat16), p.vec, B,
+            H * W, CN, num_groups, N, p.rows, p.blocks, p.threads, p.smem, int(p.split),
             H * W * (CN // num_groups), int(bool(act)), ws.data_ptr(), C,
             torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(lib, "gn_fused_bwd", err)

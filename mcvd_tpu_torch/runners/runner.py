@@ -549,10 +549,11 @@ class Runner:
             tag = s or loaded
             if ensemble:
                 # a trailing window of up to num_ensembles checkpoints ending
-                # at s; copies, as the next load may overwrite what a load gave
+                # at s; copies, s's own first, as the next load may overwrite
+                # what a load gave (the model's own tensors without model.ema)
                 window = eligible[max(0, idx - (num_ensembles - 1)):idx + 1]
-                params = [{k: v.detach().clone() for k, v in self._load_eval_params(w)[0].items()}
-                          for w in window[:-1]] + [params]
+                own = _clone(params)
+                params = [_clone(self._load_eval_params(w)[0]) for w in window[:-1]] + [own]
                 tag = f"{tag}_ens{len(params)}"
             feats_cache = os.path.join(cache_dir, f"feats_{tag}.npy")
             if os.path.isfile(feats_cache):
@@ -585,6 +586,10 @@ class Runner:
         out = {int(kk): {m: float(v) for m, v in vv.items()} for kk, vv in fids.items()}
         yaml_subset.dump_file(out, os.path.join(args.log_path, "fids.yml"))
         return out
+
+
+def _clone(params):
+    return {k: v.detach().clone() for k, v in params.items()}
 
 
 def _host_mem_gb() -> float:

@@ -1,6 +1,7 @@
-"""The GroupNorm calls one evaluation of a model makes, read from the model
-itself: its forward runs on the "meta" device (shapes only, no data, no
-arithmetic) with `ops.groupnorm.group_norm` replaced by a recorder.
+"""The GroupNorm and attention calls one evaluation of a model makes, read
+from the model itself: its forward runs on the "meta" device (shapes only,
+no data, no arithmetic) with `ops.groupnorm.group_norm` and
+`ops.attention.attention_packed` replaced by recorders.
 
     python -m mcvd_tpu_torch.tools.gn_calls     # the flagship's, at B=16
 
@@ -18,38 +19,50 @@ import torch
 
 from .. import ops
 from ..config import flagship_config
-from ..models import UNetMoreDDPM
+from ..models import build
 
 
-def group_norm_calls(config=None, batch: int = 16) -> list:
-    """One dict per GroupNorm call of one evaluation of `config`'s model (the
-    flagship when None), in call order: C (channels of x, C*N), H, W,
-    num_groups, eps, affine, adagn, act, frames_last."""
+def model_calls(config=None, batch: int = 16) -> tuple:
+    """(GroupNorm calls, attention calls) of one evaluation of `config`'s
+    model (the flagship when None), in call order. A GroupNorm call: B
+    (examples), C (channels of x, C*N), H, W, num_groups, eps, affine, adagn,
+    act, frames_last. An attention call: B (sequences), T (tokens), heads,
+    D."""
     config = config or flagship_config()
-    model = UNetMoreDDPM(config).to(device="meta", memory_format=torch.channels_last)
-    calls = []
+    model = build(config).to(device="meta")
+    gn, attn = [], []
 
-    def record(x, num_groups, *, eps, gamma=None, beta=None, scale=None, shift=None,
-               frames_last=1, act=False):
+    def record_gn(x, num_groups, *, eps, gamma=None, beta=None, scale=None, shift=None,
+                  frames_last=1, act=False):
         B, CN, H, W = x.shape
-        calls.append(dict(C=CN, H=H, W=W, num_groups=num_groups, eps=eps,
-                          affine=gamma is not None, adagn=scale is not None,
-                          act=bool(act), frames_last=frames_last))
+        gn.append(dict(B=B, C=CN, H=H, W=W, num_groups=num_groups, eps=eps,
+                       affine=gamma is not None, adagn=scale is not None,
+                       act=bool(act), frames_last=frames_last))
         return x
+
+    def record_attn(qkv, n_heads, scale):
+        B, T, C3 = qkv.shape
+        attn.append(dict(B=B, T=T, heads=n_heads, D=C3 // 3 // n_heads))
+        return qkv[..., :C3 // 3]
 
     d = config.data
     sz = d.image_size
     x = torch.empty(batch, d.channels * d.num_frames, sz, sz, device="meta")
     cond = torch.empty(batch, d.channels * d.num_frames_cond, sz, sz, device="meta")
     t = torch.zeros(batch, dtype=torch.long, device="meta")
-    real = ops.groupnorm.group_norm
-    ops.groupnorm.group_norm = record
+    real = ops.groupnorm.group_norm, ops.attention.attention_packed
+    ops.groupnorm.group_norm, ops.attention.attention_packed = record_gn, record_attn
     try:
         with torch.no_grad():
             model(x, t, cond)
     finally:
-        ops.groupnorm.group_norm = real
-    return calls
+        ops.groupnorm.group_norm, ops.attention.attention_packed = real
+    return gn, attn
+
+
+def group_norm_calls(config=None, batch: int = 16) -> list:
+    """The GroupNorm calls of `model_calls`."""
+    return model_calls(config, batch)[0]
 
 
 def form(call: dict) -> str:

@@ -7,7 +7,8 @@ rolling "checkpoint", rewritten every `checkpoint_freq` steps, and numbered
 Each is one `torch.save` file, written under a temporary name and renamed
 over the old one with `os.replace`, so a run killed while saving leaves the
 previous checkpoint whole (Orbax renames a finished directory the same
-way). The JAX package's Orbax checkpoints are not read here.
+way). The JAX package's Orbax checkpoints become these through
+`compat.jax_ckpt` (from the `.npz` of `tools/export_jax_checkpoint.py`).
 
 `load_checkpoint(target=state)` copies the saved tensors into the target's
 own tensors (`copy_`): `TrainState.params` are the model's parameters, so

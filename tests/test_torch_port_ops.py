@@ -372,6 +372,63 @@ def check_bwd_tc_numerics(T, h, d, against):
     assert (err <= bound).all(), f"max err {err.max()}, worst margin {(err / bound).max()}"
 
 
+def test_bf16_flip_marks_only_values_near_a_midpoint():
+    """`bf16_flip`: the bf16 step where x lies within the window of the
+    midpoint between its two bf16 neighbours, else 0; x on either side of
+    that midpoint rounds to different neighbours."""
+    x = torch.tensor([1.0 + 2 ** -8, 1.0 + 2 ** -8 + 2 ** -20, 1.5, 3 * 2 ** -9, -0.75 - 2 ** -9])
+    step = ops.attention.bf16_flip(x, torch.full_like(x, 2 ** -18))
+    assert step.tolist() == [2 ** -7, 2 ** -7, 0.0, 0.0, 2 ** -8]
+    assert ops.attention.bf16_flip(x, torch.zeros_like(x))[1] == 0
+    eps = torch.tensor([2 ** -21])
+    lo, hi = (torch.tensor([1.0 + 2 ** -8]) + s * eps for s in (-1, 1))
+    assert lo.bfloat16() != hi.bfloat16()
+
+
+def _fp32_in_another_order(a, b):
+    """a @ b^T in fp32 with the depth reversed: another summation order, as
+    the kernel's tensor cores take one."""
+    return torch.matmul(a.flip(-1).float(), b.flip(-1).float().transpose(-1, -2))
+
+
+# The bf16 "emulation" bounds are the old ones (an eighth of a row's weight
+# may flip) wherever the flips of the p and ds near a bf16 midpoint stay
+# under them, else those flips: held here against a stand-in for the kernel,
+# the emulation with its fp32 products summed in another order.
+@pytest.mark.parametrize("T,h,d", [(2, 1, 24), (7, 1, 24), (16, 1, 24), (256, 1, 24),
+                                   (200, 2, 64), (128, 2, 192)])
+def test_bf16_emulation_bounds_hold_against_another_summation_order(T, h, d, monkeypatch):
+    B = 4096 // T if T < 64 else 2
+    scale = d ** -0.5
+    rng = np.random.RandomState(T + d)
+    qkv = torch.from_numpy(rng.randn(B, T, 3 * h * d).astype(np.float32)).to(torch.bfloat16)
+    g = torch.from_numpy(rng.randn(B, T, h * d).astype(np.float32)).to(torch.bfloat16)
+    q, k, v = (heads_of(t, h) for t in qkv.split(h * d, dim=-1))
+    emu_o, emu_lse = ops.attention.attention_tc_emulation(q, k, v, scale, want_lse=True)
+    tols = ops.attention.bf16_tolerances(qkv, h, scale)
+    with monkeypatch.context() as m:
+        m.setattr(ops.attention, "_mm64", _fp32_in_another_order)
+        o, lse = ops.attention.attention_tc_emulation(q, k, v, scale, want_lse=True)
+        got = ops.attention.attention_bwd_tc_emulation(q, k, v, heads_of(g, h), scale, o=o,
+                                                       lse=lse)
+    want = ops.attention.attention_bwd_tc_emulation(q, k, v, heads_of(g, h), scale, o=o,
+                                                    lse=lse)
+    btols = ops.attention.bf16_bwd_tolerances(qkv, g, h, scale, o=packed_of(o, B), lse=lse)
+    for what, a, b, tol in (
+            ("forward", packed_of(o, B), packed_of(emu_o, B), tols),
+            ("backward", torch.cat([packed_of(t, B) for t in got], -1),
+             torch.cat([packed_of(t, B) for t in want], -1), btols)):
+        err = (a.float() - b.float()).abs()
+        atol, rtol = tol["emulation"]
+        old, _ = tol["emulation_no_flip"]
+        assert (atol >= old).all()
+        bound = atol + rtol * b.float().abs()
+        assert bool((err <= bound).all()), f"{what}: worst margin {float((err / bound).max())}"
+        # and it leaves the old one only where a flip may exceed it: within
+        # 10% of it on average (measured on the CPU: 1.00-1.05)
+        assert float((atol / old).mean()) < 1.1, what
+
+
 # 3xTF32 keeps ~21-22 bits of each product: the emulated fp32 kernels'
 # products against the JAX fp32 forward and VJP (highest precision) at the
 # plain versions' atol 1e-5.
@@ -440,9 +497,9 @@ def test_tf32_split_reconstructs(magnitude):
 
 
 def test_check_head_dim_takes_the_kernels_dims():
-    """The wrappers take head dims 64, 96, 128 and 192 (one kernel
+    """The wrappers take head dims 24, 64, 96, 128 and 192 (one kernel
     instantiation each) and refuse the rest, naming where one is added."""
-    for d in (64, 96, 128, 192):
+    for d in (24, 64, 96, 128, 192):
         ops.attention._check_head_dim("attention", d)
     for d in (32, 256):
         with pytest.raises(ValueError, match="supported.*csrc/attention.cu"):
@@ -509,9 +566,10 @@ def _gn_case(device, dtype, B, C, H, frames_last, form):
     return xt, tkw
 
 
-# (B, C, H, frames_last): up to 256 channels at 64x64
+# (B, C, H, frames_last): up to 256 channels at 64x64; the 3D family's 84
+# folded channels (12 x 7 frames, bf16 on 8-byte vectors) and its 4x4 level
 GN_KERNEL_CASES = [(2, 64, 16, 1), (2, 192, 8, 1), (3, 32, 8, 2), (2, 64, 64, 2),
-                   (2, 256, 64, 1)]
+                   (2, 256, 64, 1), (2, 12, 16, 7), (3, 24, 4, 7)]
 
 
 @pytest.mark.cuda
@@ -539,28 +597,74 @@ def test_group_norm_kernel_matches_plain(cuda, form, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_attention_kernel_matches_plain(cuda, dtype):
-    for T, h in [(64, 4), (100, 2), (256, 3), (1024, 2)]:
-        q, k, v = attn_inputs(8, (2, T, 64 * h))
+    # (T, heads, head dim): D=64's, and D=24 over the 3D family's frames (7,
+    # 2) and space tokens (16, 256), packed as its one-head qkv
+    for T, h, d in [(64, 4, 64), (100, 2, 64), (256, 3, 64), (1024, 2, 64), (7, 1, 24),
+                    (2, 1, 24), (16, 1, 24), (256, 1, 24)]:
+        q, k, v = attn_inputs(8, (2, T, d * h))
         qkv = torch.from_numpy(np.concatenate([q, k, v], -1)).to(cuda, dtype)
+        scale = d ** -0.5
         ops.reset_launches()
         with torch.inference_mode():
-            got = ops.attention.attention_packed(qkv, h, 0.125)
+            got = ops.attention.attention_packed(qkv, h, scale)
             with ops.reference_ops():
-                want = ops.attention.attention_packed(qkv, h, 0.125)
+                want = ops.attention.attention_packed(qkv, h, scale)
         torch.cuda.synchronize()
         assert ops.LAUNCHES["attention_fwd"] == 1
         if dtype == torch.float32:
             np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=0,
-                                       atol=1e-4, err_msg=f"T={T} h={h}")
+                                       atol=1e-4, err_msg=f"T={T} h={h} d={d}")
             continue
         # per element, as chip_smoke: against the plain version, and tighter
         # against its own arithmetic emulated
-        tols = ops.attention.bf16_tolerances(qkv, h, 0.125)
-        for against, ref in (("plain", want), ("emulation", packed_tc_emulation(qkv, h, 0.125))):
+        tols = ops.attention.bf16_tolerances(qkv, h, scale)
+        for against, ref in (("plain", want), ("emulation", packed_tc_emulation(qkv, h, scale))):
             atol, rtol = tols[against]
             err = (got.float() - ref.float()).abs()
             ok = bool((err <= atol + rtol * ref.float().abs()).all())
-            assert ok, f"T={T} h={h} vs {against}: max err {float(err.max())}"
+            assert ok, f"T={T} h={h} d={d} vs {against}: max err {float(err.max())}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_kernels_take_batches_past_the_grid(cuda, dtype):
+    """70,000 sequences of the 3D family's time attention (7 tokens, D=24)
+    and as many examples of its GroupNorm: past the grid's 65,535, so each
+    call launches in runs; forward and backward, on a random output
+    gradient and random gamma and beta (so that dx of the examples past
+    65,535 is no exact zero), against the plain versions: fp32 within 1e-4
+    of the largest; bf16 within two rounding steps of the largest, and the
+    attention's gradient per element within `bf16_bwd_tolerances`."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    qkv = torch.randn(70_000, 7, 72, generator=g, device=cuda).to(dtype).requires_grad_()
+    x = torch.randn(70_000, 7, 1, 24, generator=g, device=cuda).to(dtype).permute(0, 3, 1, 2)
+    x.requires_grad_()
+    gamma = (1 + 0.1 * torch.randn(24, generator=g, device=cuda)).requires_grad_()
+    beta = (0.1 * torch.randn(24, generator=g, device=cuda)).requires_grad_()
+    dy_attn = torch.randn(70_000, 7, 24, generator=g, device=cuda).to(dtype)
+    dy_gn = torch.randn(70_000, 7, 1, 24, generator=g, device=cuda).to(dtype).permute(0, 3, 1, 2)
+    for name, fn, leaves, dy in (
+            ("attention", lambda: ops.attention.attention_packed(qkv, 1, 24 ** -0.5), [qkv],
+             dy_attn),
+            ("group_norm", lambda: ops.groupnorm.group_norm(x, 6, eps=1e-6, gamma=gamma,
+                                                            beta=beta), [x, gamma, beta],
+             dy_gn)):
+        out = fn()
+        grads = torch.autograd.grad(out, leaves, dy)
+        with ops.reference_ops():
+            out_ref = fn()
+            grads_ref = torch.autograd.grad(out_ref, leaves, dy)
+        for i, (a, b) in enumerate(zip((out, *grads), (out_ref, *grads_ref))):
+            if name == "attention" and i == 1 and dtype == torch.bfloat16:
+                atol, rtol = ops.attention.bf16_bwd_tolerances(qkv.detach(), dy, 1,
+                                                               24 ** -0.5)["plain"]
+                err = (a.float() - b.float()).abs()
+                assert bool((err <= atol + rtol * b.float().abs()).all()), name
+                continue
+            a, b = a.float(), b.float()
+            tol = 1e-4 if dtype == torch.float32 else 2 * 2 ** -8
+            assert float((a - b).abs().max()) <= tol * max(1.0, float(b.abs().max())), \
+                (name, i)
 
 
 @pytest.mark.cuda

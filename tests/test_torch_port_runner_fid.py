@@ -52,3 +52,45 @@ def test_runner_fast_fid_plain_and_ensemble(trained, tmp_path, no_pr):
     # a window of one checkpoint is that checkpoint alone
     np.testing.assert_allclose(ens[2]["fid"], res[2]["fid"], rtol=1e-6)
     assert ens[4]["fid"] != res[4]["fid"]
+
+
+def test_runner_fast_fid_ensemble_without_ema_keeps_each_checkpoint(trained, tmp_path,
+                                                                   monkeypatch):
+    """Under model.ema=false the ensemble's members are the checkpoints' own
+    parameters, which each load writes into the model: two checkpoints of
+    constant weights 1.0 and 2.0 give checkpoint 2 the member [1.0] and
+    checkpoint 4 the members [1.0, 2.0], as the JAX runner samples (its
+    params are immutable)."""
+    from mcvd_tpu_torch.runners.runner import Runner
+    from mcvd_tpu_torch.train import checkpoints
+    from tests.test_torch_port_runner import runner_args
+
+    config = eval_config()
+    config.model.ema = False
+    config.fast_fid.ensemble = True
+    config.eval = dict2namespace({"inception_weights": os.path.join(trained, "w",
+                                                                    "inception.pt")})
+    args = runner_args(str(tmp_path / "exp"))
+    args.data_path = runner_args(trained).data_path
+    args.image_folder = str(tmp_path / "images")
+    args.no_pr = True
+    runner = Runner(args, config)
+    state = runner._init_state()
+    for step, value in ((2, 1.0), (4, 2.0)):
+        for p in state.params.values():
+            p.data.fill_(value)
+        state.step = step
+        checkpoints.save_checkpoint(args.log_path, state, name=f"checkpoint_{step}")
+    members = []
+    d = config.data
+
+    def generate(block, params, X, generator):
+        members.append([float(p[next(iter(p))].flatten()[0]) for p in params])
+        rng = np.random.RandomState(len(members))
+        gen = rng.rand(X.shape[0], d.image_size, d.image_size, d.channels * d.num_frames)
+        return gen.astype(np.float32), None, None
+
+    monkeypatch.setattr(runner, "_generate", generate)
+    assert sorted(runner.fast_fid()) == [2, 4]
+    assert {tuple(m) for m in members} == {(1.0,), (1.0, 2.0)}
+    assert members[0] == [1.0] and members[-1] == [1.0, 2.0]
