@@ -92,10 +92,25 @@ line each:
                --video_gen --ckpt 3, `SMALL5_CLI_MODS`); the committed JAX
                export imported by `compat.jax_ckpt`, bit-equal, and sampled
                by --video_gen;
- 11. train_headline  the yml's training config at full width, B=64, fp32 and
+ 11. smld      the SMLD family (PR 12) at the shipped widths (`SMLD_MODELS`):
+               one fp32 evaluation each of NCSNv2 at 32 px (cifar10_ncsnv2,
+               B=16) and 64 px (church, B=4), NCSNv2Deeper at 128 px
+               (bedroom, B=2), NCSNv2Deepest at 256 px (ffhq, B=2) and NCSNv1
+               at 32 px (B=16), timed, with the JAX init's parameter counts,
+               the 32- and 64-px ones held to the CPU on the same weights; the
+               cifar10_ncsnv2 fp32 step at the yml's B=128, timed, and a B=4
+               step held to the CPU's; one Langevin block (10 levels x 5 steps +
+               denoise, B=16) through `make_block_sampler`, held to the same
+               chain on the CPU; a synthetic FFHQ r256 shard through
+               `get_dataset` into the 256-px model; `model.normalization=
+               GroupNorm`: `gn_fused` and `gn_fused_bwd` at the model's shapes,
+               an evaluation and a step against `reference_ops()` with exact
+               launch counts; the CLI (--train, --sample with inpainting and
+               with interpolation) on synthetic CIFAR-10 pickles;
+ 12. train_headline  the yml's training config at full width, B=64, fp32 and
                then bf16 compute: one warm-up step, 5 timed steps, ms per
                step, clips/s, peak memory and the launch counts per step;
- 12. cli       the port's command line as a user runs it, in subprocesses,
+ 13. cli       the port's command line as a user runs it, in subprocesses,
                on configs/smmnist_DDPM_big5.yml at full width (ngf 64, B=64,
                fp32 as the yml says), changing only cadence and traffic
                (`CLI_MODS`): --train to step 6 (checkpoints at 3 and 6, the
@@ -110,7 +125,7 @@ line each:
                timed alone by the runner's log, the first of each process
                apart as warm-up) beside train_headline's fp32 step, and the
                video_gen harness's seconds;
- 13. data      the data readers on the card machine's host: synthetic shards
+ 14. data      the data readers on the card machine's host: synthetic shards
                (`DATA_SETS`: KTH, BAIR, Cityscapes, UCF101 at their shipped
                frame sizes, `synth_video`) written by the port's HDF5Maker,
                every frame read back bit-equal through the native LZF
@@ -119,7 +134,7 @@ line each:
                its config's B=64 with 0 and 4 worker threads, cache cold and
                warm (the worker counts giving the same batches); SMMNIST's
                batch path against its per-item path;
- 14. cli_data  the command line on those shards at the configs' full width
+ 15. cli_data  the command line on those shards at the configs' full width
                (`CLI_DATA_RUNS`): --train and --video_gen on bair_big.yml and
                kth64_big.yml, --train on ucf101.yml and cityscapes_big.yml;
                exact launch counts (the model's GroupNorm and attention
@@ -358,6 +373,45 @@ SMALL5_CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=3",
 JAX_EXPORT = "tests/golden/jax_ckpt_tiny.npz"
 JAX_EXPORT_MODS = [f"sampling.subsample={CLI_SUBSAMPLE}", "sampling.batch_size=16",
                    "sampling.max_data_iter=1", "sampling.num_frames_pred=4"]
+
+
+# The smld phase: the SMLD family (arch ncsnv2 / ncsn, model.version SMLD) at
+# the shipped widths; name -> (yml, config mods, the evaluation's batch, the
+# parameter count of jax.eval_shape of the JAX init, held to the CPU). Only
+# the batch is cut (the ymls' training batches are 128, 128, 128 and 32).
+SMLD_MODELS = {"ncsnv2_32": ("configs/cifar10_ncsnv2.yml", [], 16, 29_694_083, True),
+               "ncsnv2_64": ("configs/church.yml", [], 4, 29_694_083, True),
+               "ncsnv2_deeper_128": ("configs/bedroom.yml", [], 2, 83_445_379, False),
+               "ncsnv2_deepest_256": ("configs/ffhq.yml", [], 2, 94_132_611, False),
+               "ncsn_v1_32": ("configs/cifar10_ncsnv2.yml", ["model.arch=ncsn"], 16,
+                              39_750_659, True)}
+SMLD_CONFIG = "configs/cifar10_ncsnv2.yml"
+# A card evaluation against the CPU's on the same weights and input, fp32
+# with TF32 off: within this share of the largest output (as EVAL_NET_REL).
+SMLD_EVAL_REL = 1e-4
+# The train step at the yml's B=128 (timed) and, for the check, at this
+# batch on the card and on the CPU (loss rtol TRAIN_RTOL, the gradients
+# through Adam's first moment TRAIN_GRAD_REL of each tensor's largest).
+SMLD_STEP_CHECK_B = 4
+# The Langevin block: the ladder cut to SMLD_LEVELS levels with the yml's
+# n_steps_each 5 (SMLD_LEVELS * 5 + 1 evaluations), B=16 on the card, its
+# first SMLD_CPU_B rows held to the same chain on the CPU with the same
+# draws within SMLD_BLOCK_REL of the largest |x| (the witness of the
+# samplers phase, WITNESS_FACTOR times the CPU chain's own spread from an
+# init moved by WITNESS_REL, where that is larger).
+SMLD_LEVELS = 10
+SMLD_CPU_B = 2
+SMLD_BLOCK_REL = 5e-3
+# The CLI on synthetic CIFAR-10 pickles: --train to 3, then --sample with
+# sampling.inpainting and with sampling.interpolation from checkpoint 3;
+# the ladder cut to SMLD_LEVELS levels, the batch and the inner steps cut.
+SMLD_CLI_MODS = [f"model.num_classes={SMLD_LEVELS}", "training.batch_size=16",
+                 "training.checkpoint_freq=3", "training.snapshot_freq=3",
+                 "training.val_freq=3", "training.snapshot_sampling=False",
+                 "training.log_freq=1", "test.batch_size=16", "sampling.batch_size=4",
+                 "sampling.n_steps_each=2", "sampling.n_interpolations=3", "sampling.fid=false"]
+SMLD_CIFAR_IMAGES = (64, 32)   # images in each train pickle (5) and in the test pickle
+SMLD_FFHQ_IMAGES = 10           # in the synthetic r256 shard: a 9 / 1 split
 
 
 # Timing repetitions of the kernel phases' device times (the median of this
@@ -1306,7 +1360,8 @@ def train_step_vs_plain(config, seed, B, want_launches, what, model=None, exact_
     g = torch.Generator(device="cuda").manual_seed(seed + 2)
     X = torch.rand(B, d.num_frames_cond + d.num_frames, sz, sz, d.channels, generator=g,
                    device="cuda")
-    draws = {"labels": torch.randint(0, len(sched.alphas), (B,), generator=g, device="cuda"),
+    levels = len(sched.sigmas if sched.alphas is None else sched.alphas)
+    draws = {"labels": torch.randint(0, levels, (B,), generator=g, device="cuda"),
              "z": torch.randn(B, sz, sz, d.channels * d.num_frames, generator=g,
                               device="cuda").permute(0, 3, 1, 2)}
 
@@ -1678,6 +1733,441 @@ def phase_small5(card):
     export = small5_jax_export()
     emit("small5_cli", card=card, config_mod=SMALL5_CLI_MODS, runs=cli, jax_export=export)
     return models
+
+
+def _seconds(fn, n=3):
+    """(median ms, all ms) of n synchronised calls of fn after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ms), ms
+
+
+def smld_eval(name, yml, mods, B, n_jax, on_cpu):
+    """One fp32 evaluation (TF32 off) of an SMLD model at full width, random
+    weights from a seed: its parameter count against the JAX init's, finite
+    output of the input's shape, its ms (median of 3 after a warm-up) and,
+    where `on_cpu`, the same weights and input on the CPU within
+    SMLD_EVAL_REL of the largest output. Returns (payload, model, config)."""
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.models import get_model
+
+    config = load_config(repo_path(yml), mods)
+    model = get_model(config, generator=torch.Generator().manual_seed(50), device="cuda")
+    model.eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == n_jax, f"smld {name}: {n_params} params, JAX has {n_jax}")
+    d = config.data
+    sz = d.image_size
+    g = torch.Generator().manual_seed(51)
+    x = torch.rand(B, d.channels * d.num_frames, sz, sz, generator=g)
+    y = torch.randint(0, config.model.num_classes, (B,), generator=g)
+    xc = x.cuda().contiguous(memory_format=torch.channels_last)
+    yc = y.cuda()
+    with torch.inference_mode():
+        ms, ms_all = _seconds(lambda: model(xc, yc))
+        got = model(xc, yc)
+    check(got.shape == x.shape and bool(torch.isfinite(got).all()),
+          f"smld {name}: output {tuple(got.shape)} not finite")
+    out = dict(model=name, config=yml, config_mod=mods, arch=config.model.arch,
+               cls=type(model).__name__, params=n_params, B=B, image_size=sz, dtype="float32",
+               ms=ms, ms_all=ms_all, out_std=float(got.std()))
+    if on_cpu:
+        cpu = get_model(config, device="cpu").eval()
+        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+        with torch.inference_mode():
+            want = cpu(x.contiguous(memory_format=torch.channels_last), y)
+        big = float(want.abs().max())
+        diff = float((got.cpu() - want).abs().max())
+        check(diff <= SMLD_EVAL_REL * big,
+              f"smld {name}: card vs CPU max abs diff {diff}, largest {big}")
+        out.update(cpu_max_abs_diff=diff, largest=big, rel_tol=SMLD_EVAL_REL)
+        del cpu
+    return out, model, config
+
+
+def smld_step_on(device, config, weights, X, draws, dtype=torch.float32, reference=False):
+    """One train step of `config`'s model from `weights` on `device` in
+    `dtype` (fp32, or fp64 for the reference; the plain versions under
+    `ops.reference_ops()` where `reference`): (loss, grad_norm, Adam's first
+    moment by name as fp64, the kernel launch counts)."""
+    import contextlib
+
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.diffusion import make_schedule
+    from mcvd_tpu_torch.models import get_model
+    from mcvd_tpu_torch.train import create_train_state, make_train_step
+
+    model = get_model(config, device=device).to(dtype)
+    model.load_state_dict({k: v.to(device, dtype) for k, v in weights.items()})
+    state = create_train_state(config, model, device=device)
+    step = make_train_step(model, make_schedule(config), config)
+    ops.reset_launches()
+    with ops.reference_ops() if reference else contextlib.nullcontext():
+        state, m = step(state, X.to(device, dtype),
+                        draws={k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
+                               for k, v in draws.items()})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return float(m["loss"]), float(m["grad_norm"]), {
+        n: t.detach().cpu().double() for n, t in state.opt_state["mu"].items()}, dict(
+        ops.LAUNCHES)
+
+
+def smld_hold_step(what, got, want, config, weights, X, draws):
+    """Hold one fp32 step `got` to `want` (both `smld_step_on` results from
+    the same weights and draws): loss and grad_norm within TRAIN_RTOL, every
+    gradient (Adam's first moment) within TRAIN_GRAD_REL of its tensor's
+    largest, or, where the two part further (the ncsn nets' gradients
+    cancel: a sum over B*H*W positions of terms far larger than itself),
+    `got` within WITNESS_FACTOR times `want`'s own error against the same
+    step in fp64 on the CPU (plain versions throughout). Returns the
+    payload."""
+    for i, k in enumerate(("loss", "grad_norm")):
+        check(abs(got[i] - want[i]) <= TRAIN_RTOL * abs(want[i]),
+              f"{what} {k}: {got[i]} against {want[i]}")
+    gmax = max(float(t.abs().max()) for t in want[2].values())
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-6 * gmax)
+
+    worst, witnessed, ref64 = 0.0, {}, None
+    for n, w in want[2].items():
+        e = rel(got[2][n], w)
+        worst = max(worst, e)
+        if e <= TRAIN_GRAD_REL:
+            continue
+        if ref64 is None:
+            ref64 = smld_step_on("cpu", config, {k: v.double() for k, v in weights.items()},
+                                 X, draws, torch.float64)[2]
+        got64, want64 = rel(got[2][n], ref64[n]), rel(w, ref64[n])
+        check(got64 <= WITNESS_FACTOR * want64,
+              f"{what} grad {n}: {e} of its largest against the other step, {got64} against "
+              f"fp64, over {WITNESS_FACTOR} x the other's own {want64}")
+        witnessed[n] = dict(vs_other=e, vs_fp64=got64, other_vs_fp64=want64)
+    return dict(loss=[got[0], want[0]], grad_norm=[got[1], want[1]], loss_rtol=TRAIN_RTOL,
+                grad_rel=TRAIN_GRAD_REL, worst_grad_rel=worst, witnessed_by_fp64=witnessed,
+                witness_factor=WITNESS_FACTOR)
+
+
+def smld_train(config):
+    """cifar10_ncsnv2's fp32 step: the yml's B=128 on the card (one warm-up,
+    3 timed steps, no kernel launched: InstanceNorm++ is plain torch), and
+    one step at SMLD_STEP_CHECK_B from the same weights and draws on the card
+    and on the CPU, held by `smld_hold_step` (the CPU's own fp32 gradients
+    part from fp64 by up to 6.8e-3 of a tensor's largest on this model)."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.diffusion import make_schedule
+    from mcvd_tpu_torch.models import get_model
+    from mcvd_tpu_torch.train import create_train_state, make_train_step
+
+    config.model.dropout = 0.0
+    B = config.training.batch_size
+    check(B == 128, f"cifar10_ncsnv2.yml trains at B={B}, expected 128")
+    d = config.data
+    sched = make_schedule(config)
+    levels = len(sched.sigmas)
+    g = torch.Generator().manual_seed(60)
+    model = get_model(config, generator=torch.Generator().manual_seed(61), device="cuda")
+    weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    X = torch.rand(B, d.num_frames, d.image_size, d.image_size, d.channels, generator=g)
+    draws = {"labels": torch.randint(0, levels, (B,), generator=g),
+             "z": torch.randn(B, d.channels * d.num_frames, d.image_size, d.image_size,
+                              generator=g)}
+    state = create_train_state(config, model, device="cuda")
+    step = make_train_step(model, sched, config)
+    Xc = X.cuda()
+    dc = {k: v.cuda() for k, v in draws.items()}
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(4):
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        state, m = step(state, Xc, draws=dc)
+        torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        check_launches(dict(ops.LAUNCHES), {}, "smld train step")
+    check(all(np.isfinite(losses)), f"smld train step losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, state, step
+    torch.cuda.empty_cache()
+    b = SMLD_STEP_CHECK_B
+    small = {k: v[:b] for k, v in draws.items()}
+    held = smld_hold_step("smld step card vs CPU",
+                          smld_step_on("cuda", config, weights, X[:b], small),
+                          smld_step_on("cpu", config, weights, X[:b], small),
+                          config, weights, X[:b], small)
+    return dict(B=B, dtype="float32", ms_per_step=statistics.median(times), ms_all=times,
+                clips_per_s=1e3 * B / statistics.median(times), peak_mem_gib=peak,
+                loss=losses, check_B=b, card_vs_cpu=held)
+
+
+def smld_block(model, config):
+    """One Langevin block of cifar10_ncsnv2 through `make_block_sampler`: the
+    ladder cut to SMLD_LEVELS levels, the yml's n_steps_each and step_lr,
+    B=16 on the card with explicit draws; its first SMLD_CPU_B rows against
+    the same chain on the CPU (same weights, init and draws) within
+    SMLD_BLOCK_REL of the largest |x|, or, where the chain amplifies
+    rounding past that, within WITNESS_FACTOR times the CPU chain's own
+    spread from an init moved by WITNESS_REL. ms per evaluation."""
+    import copy
+
+    from mcvd_tpu_torch.diffusion import make_schedule
+    from mcvd_tpu_torch.eval import make_block_sampler
+    from mcvd_tpu_torch.models import get_model
+
+    config = copy.deepcopy(config)
+    config.model.num_classes = SMLD_LEVELS
+    sched = make_schedule(config)
+    n = config.sampling.n_steps_each
+    evals = SMLD_LEVELS * n + 1
+    d = config.data
+    B, sz, cf = 16, d.image_size, d.channels * d.num_frames
+    g = torch.Generator().manual_seed(70)
+    init = torch.rand(B, sz, sz, cf, generator=g)
+    noise = torch.randn(SMLD_LEVELS, n, B, sz, sz, cf, generator=g)
+    params = dict(model.named_parameters())
+    block = make_block_sampler(config, model, sched)
+    initc, noisec = init.cuda(), noise.cuda()
+    got = block(params, initc, None, step_noise=noisec)   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = block(params, initc, None, step_noise=noisec)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    check(got.shape == init.shape and bool(torch.isfinite(got).all()),
+          "smld block output not finite")
+    cpu = get_model(config, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cblock = make_block_sampler(config, cpu, sched)
+    cparams = dict(cpu.named_parameters())
+    b = SMLD_CPU_B
+    want = cblock(cparams, init[:b], None, step_noise=noise[:, :, :b])
+    big = float(want.abs().max())
+    diff = float((got[:b].cpu() - want).abs().max())
+    out = dict(B=B, levels=SMLD_LEVELS, n_steps_each=n, step_lr=config.sampling.step_lr,
+               evals=evals, wall_s=wall_s, ms_per_eval=1e3 * wall_s / evals, cpu_B=b,
+               max_abs_diff=diff, largest=big, out_range=[float(got.min()), float(got.max())])
+    if diff <= SMLD_BLOCK_REL * big:
+        out.update(bound="rel", rel_tol=SMLD_BLOCK_REL)
+        return out
+    delta = torch.randn(init[:b].shape, generator=g)
+    delta *= WITNESS_REL * float(init.abs().max()) / float(delta.abs().max())
+    far = float((cblock(cparams, init[:b] + delta, None, step_noise=noise[:, :, :b]) -
+                 want).abs().max())
+    check(diff <= WITNESS_FACTOR * far,
+          f"smld block card vs CPU max abs diff {diff} > {SMLD_BLOCK_REL} x {big} and > "
+          f"{WITNESS_FACTOR} x the CPU chain's own spread {far}")
+    out.update(bound="witness", witness_rel=WITNESS_REL, witness_max_abs_diff=far,
+               witness_factor=WITNESS_FACTOR)
+    return out
+
+
+def write_cifar(root):
+    """CIFAR-10 python pickles of random images (SMLD_CIFAR_IMAGES)."""
+    import pickle
+
+    rng = np.random.default_rng(80)
+    os.makedirs(root, exist_ok=True)
+    n_train, n_test = SMLD_CIFAR_IMAGES
+    for name in [f"data_batch_{i}" for i in range(1, 6)] + ["test_batch"]:
+        n = n_test if name == "test_batch" else n_train
+        with open(os.path.join(root, name), "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (n, 3072), dtype=np.uint8),
+                         b"labels": [int(v) for v in rng.integers(0, 10, n)]}, f)
+
+
+def smld_cli():
+    """The CLI on cifar10_ncsnv2.yml at full width (ngf 128) on synthetic
+    pickles, SMLD_CLI_MODS: --train to 3 (no kernel launched), then --sample
+    --ckpt 3 with sampling.inpainting and with sampling.interpolation; the
+    files, their keys and shapes, finite."""
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="mcvd_smld_cli_") as exp:
+        write_cifar(os.path.join(exp, "data"))
+        bs, n_interp = 4, 3
+        for run, n_iters, flags, mods, name, want in (
+                ("train", 3, ["--train"], [], None, None),
+                ("inpainting", 3, ["--sample", "--ckpt", "3"], ["sampling.inpainting=true"],
+                 "inpainting_3.npz", {"samples": (bs, 32, 32, 3), "refer": (bs, 32, 32, 3)}),
+                ("interpolation", 3, ["--sample", "--ckpt", "3"],
+                 ["sampling.interpolation=true"], "interpolation_3.npz",
+                 {"samples": (bs * n_interp, 32, 32, 3)})):
+            log, launches, wall_s = run_cli(exp, n_iters, *flags, mods=mods, config=SMLD_CONFIG,
+                                            base_mods=SMLD_CLI_MODS)
+            check_launches(launches, {}, f"smld cli {run}")
+            res = dict(wall_s=wall_s)
+            if run == "train":
+                steps = _steps_waits(log)
+                check(sorted(steps) == [1, 2, 3] and "training done at step 3" in log
+                      and all(np.isfinite(v[0]) for v in steps.values()),
+                      f"smld cli train: steps {steps}")
+                res.update(ms_by_step={k: v[1] for k, v in steps.items()},
+                           loss_by_step={k: v[0] for k, v in steps.items()})
+            else:
+                path = os.path.join(exp, "image_samples", "images", name)
+                check(os.path.exists(path), f"smld cli {run}: no {name}")
+                with np.load(path) as z:
+                    shapes = {k: z[k].shape for k in z.files}
+                    check(shapes == want and all(np.isfinite(z[k]).all() for k in z.files),
+                          f"smld cli {run}: {name} holds {shapes}, want {want}")
+                res["shapes"] = {k: list(v) for k, v in shapes.items()}
+            out[run] = res
+    return out
+
+
+def smld_ffhq(model, config):
+    """A synthetic `*r256.tfrecords` of SMLD_FFHQ_IMAGES images written by the
+    port's writer, read by `get_dataset` on ffhq.yml (the seed-2019 9 / 1
+    split), one batch of 2 through `DataLoader` into the 256-px model:
+    the images as written, a finite output of their shape."""
+    from mcvd_tpu_torch.data import DataLoader, data_transform, fold_frames, get_dataset
+    from mcvd_tpu_torch.data import tfrecord
+
+    rng = np.random.default_rng(90)
+    imgs = rng.integers(0, 256, (SMLD_FFHQ_IMAGES, 3, 256, 256), dtype=np.uint8)
+    with tempfile.TemporaryDirectory(prefix="mcvd_ffhq_") as root:
+        t0 = time.perf_counter()
+        tfrecord.write_examples(os.path.join(root, "ffhq-r256.tfrecords"),
+                                ({"data": [im.tobytes()], "shape": [3, 256, 256]}
+                                 for im in imgs))
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train, test = get_dataset(root, config)
+        read_s = time.perf_counter() - t0
+    check((len(train), len(test)) == (9, 1), f"ffhq split {len(train)} / {len(test)}")
+    X, _ = next(iter(DataLoader(train, batch_size=2, shuffle=False)))
+    flipped = [bool(train.dataset.random_flip and train.dataset._rng(i).integers(2) == 0)
+               for i in train.indices[:2]]
+    for j, i in enumerate(train.indices[:2]):
+        want = imgs[i].transpose(1, 2, 0)[:, ::-1] if flipped[j] else imgs[i].transpose(1, 2, 0)
+        check(np.array_equal(X[j, 0], want.astype(np.float32) / 255.0),
+              f"ffhq image {i} read back other than written")
+    x = fold_frames(data_transform(config, torch.from_numpy(X).cuda()))
+    with torch.inference_mode():
+        out = model(x.contiguous(memory_format=torch.channels_last),
+                    torch.zeros(2, dtype=torch.long, device="cuda"))
+    check(out.shape == (2, 3, 256, 256) and bool(torch.isfinite(out).all()),
+          f"ffhq batch through the model: {tuple(out.shape)}")
+    return dict(images=SMLD_FFHQ_IMAGES, split=[len(train), len(test)], write_s=write_s,
+                read_s=read_s, batch=list(X.shape), out_std=float(out.std()))
+
+
+def smld_groupnorm(card):
+    """cifar10_ncsnv2 with model.normalization=GroupNorm: `gn_fused` and
+    `gn_fused_bwd` at every shape `tools.gn_calls` reads from the model (B=16,
+    fp32; the form affine, eps 1e-6), one fp32 evaluation at B=16 against
+    `reference_ops()` within TRAIN_GRAD_REL of the largest output with
+    exact launch counts, and one fp32 step (B=4) against `reference_ops()`
+    with exact launch counts, held by `smld_hold_step`."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.tools.gn_calls import form, model_calls
+
+    config = load_config(repo_path(SMLD_CONFIG), ["model.normalization=GroupNorm"])
+    B = 16
+    gn, attn = model_calls(config, B)
+    check(attn == [] and len(gn) > 0, f"smld GroupNorm: {len(gn)} GroupNorm and "
+                                      f"{len(attn)} attention calls")
+    g = torch.Generator(device="cuda").manual_seed(100)
+    cases = []
+    for key in sorted({tuple(sorted(c.items())) for c in gn}):
+        c = dict(key)
+        shape = (c["B"], c["C"], c["H"], c["W"], 1, form(c), c["num_groups"], c["eps"],
+                 torch.float32)
+        cases += [dict(gn_fwd_case(g, *shape, compare=True),
+                       calls=sum(dict(sorted(x.items())) == c for x in gn)),
+                  gn_bwd_case(g, *shape, compare=True)]
+    model = _slice_model(config, 101)
+    model.eval()
+    d = config.data
+    gi = torch.Generator(device="cuda").manual_seed(102)
+    x = torch.rand(B, d.channels, d.image_size, d.image_size, generator=gi, device="cuda")
+    x = x.contiguous(memory_format=torch.channels_last)
+    t = torch.randint(0, config.model.num_classes, (B,), generator=gi, device="cuda")
+    with torch.inference_mode():
+        ops.reset_launches()
+        got = model(x, t)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        check_launches(launches, {"gn_fused": len(gn)}, "smld GroupNorm evaluation")
+        with ops.reference_ops():
+            want = model(x, t)
+    big = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    check(diff <= TRAIN_GRAD_REL * big,
+          f"smld GroupNorm evaluation: kernels vs plain {diff}, largest {big}")
+    config.model.dropout = 0.0
+    b = SMLD_STEP_CHECK_B
+    weights = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    del model
+    g = torch.Generator().manual_seed(103)
+    X = torch.rand(b, d.num_frames, d.image_size, d.image_size, d.channels, generator=g)
+    draws = {"labels": torch.randint(0, config.model.num_classes, (b,), generator=g),
+             "z": torch.randn(b, d.channels * d.num_frames, d.image_size, d.image_size,
+                              generator=g)}
+    kern = smld_step_on("cuda", config, weights, X, draws)
+    check_launches(kern[3], {"gn_fused": len(gn), "gn_fused_bwd": len(gn)},
+                   "smld GroupNorm step")
+    plain = smld_step_on("cuda", config, weights, X, draws, reference=True)
+    check_launches(plain[3], {}, "smld GroupNorm step under reference_ops")
+    step = smld_hold_step("smld GroupNorm step kernels vs plain", kern, plain, config,
+                          weights, X, draws)
+    return dict(gn_calls=len(gn), cases=cases,
+                eval=dict(B=B, max_abs_diff=diff, largest=big, launches=launches),
+                train_step=dict(B=b, launches=kern[3], **step))
+
+
+def phase_smld(card):
+    """The SMLD family on the card: the five evaluations of SMLD_MODELS, the
+    cifar10_ncsnv2 train step, one Langevin block through the port's
+    `make_block_sampler`, the CLI on synthetic CIFAR-10 pickles (--train,
+    --sample with inpainting and with interpolation), FFHQ through a
+    synthetic r256 shard and `get_dataset` into the 256-px model, and the
+    GroupNorm option (`model.normalization=GroupNorm`): an evaluation and a
+    step against `ops.reference_ops()` with exact launch counts, and
+    `gn_fused` / `gn_fused_bwd` at every shape `tools.gn_calls` reads from
+    that model."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
+    t0 = time.perf_counter()
+    evals, kept = [], {}
+    for name, (yml, mods, B, n_jax, on_cpu) in SMLD_MODELS.items():
+        out, model, config = smld_eval(name, yml, mods, B, n_jax, on_cpu)
+        evals.append(out)
+        if name in ("ncsnv2_32", "ncsnv2_deepest_256"):
+            kept[name] = (model, config)
+        else:
+            del model
+    torch.cuda.empty_cache()
+    seconds["evals"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ffhq = smld_ffhq(*kept.pop("ncsnv2_deepest_256"))
+    torch.cuda.empty_cache()
+    seconds["ffhq"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    block = smld_block(*kept["ncsnv2_32"])
+    seconds["block"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = smld_train(kept.pop("ncsnv2_32")[1])
+    torch.cuda.empty_cache()
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gn = smld_groupnorm(card)
+    seconds["groupnorm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cli = smld_cli()
+    seconds["cli"] = time.perf_counter() - t0
+    emit("smld", card=card, evals=evals, train_step=train, block=block, ffhq=ffhq,
+         groupnorm=gn, cli=cli, cli_mods=SMLD_CLI_MODS, seconds=seconds)
 
 
 def train_steps(config, dn, n_steps, want_launches):
@@ -2325,6 +2815,7 @@ def main():
     timed("train_slice", phase_train_slice, card)
     timed("wide_heads", phase_wide_heads, card)
     timed("small5", phase_small5, card)
+    timed("smld", phase_smld, card)
     train_launches, headline_ms = timed("train_headline", phase_train_headline, card)
     timed("eval_nets", phase_eval_nets, card)
     timed("cli", phase_cli, card, headline_ms)

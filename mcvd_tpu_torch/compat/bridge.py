@@ -17,6 +17,11 @@ applies the inverse layout transform:
   ActNorm Norm_0_scale/_bias        -> Norm_0.weight/.bias
   Embed embedding                   -> weight
 
+The legacy ncsn models name their modules after the flax tree and carry
+`flax_layout = "ncsn"`: their leaves map by `flax_names.ncsn_path_to_torch`,
+the same layout kinds, the InstanceNorm++ scales and class tables as they
+are (both packages store them around their 1.0 offsets).
+
 Upstream wraps each Conv3d as `.conv` (layers3d.py MyConv3d), which the
 flax tree does not name: a module whose `weight` is 5-D puts its weight and
 bias under `.conv`, as the JAX package's converter looks them up there.
@@ -30,7 +35,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
-from .flax_names import flax_path_to_torch
+from .flax_names import LAYOUTS
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -66,12 +71,20 @@ def torch_layout(path: Tuple[str, ...], w: np.ndarray, kind: str) -> np.ndarray:
                      f"{kind!r}")
 
 
-def torch_state_dict_from_flax(params_numpy: Mapping) -> Dict[str, torch.Tensor]:
-    """{torch key: tensor} for every leaf of a flax `params` tree; raises on a
-    leaf it cannot map or on two leaves mapping to one key."""
+def layout_of(model: torch.nn.Module) -> str:
+    """The flax naming of `model`: its `flax_layout`, else "upstream"."""
+    return getattr(model, "flax_layout", "upstream")
+
+
+def torch_state_dict_from_flax(params_numpy: Mapping,
+                               layout: str = "upstream") -> Dict[str, torch.Tensor]:
+    """{torch key: tensor} for every leaf of a flax `params` tree, named by
+    `layout` ("upstream" or "ncsn", `flax_names.LAYOUTS`); raises on a leaf
+    it cannot map or on two leaves mapping to one key."""
+    names = LAYOUTS[layout]
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf, parent in _leaves(params_numpy):
-        key, kind, base = flax_path_to_torch(path)
+        key, kind, base = names(path)
         w = torch_layout(path, np.asarray(leaf, dtype=np.float32), kind)
         if np.ndim(parent.get("weight")) == 5 and path[-1] in ("weight", "bias"):
             key = f"{base}.conv.{path[-1]}"
@@ -85,7 +98,7 @@ def torch_state_dict_from_flax(params_numpy: Mapping) -> Dict[str, torch.Tensor]
 def load_flax_params(model: torch.nn.Module, params_numpy: Mapping) -> None:
     """Load a flax `params` tree into `model`: every parameter must be set
     and every leaf used; only buffers (schedule tables) may stay as they are."""
-    sd = torch_state_dict_from_flax(params_numpy)
+    sd = torch_state_dict_from_flax(params_numpy, layout_of(model))
     missing, unexpected = model.load_state_dict(sd, strict=False)
     buffers = {n for n, _ in model.named_buffers()}
     if unexpected or set(missing) - buffers:

@@ -1,8 +1,13 @@
-"""flax param path -> upstream torch key and layout kind.
+"""flax param path -> the port's torch key and layout kind.
 
-The port's own copy of `mcvd_tpu/compat/torch_ckpt.py::_flax_path_to_torch`
-(the port imports nothing of `mcvd_tpu`); a CPU test feeds every param path
-of the tiny and the flagship JAX init to both and asserts equal results.
+`flax_path_to_torch` is the port's own copy of
+`mcvd_tpu/compat/torch_ckpt.py::_flax_path_to_torch` (the port imports
+nothing of `mcvd_tpu`), the map to upstream's torch names; a CPU test feeds
+every param path of the tiny and the flagship JAX init to both and asserts
+equal results. `ncsn_path_to_torch` names the legacy ncsn models, which
+have no upstream torch model: the port names their modules after the flax
+tree (`models/legacy_blocks.py`). `LAYOUTS` picks one by a model's
+`flax_layout` ("upstream" where the model has none).
 """
 
 from __future__ import annotations
@@ -65,3 +70,28 @@ def flax_path_to_torch(path: Tuple[str, ...]) -> Tuple[str, str, str]:
         # legacy UNet Nin stores (out, in)
         return f"{base}.weights", "transpose2d", base
     raise KeyError(f"unmapped flax leaf {path}")
+
+
+# the legacy ncsn norms' leaves, copied as they are
+_NCSN_DIRECT = ("bias", "alpha", "gamma", "beta")
+
+
+def ncsn_path_to_torch(path: Tuple[str, ...]) -> Tuple[str, str, str]:
+    """Map a flax param path of the ncsn models, e.g. ('refine1',
+    'adapt_convs_0', '1_1_conv', 'Conv_0', 'kernel'), to (torch key, layout
+    kind, torch module path): the flax `Conv2d` wrapper's inner `Conv_0` is
+    dropped, every other module keeps its flax name."""
+    *mods, leaf = path
+    base = ".".join(m for m in mods if m != "Conv_0")
+    if leaf == "kernel":
+        return f"{base}.weight", "conv_or_dense", base
+    if leaf == "embedding":
+        return f"{base}.weight", "embed", base
+    if leaf == "scale":    # the GroupNorm option's layers.GroupNorm
+        return f"{base}.weight", "direct", base
+    if leaf in _NCSN_DIRECT:
+        return f"{base}.{leaf}", "direct", base
+    raise KeyError(f"unmapped flax leaf {path}")
+
+
+LAYOUTS = {"upstream": flax_path_to_torch, "ncsn": ncsn_path_to_torch}

@@ -108,20 +108,22 @@ def train_state_from_export(path: str, config, device="cpu", parts=None):
     parts, when the caller has read them), on `device`."""
     from ..models import get_model
     from ..train import create_train_state
-    from .bridge import load_flax_params
+    from .bridge import layout_of, load_flax_params
 
     parts = parts or read_export(path)[0]
     model = get_model(config, device="cpu")
     load_flax_params(model, parts["params"])
     state = create_train_state(config, model, device=device)
-    _copy_named(state.ema_params, torch_state_dict_from_flax(parts["ema_params"]), "ema_params")
+    layout = layout_of(model)
+    _copy_named(state.ema_params, torch_state_dict_from_flax(parts["ema_params"], layout),
+                "ema_params")
     slots = set(state.opt_state) - {"count"}
     if set(parts["opt"]) != slots:
         raise KeyError(f"jax_ckpt: the export's optax moments {sorted(parts['opt'])} are not "
                        f"the config's optimizer's {sorted(slots)}")
     for slot in slots:
-        _copy_named(state.opt_state[slot], torch_state_dict_from_flax(parts["opt"][slot]),
-                    f"opt_state {slot}")
+        _copy_named(state.opt_state[slot],
+                    torch_state_dict_from_flax(parts["opt"][slot], layout), f"opt_state {slot}")
     state.opt_state["count"] = parts["count"]
     state.step, state.epoch = parts["step"], parts["epoch"]
     return model, state

@@ -3,18 +3,21 @@
 
 Video datasets give (T, H, W, C) float32 clips in [0, 1]. Ported readers:
 StochasticMovingMNIST and MovingMNIST (its deterministic bounce), KTH, BAIR,
-Cityscapes and UCF101 (the sharded HDF5 store, read in numpy by `h5.py`)
-and CIFAR10 (single-frame videos). CelebA, LSUN, FFHQ and ImageNet raise
-NotImplementedError (ROADMAP Queue 1 item 9: they need an image decoder).
+Cityscapes and UCF101 (the sharded HDF5 store, read in numpy by `h5.py`),
+CIFAR10 and FFHQ (single-frame videos; FFHQ from StyleGAN's TFRecords).
+CelebA, LSUN and ImageNet raise NotImplementedError (ROADMAP Queue 1 item
+9-left: they need an image decoder).
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
+
 from .conditioning import conditioning_fn, fold_frames, get_mode, unfold_frames
 from .h5 import HDF5Dataset, HDF5Maker, KTHMaker, UCFMaker
-from .image_datasets import CIFAR10Dataset
+from .image_datasets import CIFAR10Dataset, FFHQTFRecordsDataset
 from .loader import DataLoader, prefetch_to_device
 from .smmnist import StochasticMovingMNIST
 from .transforms import data_transform, inverse_data_transform
@@ -92,10 +95,19 @@ def get_dataset(data_path, config, video_frames_pred=0, start_at=0, seed=0):
         dataset = CIFAR10Dataset(data_path, train=True, random_flip=config.data.random_flip,
                                  seed=seed)
         test_dataset = CIFAR10Dataset(data_path, train=False, seed=seed + 1)
+    elif name == "FFHQ":
+        full = FFHQTFRecordsDataset(data_path, resolution=config.data.image_size,
+                                    random_flip=config.data.random_flip, seed=seed)
+        # upstream's 90/10 split of a seed-2019 shuffle (datasets/__init__.py:133-141)
+        idx = np.arange(len(full))
+        np.random.default_rng(2019).shuffle(idx)
+        cut = int(len(full) * 0.9)
+        dataset = Subset(full, [int(i) for i in idx[:cut]])
+        test_dataset = Subset(full, [int(i) for i in idx[cut:]])
     else:
         raise NotImplementedError(
-            f"dataset {name}: not ported yet (ROADMAP Queue 1 item 9: its images are "
-            "decoded by PIL or read from TFRecords)")
+            f"dataset {name}: not ported yet (ROADMAP Queue 1 item 9-left: its images "
+            "are decoded by PIL)")
 
     # clamp to the split: a larger subset would fail mid-epoch
     subset_num = getattr(config.data, "subset", -1)
@@ -109,7 +121,7 @@ def get_dataset(data_path, config, video_frames_pred=0, start_at=0, seed=0):
 
 
 __all__ = ["BAIRDataset", "CIFAR10Dataset", "CityscapesDataset", "DATASETS", "DataLoader",
-           "HDF5Dataset", "HDF5Maker", "KTHDataset", "KTHMaker", "StochasticMovingMNIST",
-           "Subset", "UCF101Dataset", "UCFMaker", "conditioning_fn", "data_transform",
-           "fold_frames", "get_dataset", "get_mode", "inverse_data_transform",
+           "FFHQTFRecordsDataset", "HDF5Dataset", "HDF5Maker", "KTHDataset", "KTHMaker",
+           "StochasticMovingMNIST", "Subset", "UCF101Dataset", "UCFMaker", "conditioning_fn",
+           "data_transform", "fold_frames", "get_dataset", "get_mode", "inverse_data_transform",
            "prefetch_to_device", "unfold_frames"]

@@ -4,17 +4,21 @@ each __getitem__ returns a (1, H, W, C) float32 "video" in [0,1] and a
 target, so the image configs run through the video pipeline (num_frames=1,
 num_frames_cond=0 is unconditional image diffusion).
 
-CIFAR-10 (its python pickles) is ported. CelebA, LSUN and ImageFolder
-decode JPEG/PNG through PIL, and FFHQ reads TFRecords for an ncsnv2 config;
-`get_dataset` refuses them (ROADMAP Queue 1 item 9).
+CIFAR-10 (its python pickles) and FFHQ (StyleGAN's TFRecords of raw CHW
+uint8, through the pure-Python reader `tfrecord.py`) are ported. CelebA,
+LSUN and ImageFolder decode JPEG/PNG through PIL; `get_dataset` refuses them
+(ROADMAP Queue 1 item 9-left).
 """
 
 from __future__ import annotations
 
+import glob
 import os
 import pickle
 
 import numpy as np
+
+from .tfrecord import read_examples
 
 
 def _to_video(img: np.ndarray) -> np.ndarray:
@@ -84,3 +88,31 @@ class CIFAR10Dataset(_ImageBase):
     def __getitem__(self, index):
         video = self._maybe_flip(_to_video(self.images[index]), index)
         return video, int(self.targets[index])
+
+
+class FFHQTFRecordsDataset(_ImageBase):
+    """StyleGAN's FFHQ shards, `*r{resolution:02d}.tfrecords` (else any
+    `*.tfrecords`) under `data_path`: each example's bytes feature 'data'
+    holds raw CHW uint8 and its int64 'shape' the shape (upstream
+    datasets/ffhq_tfrecords.py, which needs TensorFlow). Every image is read
+    at construction."""
+
+    def __init__(self, data_path: str, resolution: int = 256, random_flip: bool = False,
+                 seed: int = 0):
+        super().__init__(seed, random_flip)
+        paths = sorted(glob.glob(os.path.join(data_path, f"*r{resolution:02d}.tfrecords"))
+                       or glob.glob(os.path.join(data_path, "*.tfrecords")))
+        if not paths:
+            raise FileNotFoundError(f"no .tfrecords under {data_path}")
+        self.images = []
+        for p in paths:
+            for ex in read_examples(p):
+                shape = [int(d) for d in ex["shape"]]
+                arr = np.frombuffer(b"".join(ex["data"]), np.uint8).reshape(shape)
+                self.images.append(arr.transpose(1, 2, 0))   # CHW -> HWC
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, index):
+        return self._maybe_flip(_to_video(self.images[index]), index), 0

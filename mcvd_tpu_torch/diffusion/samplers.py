@@ -1,4 +1,5 @@
-"""The DDPM-family reverse-diffusion samplers, DDPM, DDIM (eta 0) and F-PNDM
+"""The reverse-diffusion samplers: the DDPM family's DDPM, DDIM (eta 0) and
+F-PNDM, and SMLD's annealed Langevin dynamics and its consistent form
 (counterpart of `mcvd_tpu/diffusion/samplers.py`).
 
 `eps_fn(x, labels) -> eps` is the score network bound to its weights and
@@ -320,14 +321,188 @@ def fpndm_sampler(
     return torch.stack(traj)
 
 
-SAMPLERS = {"DDPM": ddpm_sampler, "DDIM": ddim_sampler, "FPNDM": fpndm_sampler}
+def check_n_steps_each(n_steps_each: int) -> int:
+    """The Langevin samplers need at least one inner step a noise level; the
+    DDPM-family ymls carry `sampling.n_steps_each: 0`, a dead knob there,
+    which would otherwise fail deep inside a reshape."""
+    if int(n_steps_each) < 1:
+        raise ValueError(
+            f"sampling.n_steps_each={n_steps_each}: SMLD/Langevin samplers "
+            "need at least 1 inner step per noise level (DDPM-schema "
+            "configs set it to 0 — set sampling.n_steps_each and "
+            "sampling.step_lr for Langevin sampling)")
+    return int(n_steps_each)
+
+
+def _step_draws(step_noise, n: int, shape, what: str):
+    """`step_noise` as n per-step draws: (levels, n_steps_each, *shape) or
+    (n, *shape); None stays None."""
+    if step_noise is None:
+        return None
+    draws = step_noise.reshape(-1, *shape)
+    if len(draws) < n:
+        raise ValueError(f"{what}: step_noise holds {len(draws)} draws, {n} steps need {n}")
+    return draws
+
+
+def anneal_langevin_dynamics(
+    x_init: torch.Tensor,
+    eps_fn: EpsFn,
+    sched: DiffusionSchedule,
+    *,
+    n_steps_each: int = 200,
+    step_lr: float = 0.000008,
+    final_only: bool = True,
+    denoise: bool = True,
+    harm_mean: bool = False,
+    frac_steps: Optional[float] = None,
+    same_noise: bool = False,
+    noise_val: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    **_: object,
+) -> torch.Tensor:
+    """SMLD annealed Langevin dynamics (upstream models/__init__.py:343-410).
+    The network gives z, the score is -z/sigma, so at level c (label c, of
+    the ladder cut by `frac_steps`) each of the n_steps_each steps is
+        x = x - step/sigma * eps(x, c) + sqrt(2 step) * noise,
+        step = step_lr * (sigma / sigma_L)^2
+    (eps * hm / sigma with `harm_mean`, hm the ladder's harmonic mean);
+    `denoise` then subtracts sigma_L * eps(x, L-1). Draws: `same_noise`
+    reuses `noise_val` (x_init when None) at every step; else `step_noise`,
+    (L, n_steps_each, *x.shape) or (L * n_steps_each, *x.shape), or draws
+    from `generator`. The coefficients are the JAX sampler's fp32 scalars.
+    Returns x[None] if final_only, else the trajectory (L*n[+1], *x.shape)."""
+    n_steps_each = check_n_steps_each(n_steps_each)
+    if sched.sigmas is None:
+        raise ValueError("anneal_langevin_dynamics needs an SMLD schedule")
+    f32 = np.float32
+    raw = sched.sigmas
+    if frac_steps is not None:
+        raw = raw[int((1 - frac_steps) * len(raw)):]
+    sigmas = np.asarray(raw, f32)
+    L = len(sigmas)
+    sigma_L = sigmas[-1]
+    hm = float(len(raw) / np.sum(1.0 / raw)) if harm_mean else None
+    if same_noise and noise_val is None:
+        noise_val = x_init
+    draws = None if same_noise else _step_draws(step_noise, L * n_steps_each, x_init.shape,
+                                                "anneal_langevin_dynamics")
+    B = x_init.shape[0]
+    x = x_init
+    traj = []
+    for c in range(L):
+        sigma = sigmas[c]
+        step = f32(step_lr) * (sigma / sigma_L) ** 2
+        c_grad, c_noise = float(step / sigma), float(np.sqrt(step * f32(2.0)))
+        labels = torch.full((B,), c, dtype=torch.long, device=x.device)
+        for j in range(n_steps_each):
+            grad = eps_fn(x, labels).to(x.dtype)
+            if harm_mean:
+                grad = grad * hm / float(sigma)
+            if same_noise:
+                noise = noise_val
+            elif draws is not None:
+                noise = draws[c * n_steps_each + j]
+            else:
+                noise = _draw(generator, x)
+            x = x - c_grad * grad + c_noise * noise
+            if not final_only:
+                traj.append(x)
+    if denoise:
+        labels = torch.full((B,), L - 1, dtype=torch.long, device=x.device)
+        x = x - float(sigma_L) * eps_fn(x, labels).to(x.dtype)
+        if not final_only:
+            traj.append(x)
+    if final_only:
+        return x[None]
+    return torch.stack(traj)
+
+
+def consistent_ladder(sched: DiffusionSchedule, n_steps_each: int, step_lr: float):
+    """The consistent samplers' tables (upstream models/__init__.py:486-520):
+    the geomspace ladder from sigma_1 to sigma_L in (L-1)*n + 1 fp32 steps,
+    each step's next sigma (the last repeated), the noise scale beta =
+    sqrt(1 - (gamma (1 - eta))^2), gamma = sigma / sigma_next, and eta =
+    step_lr / sigma_L^2. step_lr must lie strictly within sigma_L^2 (1 -+
+    sigma_T / sigma_{T-1}) (asserted, as upstream does)."""
+    sigmas = sched.sigmas
+    L = len(sigmas)
+    sigma_begin, sigma_end = float(sigmas[0]), float(sigmas[-1])
+    ladder = np.geomspace(sigma_begin, sigma_end, (L - 1) * n_steps_each + 1).astype(
+        np.float32)
+    smallest_invgamma = ladder[-1] / ladder[-2]
+    lower = sigma_end ** 2 * (1 - smallest_invgamma)
+    higher = sigma_end ** 2 * (1 + smallest_invgamma)
+    assert lower < step_lr < higher, f"Could not satisfy {lower} < {step_lr} < {higher}"
+    eta = step_lr / (sigma_end ** 2)
+    nxt = np.concatenate([ladder[1:], ladder[-1:]])
+    beta = np.sqrt(np.maximum(0.0, 1.0 - (ladder / nxt * (1.0 - eta)) ** 2))
+    return ladder, nxt, beta.astype(np.float32), eta
+
+
+def anneal_langevin_dynamics_consistent(
+    x_init: torch.Tensor,
+    eps_fn_sigma: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    sched: DiffusionSchedule,
+    *,
+    n_steps_each: int = 200,
+    step_lr: float = 0.000008,
+    final_only: bool = True,
+    denoise: bool = True,
+    eps_fn_label: Optional[EpsFn] = None,
+    generator: Optional[torch.Generator] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    **_: object,
+) -> torch.Tensor:
+    """Consistent annealed sampling (upstream models/__init__.py:486-579) on
+    `consistent_ladder`: at each sigma of the ladder
+        x = x - eta sigma eps(x, sigma), then + beta sigma_next noise
+    (no noise at the last). `eps_fn_sigma(x, sigmas)` takes the raw
+    per-example sigma values; the final denoise subtracts sigma_L eps by
+    `eps_fn_label(x, L-1)` where given, else by sigma. Draws: `step_noise`
+    (T, *x.shape) or (T-1, ...), T the ladder's length (entry T-1 is never
+    read), or from `generator`."""
+    n_steps_each = check_n_steps_each(n_steps_each)
+    if sched.sigmas is None:
+        raise ValueError("anneal_langevin_dynamics_consistent needs an SMLD schedule")
+    ladder, nxt, beta, eta = consistent_ladder(sched, n_steps_each, step_lr)
+    T = len(ladder)
+    draws = _step_draws(step_noise, T - 1, x_init.shape, "anneal_langevin_dynamics_consistent")
+    f32 = np.float32
+    B = x_init.shape[0]
+    x = x_init
+    traj = []
+    for i in range(T):
+        used = torch.full((B,), float(ladder[i]), dtype=x.dtype, device=x.device)
+        grad = eps_fn_sigma(x, used).to(x.dtype)
+        x = x - float(f32(eta) * ladder[i]) * grad
+        if i < T - 1:
+            noise = draws[i] if draws is not None else _draw(generator, x)
+            x = x + float(beta[i] * nxt[i]) * noise
+        if not final_only:
+            traj.append(x)
+    if denoise:
+        sigma_L = float(f32(sched.sigmas[-1]))
+        if eps_fn_label is not None:
+            labels = torch.full((B,), len(sched.sigmas) - 1, dtype=torch.long,
+                                device=x.device)
+            x = x - sigma_L * eps_fn_label(x, labels).to(x.dtype)
+        else:
+            used = torch.full((B,), float(ladder[-1]), dtype=x.dtype, device=x.device)
+            x = x - sigma_L * eps_fn_sigma(x, used).to(x.dtype)
+        if not final_only:
+            traj.append(x)
+    if final_only:
+        return x[None]
+    return torch.stack(traj)
+
+
+SAMPLERS = {"DDPM": ddpm_sampler, "DDIM": ddim_sampler, "FPNDM": fpndm_sampler,
+            "SMLD": anneal_langevin_dynamics}
 
 
 def get_sampler(version: str):
-    """Sampler for `model.version` (DDPM, DDIM, FPNDM); SMLD's Langevin
-    samplers raise."""
-    version = version.upper()
-    if version not in SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {version}: not ported yet (ROADMAP Queue 1 item 12: other samplers)")
-    return SAMPLERS[version]
+    """Sampler for `model.version`: DDPM, DDIM, FPNDM, or SMLD (annealed
+    Langevin dynamics)."""
+    return SAMPLERS[version.upper()]

@@ -45,7 +45,9 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
     *, generator=None, inj_noise=None, step_noise=None, cond_noise=None) ->
     (B, H, W, F*C), the JAX sampler's `block(params, key, init, cond,
     cond_mask)` less the key; the sampler is `model.version`'s (DDPM, DDIM,
-    FPNDM).
+    FPNDM, or SMLD's annealed Langevin dynamics, which takes only
+    `sampling.denoise`, `n_steps_each` (default 200) and `step_lr` (8e-6);
+    its `step_noise` is (L, n_steps_each, B, H, W, F*C)).
 
     With `model.noise_in_cond` every evaluation of the block diffuses cond
     with one draw, as the JAX block passes its one key to each: `cond_noise`
@@ -87,6 +89,10 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
         t_min=getattr(sampling, "init_prev_t", -1),
         gamma=getattr(config.model, "gamma", False),
     )
+    if version == "SMLD":   # the Langevin sampler takes these only
+        kwargs = dict(final_only=True, denoise=kwargs["denoise"],
+                      n_steps_each=getattr(sampling, "n_steps_each", 200),
+                      step_lr=getattr(sampling, "step_lr", 8e-6))
     comp_dtype = _DTYPES[getattr(sampling, "compute_dtype", "float32")]
     net = copy.deepcopy(model).to(comp_dtype).eval()
     casts = {}   # (member, name) -> (source tensor, its _version, the cast)

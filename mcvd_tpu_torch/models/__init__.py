@@ -6,22 +6,24 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from . import blocks, layers, resample
 from .layers import init_weights
 from .ncsnpp import ARCHS, NCSNpp, UNetMoreDDPM
+from .ncsnv2 import (CondRefineNetDilated, NCSNv2, NCSNv2Deeper, NCSNv2Deepest,
+                     get_ncsn_model)
 from .unet import UNetLegacy
 
 
 def build(config) -> torch.nn.Module:
     """The module of `config.model.arch`, built with zeros (nothing drawn, on
     the current default device): `unetmore`, `unetmore3d` and
-    `unetmorepseudo3d` build `UNetMoreDDPM`, `unet` the legacy `UNetLegacy`;
-    ncsn and ncsnv2 raise (ROADMAP Queue 1 item 12-left)."""
+    `unetmorepseudo3d` build `UNetMoreDDPM`, `unet` the legacy `UNetLegacy`,
+    `ncsn` NCSNv1 and `ncsnv2` the NCSNv2 of the image size
+    (`ncsnv2.get_ncsn_model`)."""
     arch = getattr(config.model, "arch", "unetmore")
     if arch in ARCHS:
         return UNetMoreDDPM(config)
     if arch == "unet":
         return UNetLegacy(config)
     if arch in ("ncsn", "ncsnv2"):
-        raise NotImplementedError(
-            f"arch {arch!r} not ported yet (ROADMAP Queue 1 item 12-left: ncsnv2)")
+        return get_ncsn_model(config)
     raise ValueError(f"arch not valid: {arch} (expected unet/unetmore/unetmore3d/"
                      f"unetmorepseudo3d/ncsn/ncsnv2)")
 
@@ -44,5 +46,6 @@ def get_model(config, *, generator: Optional[torch.Generator] = None,
     return model
 
 
-__all__ = ["NCSNpp", "UNetLegacy", "UNetMoreDDPM", "build", "get_model", "blocks", "layers",
+__all__ = ["CondRefineNetDilated", "NCSNpp", "NCSNv2", "NCSNv2Deeper", "NCSNv2Deepest",
+           "UNetLegacy", "UNetMoreDDPM", "build", "get_model", "blocks", "layers",
            "resample"]

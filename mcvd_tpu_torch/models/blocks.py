@@ -111,8 +111,10 @@ def make_convs(mode: str, n_frames: int, act: bool = True):
 
 
 def _tokens_as_image(t: torch.Tensor, H: int, W: int) -> torch.Tensor:
-    """(B, T, C) tokens, T = H*W, as a (B, C, H, W) channels_last image."""
-    return t.reshape(t.shape[0], H, W, t.shape[2]).permute(0, 3, 1, 2)
+    """(B, T, C) tokens, T = H*W, as a (B, C, H, W) channels_last image (a
+    copy where `t` is a strided view, as the folded frames are at B=1)."""
+    return t.reshape(t.shape[0], H, W, t.shape[2]).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
 
 
 class AttnBlock3d(nn.Module):

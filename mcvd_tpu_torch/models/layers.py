@@ -150,9 +150,11 @@ def nhwc_fold(x: torch.Tensor, N: int) -> torch.Tensor:
 
 
 def nchw_unfold(x: torch.Tensor) -> torch.Tensor:
-    """(B, H, W, C, N) -> (B, C*N, H, W), stored channels_last."""
+    """(B, H, W, C, N) -> (B, C*N, H, W), stored channels_last (a copy where
+    the reshape's view is not, as for a conv's NCDHW output at B=1)."""
     B, H, W, C, N = x.shape
-    return x.reshape(B, H, W, C * N).permute(0, 3, 1, 2)
+    return x.reshape(B, H, W, C * N).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
 
 
 class _ZeroInit:
@@ -243,9 +245,12 @@ class FrameConverter(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Draw every weight of `module` in `modules()` order from `generator`
     (CPU). Biases and GroupNorm shifts are zero, GroupNorm scales one, the
-    cond-mask embedding N(0, 1)."""
+    cond-mask embedding N(0, 1). A module with a `draw_weights(generator)`
+    method draws its own (the legacy ncsn norms and dilated convs)."""
     for m in module.modules():
-        if isinstance(m, (Conv2d, Linear, UpDownConv2d, FrameConverter, _ZeroInit)):
+        if hasattr(m, "draw_weights"):
+            m.draw_weights(generator)
+        elif isinstance(m, (Conv2d, Linear, UpDownConv2d, FrameConverter, _ZeroInit)):
             default_init_(m.weight, m.init_scale, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
@@ -293,13 +298,15 @@ def group_norm_folded(
     act: bool = False,
 ):
     """GroupNorm(+affine)(+AdaGN)(+SiLU) over (B, C*N, H, W): the plain
-    version of the GroupNorm kernel. Stats in fp32 as E[x^2]-mean^2; channel
-    index c*N+n (channel-major frame fold) belongs to the group of c, so a
-    group is a contiguous run of (C/G)*N channels. The tail folds into one
-    per-(b, channel) y = A*x + B, then SiLU. Returns (y, A, B)."""
+    version of the GroupNorm kernel. Stats in fp32 (fp64 for fp64 x) as
+    E[x^2]-mean^2; channel index c*N+n (channel-major frame fold) belongs to
+    the group of c, so a group is a contiguous run of (C/G)*N channels. The
+    tail folds into one per-(b, channel) y = A*x + B, then SiLU. Returns (y,
+    A, B)."""
     B, CN = x.shape[0], x.shape[1]
     G = num_groups
-    xf = x.float()
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct)
     dims = tuple(range(2, x.ndim))
     S = int(np.prod(x.shape[2:]))
     s1 = xf.sum(dims).view(B, G, -1).sum(-1)
@@ -311,14 +318,14 @@ def group_norm_folded(
     A = rstd_g.repeat_interleave(CN // G, dim=1)
     Bc = (-mean_g * rstd_g).repeat_interleave(CN // G, dim=1)
     if gamma is not None:
-        g = gamma.float().repeat_interleave(frames_last)
-        b = beta.float().repeat_interleave(frames_last)
+        g = gamma.to(ct).repeat_interleave(frames_last)
+        b = beta.to(ct).repeat_interleave(frames_last)
         A = A * g
         Bc = Bc * g + b
     if scale is not None:
-        e = 1.0 + scale.float()
+        e = 1.0 + scale.to(ct)
         A = A * e
-        Bc = Bc * e + shift.float()
+        Bc = Bc * e + shift.to(ct)
     bshape = (B, CN) + (1,) * (x.ndim - 2)
     y = xf * A.view(bshape) + Bc.view(bshape)
     if act:

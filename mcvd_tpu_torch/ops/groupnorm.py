@@ -228,7 +228,9 @@ def bwd_plan(B: int, CN: int, H: int, W: int, dtype: torch.dtype, num_groups: in
 def _check_x(x: torch.Tensor, name: str) -> None:
     if x.ndim != 4:
         raise ValueError(f"{name}: x must be (B, C, H, W), got {tuple(x.shape)}")
-    if x.dtype not in _DTYPES:
+    # fp64 only where the plain version runs, which then computes in fp64 (a
+    # reference for the fp32 steps' own rounding)
+    if x.dtype not in _DTYPES and not (x.dtype == torch.float64 and not use_kernel(x)):
         raise TypeError(f"{name}: x dtype {x.dtype} not in {_DTYPES}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError(f"{name}: x must be channels_last contiguous")
@@ -320,13 +322,15 @@ def group_norm_bwd_reference(x, g, num_groups, *, eps, gamma=None, beta=None, sc
                              shift=None, frames_last=1, act=False):
     """The plain VJP: (dx, dgamma, dbeta, dscale, dshift), None where the
     input is None. Follows the JAX package's `_fgn_bwd` line by line, in fp32
-    on the NCHW layout (statistics recomputed, the variance two-pass as
-    `jnp.var`); dx comes back in x's dtype, channels_last, the others fp32."""
+    (fp64 for fp64 x) on the NCHW layout (statistics recomputed, the
+    variance two-pass as `jnp.var`); dx comes back in x's dtype,
+    channels_last, the others in the compute dtype."""
     B, CN, H, W = x.shape
     G, N = num_groups, frames_last
     C = CN // N
     has_affine, has_emb = gamma is not None, scale is not None
-    xf, gf = x.float(), g.float()
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf, gf = x.to(ct), g.to(ct)
     xr = xf.reshape(B, G, CN // G, H, W)
     mean = xr.mean(dim=(2, 3, 4), keepdim=True)
     var = xr.var(dim=(2, 3, 4), unbiased=False, keepdim=True)
@@ -336,14 +340,14 @@ def group_norm_bwd_reference(x, g, num_groups, *, eps, gamma=None, beta=None, sc
     def col(t):   # (CN,) or (B, CN) -> broadcast over (B, CN, H, W)
         return t.reshape(-1, CN, 1, 1)
 
-    g_cn = gamma.float().repeat_interleave(N) if has_affine else None
-    b_cn = beta.float().repeat_interleave(N) if has_affine else None
-    sc = scale.float() if has_emb else None
+    g_cn = gamma.to(ct).repeat_interleave(N) if has_affine else None
+    b_cn = beta.to(ct).repeat_interleave(N) if has_affine else None
+    sc = scale.to(ct) if has_emb else None
     affine_part = x_hat * col(g_cn) + col(b_cn) if has_affine else x_hat
     if act:
         u = affine_part
         if has_emb:
-            u = u * (1.0 + col(sc)) + col(shift.float())
+            u = u * (1.0 + col(sc)) + col(shift.to(ct))
         sig = torch.sigmoid(u)
         dz = gf * (sig + u * sig * (1 - sig))
     else:

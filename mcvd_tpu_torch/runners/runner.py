@@ -7,9 +7,9 @@ checkpoints, meters and plots, in-training video_gen at each snapshot),
 LPIPS where their weight files are found), `sample` (a conditional batch, or
 the FID sample dump), `test` (the mean DSM loss over the test split per
 checkpoint) and `fast_fid` (FID and kNN precision/recall per checkpoint,
-plain or with an ensemble of checkpoints). The metric networks run on the
-runner's device. `sample`'s SMLD inpainting and interpolation branches wait
-for ROADMAP Queue 1 item 12.
+plain or with an ensemble of checkpoints; SMLD's inpainting and
+interpolation branches of `sample`). The metric networks run on the
+runner's device.
 
 One process on one device: the card unless `args.device` is "cpu". The
 score network's GroupNorm and attention run through the port's kernels on
@@ -27,7 +27,9 @@ Not carried over from the JAX runner, and why:
   * the stall watchdog (`training.stall_timeout`) and the profiler hook
     (`training.profile_at_step`), both built around the TPU backend; the
     port's profiles come from `tools/profile_eval`;
-  * multi-process training and `chunk_block`, the TPU per-call batch cap.
+  * multi-process training and `chunk_block`, the TPU per-call batch cap;
+    so the Langevin branches run whole in the one process, without the JAX
+    runner's `wrap_chain_collective`.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.func import functional_call
 
 from ..compat import yaml_subset
 from ..config import getattr_nested
@@ -379,13 +382,13 @@ class Runner:
         """A conditional batch sampled from checkpoint `ckpt` into
         `samples_{ckpt}.npz` (keys samples, real, cond: folded (B, H, W,
         F*C) in [0, 1]; upstream `sample`, ncsn_runner.py:914-1301). With
-        sampling.fid, the FID sample dump instead."""
+        sampling.fid, the FID sample dump instead; with sampling.inpainting
+        or sampling.interpolation (SMLD), the Langevin branches."""
         args, config = self.args, self.config
-        for opt in ("inpainting", "interpolation"):
-            if getattr(config.sampling, opt, False):
-                raise NotImplementedError(
-                    f"sample with sampling.{opt}: the SMLD Langevin branch is not ported "
-                    f"yet (ROADMAP Queue 1 item 12)")
+        if getattr(config.sampling, "inpainting", False):
+            return self._sample_inpainting(ckpt)
+        if getattr(config.sampling, "interpolation", False):
+            return self._sample_interpolation(ckpt)
         if getattr(config.sampling, "fid", False):
             return self._sample_fid_loop(ckpt)
         params, step = self._load_eval_params(ckpt)
@@ -429,6 +432,99 @@ class Runner:
         logger.info("wrote %d FID sample batches (%d videos) to %s", n_rounds, n_written,
                     out_dir)
         return n_written
+
+    def _eps_closure(self, params, cond=None, cond_mask=None):
+        """eps_fn(x, labels) of the network on `params` (a state dict) and
+        `cond`, in eval mode, on the JAX layout (B, H, W, F*C)."""
+        cond_c = None if cond is None else cond.permute(0, 3, 1, 2)
+        self.model.eval()
+
+        def eps_fn(x, labels):
+            out = functional_call(self.model, params, (x.permute(0, 3, 1, 2), labels, cond_c,
+                                                       cond_mask))
+            return out.permute(0, 2, 3, 1)
+        return eps_fn
+
+    def _smld_batch(self, ckpt: Optional[int], what: str):
+        """(checkpoint params, step, Xt, generator) of an SMLD branch: the
+        first test batch of sampling.batch_size (default 8, clamped to the
+        split), data-transformed on the runner's device."""
+        if self.sched.version != "SMLD":
+            raise ValueError(f"{what} sampling is the SMLD legacy path, not "
+                             f"{self.sched.version}")
+        params, step = self._load_eval_params(ckpt)
+        test_ds = self._test_split()
+        bs = self._eval_batch_size(getattr(self.config.sampling, "batch_size", 8),
+                                   len(test_ds), f"sample {what}")
+        X, _ = next(iter(DataLoader(test_ds, batch_size=bs, shuffle=False)))
+        Xt = data_transform(self.config, torch.from_numpy(X).to(self.device))
+        return params, step, Xt, torch.Generator(device=self.device).manual_seed(self.seed)
+
+    def _save_smld(self, name: str, **arrays):
+        out_dir = getattr(self.args, "image_folder", self.args.log_path)
+        os.makedirs(out_dir, exist_ok=True)
+        path = os.path.join(out_dir, name)
+        np.savez(path, **arrays)
+        logger.info("wrote %s to %s", {k: v.shape for k, v in arrays.items()}, path)
+
+    def _sample_inpainting(self, ckpt: Optional[int] = None):
+        """Left-half-known inpainting (upstream ncsn_runner.py:957-1021) of the
+        first test batch's predicted frames, conditioned on its past frames
+        as usual, into `inpainting_{ckpt}.npz` (samples, refer: folded (B, H,
+        W, F*C) in [0, 1]). The chain starts at data_transform(U[0, 1)) of the
+        refer's shape and takes sampling.n_steps_each (default 100) and
+        step_lr (8e-6)."""
+        from ..diffusion.langevin_extras import anneal_langevin_inpainting
+
+        config = self.config
+        params, step, Xt, gen = self._smld_batch(ckpt, "inpainting")
+        refer, cond, cond_mask = conditioning_fn(
+            config, Xt, num_frames_pred=config.data.num_frames,
+            conditional=config.data.num_frames_cond > 0, generator=gen)
+        refer = refer.permute(0, 2, 3, 1)
+        cond = None if cond is None else cond.permute(0, 2, 3, 1)
+        init = data_transform(config, torch.rand(refer.shape, generator=gen,
+                                                 device=self.device))
+        with torch.inference_mode():
+            out = anneal_langevin_inpainting(
+                init, refer, self._eps_closure(params, cond, cond_mask), self.sched,
+                n_steps_each=getattr(config.sampling, "n_steps_each", 100),
+                step_lr=getattr(config.sampling, "step_lr", 8e-6), generator=gen)
+        host = (lambda t: inverse_data_transform(config, t).float().cpu().numpy())
+        samples = host(out)
+        self._save_smld(f"inpainting_{ckpt or step}.npz", samples=samples, refer=host(refer))
+        return samples
+
+    def _sample_interpolation(self, ckpt: Optional[int] = None):
+        """The slerp-noise interpolation grid (upstream ncsn_runner.py:1023-
+        1094): sampling.n_interpolations (default 15) samples for each row of
+        the first test batch, conditioned on its past frames (each row's cond
+        repeated), into `interpolation_{ckpt}.npz` (samples: (B *
+        n_interpolations, H, W, F*C) in [0, 1]); sampling.n_steps_each
+        (default 200) and step_lr (8e-6)."""
+        from ..diffusion.langevin_extras import anneal_langevin_interpolation
+
+        config = self.config
+        params, step, Xt, gen = self._smld_batch(ckpt, "interpolation")
+        n_interp = getattr(config.sampling, "n_interpolations", 15)
+        sz, C, F = config.data.image_size, config.data.channels, config.data.num_frames
+        _, cond, cond_mask = conditioning_fn(
+            config, Xt, num_frames_pred=F, conditional=config.data.num_frames_cond > 0,
+            generator=gen)
+        if cond is not None:   # each row repeated n_interp times by the sampler
+            cond = cond.permute(0, 2, 3, 1).repeat_interleave(n_interp, dim=0)
+            cond_mask = (None if cond_mask is None
+                         else cond_mask.repeat_interleave(n_interp, dim=0))
+        init = data_transform(config, torch.rand((Xt.shape[0], sz, sz, F * C),
+                                                 generator=gen, device=self.device))
+        with torch.inference_mode():
+            out = anneal_langevin_interpolation(
+                init, self._eps_closure(params, cond, cond_mask), self.sched, n_interp,
+                n_steps_each=getattr(config.sampling, "n_steps_each", 200),
+                step_lr=getattr(config.sampling, "step_lr", 8e-6), generator=gen)
+        samples = inverse_data_transform(config, out).float().cpu().numpy()
+        self._save_smld(f"interpolation_{ckpt or step}.npz", samples=samples)
+        return samples
 
     # ------------------------------------------------------------------ test
 

@@ -21,7 +21,8 @@ card; raises without one, and if the profiler reports no device time.
 
 With `--config`, that yml's model at full width (random weights from seed
 0; TF32 off in fp32): first one evaluation with each module of
-`unet.all_modules` timed alone (host clock, synchronised before and after
+`unet.all_modules` (an ncsn net's top-level blocks) timed alone (host
+clock, synchronised before and after
 it; the modules sorted by ms), then the bare network window over `--evals`
 evaluations after one. `--cudnn_benchmark` lets cuDNN time its algorithms
 at each new shape (`torch.backends.cudnn.benchmark`) instead of taking its
@@ -136,6 +137,7 @@ def measure(batch: int = 16) -> dict:
 
 def modules_ms(net, *args) -> list:
     """One evaluation of `net` with each module of `net.unet.all_modules`
+    (the ncsn nets, which have no `unet`: each of their top-level blocks)
     timed alone: [(index, class name, ms)], slowest first."""
     times = []
 
@@ -147,7 +149,7 @@ def modules_ms(net, *args) -> list:
         torch.cuda.synchronize()
         times[-1] = (m, 1e3 * (time.perf_counter() - times[-1]))
 
-    mods = list(net.unet.all_modules)
+    mods = list(net.unet.all_modules) if hasattr(net, "unet") else list(net.children())
     hooks = [h for m in mods for h in (m.register_forward_pre_hook(pre),
                                        m.register_forward_hook(post))]
     try:

@@ -1,12 +1,14 @@
-"""The port's legacy UNet (`arch: unet`) and the 3D / pseudo-3D NCSN++
-(`unetmore3d`, `unetmorepseudo3d`) against upstream's goldens and the JAX
-package: strict loads and forwards of the five goldens, bridged JAX inits
-(the weight map both ways, the forward with `noise_in_cond`'s draw
-replayed; one train step is `test_torch_port_legacy_3d_train.py`'s), the
-CPU CLI on both SMMNIST small configs, the attention kernels' arithmetic at head dim 24 over
-the 3D model's short sequences, and the GroupNorm plans the new shapes take.
-Dropout is off. On the CPU the GroupNorm and attention take their plain
-versions (the card's kernels are held to those by `chip_smoke.py`)."""
+"""The port's 3D / pseudo-3D NCSN++ (`unetmore3d`, `unetmorepseudo3d`)
+against upstream's goldens and the JAX package: strict loads and forwards
+of the four goldens, bridged JAX inits (the weight map both ways, the
+forward with `noise_in_cond`'s draw replayed; one train step is
+`test_torch_port_legacy_3d_train.py`'s), the CPU CLI on
+smmnist_DDPM_small5_3d.yml, the attention kernels' arithmetic at head dim
+24 over the 3D model's short sequences, and the GroupNorm plans the new
+shapes take. The legacy UNet's tests are `test_torch_port_legacy_unet.py`'s,
+which shares this file's tables and helpers. Dropout is off. On the CPU the
+GroupNorm and attention take their plain versions (the card's kernels are
+held to those by `chip_smoke.py`)."""
 
 import os
 import subprocess
@@ -76,7 +78,14 @@ GOLDENS = [  # name, tiny_dict kwargs, state dict entries
 ]
 
 
-@pytest.mark.parametrize("name,kw,n_entries", GOLDENS, ids=[g[0] for g in GOLDENS])
+def is_unet(name):
+    return name in ("unet_legacy", "unet", "smmnist_DDPM_small5.yml")
+
+
+GOLDENS_3D = [g for g in GOLDENS if not is_unet(g[0])]
+
+
+@pytest.mark.parametrize("name,kw,n_entries", GOLDENS_3D, ids=[g[0] for g in GOLDENS_3D])
 def test_forward_matches_upstream_golden(name, kw, n_entries):
     """Upstream's state dict (buffers included) loads strictly by name and
     the forward reproduces upstream's output at the 2D goldens' tolerance
@@ -119,11 +128,15 @@ def inputs(seed, B=2, sz=16):
     return x, cond, rng.randint(0, 20, B).astype(np.int32)
 
 
-@pytest.fixture(scope="module")
-def jax_inits():
-    """{arch id: (JAX config, JAX model, perturbed params)}, one init each."""
+ARCHS_3D = [a for a in ARCHS if not is_unet(a)]
+
+
+def make_jax_inits(names):
+    """{arch id: (JAX config, JAX model, perturbed params)} of `names`, one
+    init each."""
     out = {}
-    for i, (name, kw) in enumerate(ARCHS.items()):
+    for name in names:
+        i, kw = list(ARCHS).index(name), ARCHS[name]
         jcfg = jax_dict2namespace(tiny_dict(**kw, noise_in_cond=True))
         model = jax_get_model(jcfg)
         x, cond, y = inputs(0)
@@ -134,12 +147,17 @@ def jax_inits():
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_inits():
+    return make_jax_inits(ARCHS_3D)
+
+
 def flax_paths(params):
     return [tuple(str(getattr(p, "key", p)) for p in path)
             for path, _ in jax.tree_util.tree_leaves_with_path(params)]
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", ARCHS_3D)
 def test_weight_map_matches_jax_both_ways(jax_inits, arch):
     """Every flax param path of the tiny model: the port's copy of the name
     map gives the JAX package's (key, kind, base); the bridged state dict
@@ -159,7 +177,7 @@ def test_weight_map_matches_jax_both_ways(jax_inits, arch):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=str(p1))
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", ARCHS_3D)
 def test_forward_matches_jax(jax_inits, arch):
     """The tiny model on perturbed JAX weights with `noise_in_cond` on: the
     JAX forward with its rng, the port's with that rng's normal draw."""
@@ -189,7 +207,7 @@ SMALL_MODS = {
 }
 
 
-@pytest.mark.parametrize("yml", list(SMALL_MODS))
+@pytest.mark.parametrize("yml", [y for y in SMALL_MODS if not is_unet(y)])
 def test_cli_trains_and_video_gens_the_small_configs(tmp_path, yml):
     """--train to 2 steps, then --video_gen from checkpoint 2, on the CPU in
     subprocesses, the shipped yml cut to a tiny width and traffic (64 px,

@@ -360,7 +360,8 @@ def vars_of(ns):
 
 def test_runner_refuses_what_is_not_ported(tmp_path):
     """What still raises: sample's SMLD inpainting and interpolation
-    branches (ROADMAP item 12); a metric weights file that is named but
+    branches on a DDPM-family config (they are the SMLD legacy path, as the
+    JAX runner asserts; ported in PR 12); a metric weights file that is named but
     absent, or found but broken (a metric is never dropped in silence); and
     a runner on the card where there is none. An absent file leaves its
     metric out, and the log says why."""
@@ -369,7 +370,7 @@ def test_runner_refuses_what_is_not_ported(tmp_path):
     runner = Runner(args, config)
     for opt in ("inpainting", "interpolation"):
         setattr(config.sampling, opt, True)
-        with pytest.raises(NotImplementedError, match="item 12"):
+        with pytest.raises(ValueError, match="SMLD legacy path"):
             runner.sample()
         setattr(config.sampling, opt, False)
     config.eval = dict2namespace({"i3d_weights": str(tmp_path / "absent.pt")})

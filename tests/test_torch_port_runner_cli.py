@@ -65,13 +65,14 @@ def test_cli_trains_then_evaluates_without_jax_or_yaml(tmp_path):
 
 def test_cli_refuses_the_modes_not_ported(tmp_path):
     """The CLI runs every mode now; what it refuses ends the run with exit
-    code 1 and the reason in the log: sample's inpainting (ROADMAP item 12)
-    and a metric weights file that is found but does not load."""
+    code 1 and the reason in the log: sample's inpainting on a DDPM-family
+    config (the SMLD legacy path, ported in PR 12) and a metric weights file
+    that is found but does not load."""
     from mcvd_tpu_torch import main as cli
 
     broken = tmp_path / "broken.pt"
     broken.write_bytes(b"not a checkpoint")
-    for flag, mod, why in (("--sample", "sampling.inpainting=true", "item 12"),
+    for flag, mod, why in (("--sample", "sampling.inpainting=true", "SMLD legacy path"),
                            ("--fast_fid", f"eval.inception_weights={broken}",
                             "UnpicklingError")):
         exp = tmp_path / flag.strip("-")

@@ -157,13 +157,15 @@ def test_fpndm_needs_subsample_steps():
 
 
 def test_get_sampler_versions():
-    """DDPM, DDIM and FPNDM are ported; SMLD's Langevin samplers raise,
-    naming ROADMAP Queue 1 item 12."""
+    """Every `model.version` of the JAX package's SAMPLERS: DDPM, DDIM,
+    FPNDM and (since PR 12) SMLD's annealed Langevin dynamics; another name
+    raises, as the JAX dispatch does."""
     assert samplers.get_sampler("ddim") is samplers.ddim_sampler
     assert samplers.get_sampler("FPNDM") is samplers.fpndm_sampler
     assert samplers.get_sampler("DDPM") is samplers.ddpm_sampler
-    with pytest.raises(NotImplementedError, match="item 12"):
-        samplers.get_sampler("SMLD")
+    assert samplers.get_sampler("SMLD") is samplers.anneal_langevin_dynamics
+    with pytest.raises(KeyError):
+        samplers.get_sampler("EULER")
 
 
 # ------------------------------------------------------------ gamma noise
