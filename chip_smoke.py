@@ -139,7 +139,21 @@ line each:
                kth64_big.yml, --train on ucf101.yml and cityscapes_big.yml;
                exact launch counts (the model's GroupNorm and attention
                calls), the checkpoint loaded bit-equal, finite losses and
-               metrics; the loop's ms a step and its wait on the loader.
+               metrics; the loop's ms a step and its wait on the loader;
+ 16. images    the image paths without PIL: every golden of
+               tests/golden/images.npz decoded by the port's codecs (JPEG,
+               WebP, PNG, BMP) bit-equal to PIL's decode stored beside it, the
+               datasets' resizes bit-equal to PIL's; each codec's decode MB/s
+               and images/s; the CelebA, LSUN (64 and 128 px) and ImageFolder
+               readers' items/s at B=128 with 0 and 4 loader threads on trees
+               copied from the goldens; every GroupNorm and attention call of
+               celeba.yml's NCSN++ at B=16 through the kernels against the
+               plain versions (fp32, forward and backward, timed); the model
+               at full width: an fp32 evaluation and an fp32 step against
+               `reference_ops()`, exact launch counts; the sample grid's PNG
+               and GIF read back; the CLI (`IMAGES_CLI_RUNS`): celeba.yml
+               --train to 3 at B=16, church.yml --train to 2 on an LMDB of
+               WebP values; the fid_pr tool on two .npz sets.
 
 Then the per-kernel summary line of the seven kernels (with each kernel's
 bound: the larger of its bytes over the HBM rate and its operations over the
@@ -150,6 +164,8 @@ the card line, and last {"ok": true, "device":
 is not printed.
 """
 
+import contextlib
+import io
 import json
 import os
 import re
@@ -239,9 +255,9 @@ ATTN_BWD_REL = {"float32": 1e-4, "bfloat16": 2.0 ** -6}
 # else 2*lr, the update's own bound; EMA 1e-3 of that plus 1e-6.
 TRAIN_RTOL = 1e-4
 TRAIN_GRAD_REL = 1e-3
-# The CLI runs' sampler: 50 steps + denoise a block (cut from 100 to keep the
-# script inside its time limit), BLOCK evaluations.
-CLI_SUBSAMPLE = 50
+# The CLI runs' sampler: 25 steps + denoise a block (cut from 100, then from
+# 50, to keep the script inside its time limit), BLOCK evaluations.
+CLI_SUBSAMPLE = 25
 BLOCK = CLI_SUBSAMPLE + 1
 # The cli phase: the shipped yml as a user runs it, with only the cadence
 # and the traffic cut to a few steps and one evaluation batch.
@@ -326,7 +342,8 @@ DATA_WARM_BATCHES = 3
 # checkpoint_N there (no in-training video_gen); --video_gen predicts one
 # batch of 16 clips, 10 frames (2 blocks). The batch
 # is the yml's 64 but for ucf101 (ngf 192: 32) and cityscapes_big (128 px,
-# fp32 on cuDNN's FFT-tiled convolution, PERF.md section 5: 4).
+# fp32 on cuDNN's FFT-tiled convolution, PERF.md section 5: 2, cut from 4 to
+# keep the script inside its time limit).
 CLI_DATA_MODS = ["training.snapshot_sampling=False", "training.log_freq=1",
                  f"sampling.subsample={CLI_SUBSAMPLE}", "sampling.batch_size=16",
                  "sampling.max_data_iter=1", "sampling.num_frames_pred=10"]
@@ -339,7 +356,7 @@ CLI_DATA_RUNS = [
     ("kth64_big", [("train", 3, ["--train"], []),
                    ("video_gen", 3, ["--video_gen", "--ckpt", "3"], CLI_STANDIN_MODS)]),
     ("ucf101", [("train", 2, ["--train"], ["training.batch_size=32"])]),
-    ("cityscapes_big", [("train", 2, ["--train"], ["training.batch_size=4"])]),
+    ("cityscapes_big", [("train", 2, ["--train"], ["training.batch_size=2"])]),
 ]
 
 # The small5 phase: the two SMMNIST small configs at full width -- the
@@ -1430,8 +1447,9 @@ def phase_wide_heads(card):
     read with the port's load_config): bair_big (D=96, 64 px),
     cityscapes_big (D=128, 128 px), bair_big_spade (D=96) and
     cityscapes_big_spade (D=192, 128 px), random weights from a seed: one
-    fp32 network evaluation and one fp32 training step (B=2, cut from 4 to
-    keep the script inside its time limit) through the
+    fp32 network evaluation and one fp32 training step (B=2 at 64 px, 1 at
+    128 px, cut from 4 to keep the script inside its time limit: cuDNN's
+    fp32 FFT-tiled convolutions at 128 px scale with the batch) through the
     kernels against `reference_ops()`, with exact launch counts (the model's
     GroupNorm and attention calls)."""
     from mcvd_tpu_torch import ops
@@ -1442,7 +1460,7 @@ def phase_wide_heads(card):
     for name, (head_dim, n_jax) in WIDE_CONFIGS.items():
         config = load_config(repo_path(f"configs/{name}.yml"))
         config.model.dropout = 0.0   # as train_step_vs_plain, which reuses the model
-        B = 2
+        B = 2 if config.data.image_size == 64 else 1
         n_gn, n_attn = model_calls(config, B)
         model = _slice_model(config, 20)
         attn = [m for m in model.modules() if isinstance(m, AttnBlock)]
@@ -2788,6 +2806,354 @@ def phase_cli_data(card, root):
     return out
 
 
+# The images phase: the image readers without PIL (CelebA, LSUN, ImageFolder)
+# on the card machine's host, the codecs held to the committed goldens (PIL's
+# decodes and resizes, tests/golden/images.npz), the kernels at celeba.yml's
+# shapes, and the CLI on celeba.yml and church.yml.
+IMAGES_GOLDEN = "tests/golden/images.npz"
+IMAGES_FILES = 256          # files (LMDB values) in each reader's tree, copied from the goldens
+IMAGES_B = 128              # the ymls' batch
+IMAGES_WORKERS = (0, 4)
+IMAGES_MIN_S = 0.25         # each codec's rate: decodes repeated for at least this long
+CELEBA_CONFIG = "configs/celeba.yml"
+CELEBA_PARAMS = 53_417_859  # the port's NCSN++ at ngf 128, 64 px
+CELEBA_CALLS = (67, 10)     # GroupNorm and attention calls of one evaluation
+CELEBA_B = 16
+CHURCH_CONFIG = "configs/church.yml"
+# The CLI: celeba.yml --train to 3 at B=16 and church.yml --train to 2 at the
+# yml's B=128 on an LMDB of WebP values, each validating once at its last step
+# (no in-training video_gen: on an unconditional image config it fails in
+# both packages, ROADMAP Queue 3 F4).
+IMAGES_CLI_MODS = ["training.snapshot_sampling=False", "training.log_freq=1"]
+IMAGES_CLI_RUNS = [   # (name, yml, tree, n_iters, config mods)
+    ("celeba", CELEBA_CONFIG, "celeba", 3, [f"training.batch_size={CELEBA_B}"]),
+    ("church", CHURCH_CONFIG, "lsun", 2, []),
+]
+FID_PR_IMAGES = 64   # images in each .npz set of the fid_pr run
+
+
+def _bmp24(img):
+    """A bottom-up 24-bit BMP of (H, W, 3) uint8 (the BMP rate's input)."""
+    h, w = img.shape[:2]
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, w * 3)
+    head = b"BM" + (54 + rows.size).to_bytes(4, "little") + bytes(4) + (54).to_bytes(4, "little")
+    info = (40).to_bytes(4, "little") + w.to_bytes(4, "little") + h.to_bytes(4, "little") + \
+        (1).to_bytes(2, "little") + (24).to_bytes(2, "little") + bytes(24)
+    return head + info + rows.tobytes()
+
+
+def images_goldens():
+    """Every committed golden decoded by the port, bit-equal to PIL's decode
+    stored beside it, and the datasets' transforms bit-equal to PIL's resizes;
+    then each codec's decode rate (MB/s of encoded input and of RGB output,
+    images/s) on the real-size images."""
+    from mcvd_tpu_torch.data import codecs, image_datasets
+    from mcvd_tpu_torch.data.resize import resize_bilinear
+
+    with np.load(repo_path(IMAGES_GOLDEN)) as z:
+        stored = {k: z[k] for k in z.files}
+    decoded, by_format = {}, {}
+    for key in sorted(stored):
+        kind, name = key.split(":", 1)
+        if kind != "dec":
+            continue
+        data = stored[f"enc:{name}"].tobytes()
+        got = codecs.decode_image(data)
+        check(got.shape == stored[key].shape and np.array_equal(got, stored[key]),
+              f"images: golden {name} decodes other than PIL")
+        decoded[name] = got
+        fmt = codecs.image_format(data)
+        by_format[fmt] = by_format.get(fmt, 0) + 1
+    resized = 0
+    for key in sorted(k for k in stored if k.startswith("rsz:")):
+        _, name, kind, size = key.split(":")
+        src, size = decoded[name], int(size)
+        got = (resize_bilinear(image_datasets._center_crop(src, 140), (size, size))
+               if kind == "crop140" else image_datasets._resize_short_side_crop(src, size))
+        check(np.array_equal(got, stored[key]), f"images: resize {key} other than PIL's")
+        resized += 1
+    inputs = {"jpeg_celeba_178x218": stored["enc:celeba"].tobytes(),
+              "jpeg_imagenet_500x375": stored["enc:imagenet"].tobytes(),
+              "webp_lsun_341x256": stored["enc:lsun"].tobytes(),
+              "png_500x375": codecs.encode_png(decoded["imagenet"]),
+              "bmp_500x375": _bmp24(decoded["imagenet"])}
+    rates = {}
+    for name, data in inputs.items():
+        out = codecs.decode_image(data)
+        n, t0 = 0, time.perf_counter()
+        while True:
+            codecs.decode_image(data)
+            n += 1
+            s = time.perf_counter() - t0
+            if s >= IMAGES_MIN_S:
+                break
+        rates[name] = dict(encoded_bytes=len(data), shape=list(out.shape), decodes=n,
+                           images_per_s=n / s, encoded_mb_s=n * len(data) / 1e6 / s,
+                           decoded_mb_s=n * out.size / 1e6 / s)
+    return dict(decoded=len(decoded), by_format=by_format, resized=resized,
+                golden_bytes=os.path.getsize(repo_path(IMAGES_GOLDEN)), rates=rates), stored
+
+
+def write_image_trees(root, stored):
+    """The readers' trees, each of IMAGES_FILES images copied from the
+    goldens: CelebA's layout (JPEG 178x218, all train but 16 test), LSUN's
+    LMDB (WebP 341x256, church_outdoor train and val) written by the port's
+    write_lmdb, ImageNet's folders (JPEG 500x375, two classes, train and
+    val)."""
+    from mcvd_tpu_torch.data.lmdb_io import write_lmdb
+
+    celeba = stored["enc:celeba"].tobytes()
+    d = os.path.join(root, "celeba", "celeba", "img_align_celeba")
+    os.makedirs(d)
+    lines = []
+    for i in range(IMAGES_FILES + 16):
+        with open(os.path.join(d, f"{i:06d}.jpg"), "wb") as f:
+            f.write(celeba)
+        lines.append(f"{i:06d}.jpg {0 if i < IMAGES_FILES else 2}")
+    with open(os.path.join(root, "celeba", "celeba", "list_eval_partition.txt"), "w") as f:
+        f.write("\n".join(lines))
+    lsun = stored["enc:lsun"].tobytes()
+    for split, n in (("train", IMAGES_FILES), ("val", 16)):
+        write_lmdb(os.path.join(root, "lsun", f"church_outdoor_{split}_lmdb"),
+                   [(f"{i:040x}".encode(), lsun) for i in range(n)])
+    imagenet = stored["enc:imagenet"].tobytes()
+    for split, n in (("train", IMAGES_FILES // 2), ("val", 8)):
+        for cls in ("n01440764", "n01443537"):
+            d = os.path.join(root, "imagenet", split, cls)
+            os.makedirs(d)
+            for i in range(n):
+                with open(os.path.join(d, f"{cls}_{i:05d}.JPEG"), "wb") as f:
+                    f.write(imagenet)
+
+
+def images_reader_rates(root):
+    """Each reader through `DataLoader` at B=128 with 0 and 4 worker threads,
+    as the CLI's loop builds it (`get_dataset` of the yml): the first batch
+    and one more, items/s; the worker counts give the same batches."""
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.data import DataLoader, get_dataset
+
+    readers = {"celeba_64": (CELEBA_CONFIG, "celeba", []),
+               "lsun_64": (CHURCH_CONFIG, "lsun", []),
+               "lsun_128": (CHURCH_CONFIG, "lsun", ["data.image_size=128"]),
+               "imagenet_64": (CELEBA_CONFIG, "imagenet", ["data.dataset=IMAGENET"])}
+    out = {}
+    for name, (cfg, tree, mods) in readers.items():
+        config = load_config(repo_path(cfg), mods)
+        firsts, rates = [], {}
+        for nw in IMAGES_WORKERS:
+            train, _ = get_dataset(os.path.join(root, tree), config, video_frames_pred=1)
+            it = iter(DataLoader(train, batch_size=IMAGES_B, shuffle=True, seed=0,
+                                 drop_last=True, repeat=True, num_workers=nw))
+            times = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                xs, _ = next(it)
+                times.append(time.perf_counter() - t0)
+                if len(times) == 1:
+                    firsts.append(xs)
+            it.close()
+            rates[f"workers_{nw}"] = dict(first_items_per_s=IMAGES_B / times[0],
+                                          second_items_per_s=IMAGES_B / times[1],
+                                          batch_s=times)
+        size = config.data.image_size
+        check(firsts[0].shape == (IMAGES_B, 1, size, size, 3) and firsts[0].dtype == np.float32,
+              f"images: {name} batch {firsts[0].shape}")
+        check(all(np.array_equal(firsts[0], x) for x in firsts[1:]),
+              f"images: {name}: the worker counts gave other batches")
+        out[name] = dict(config=cfg, mods=mods, B=IMAGES_B, **rates,
+                         speedup_4_over_0=rates["workers_4"]["second_items_per_s"]
+                         / rates["workers_0"]["second_items_per_s"])
+    return out
+
+
+def images_kernel_cases():
+    """Every distinct GroupNorm and attention call of one evaluation of
+    celeba.yml's model at B=16, through the kernels against the plain
+    versions, fp32, forward and backward, timed (small5's helpers)."""
+    from mcvd_tpu_torch.config import load_config
+    from mcvd_tpu_torch.tools.gn_calls import form, model_calls
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(50)
+    gn, attn = model_calls(load_config(repo_path(CELEBA_CONFIG)), CELEBA_B)
+    cases = []
+    for key in dict.fromkeys(tuple(sorted(c.items())) for c in gn):
+        c = dict(key)
+        N = c["frames_last"]
+        shape = (c["B"], c["C"] // N, c["H"], c["W"], N, form(c), c["num_groups"], c["eps"],
+                 torch.float32)
+        cases += [gn_fwd_case(g, *shape, compare=True), gn_bwd_case(g, *shape, compare=True)]
+    for a in dict.fromkeys((a["B"], a["T"], a["heads"], a["D"]) for a in attn):
+        cases += [attn_fwd_case(g, *a, torch.float32), attn_bwd_case(g, *a, torch.float32)]
+    torch.cuda.synchronize()
+    return cases
+
+
+def images_model():
+    """celeba.yml's NCSN++ at full width (random weights, zero-scale layers
+    redrawn): one fp32 evaluation at B=16 through the kernels against
+    `reference_ops()` (within TRAIN_GRAD_REL of the largest output), exact
+    launch counts, the parameter count; one fp32 training step against
+    `reference_ops()` (train_step_vs_plain)."""
+    from mcvd_tpu_torch import ops
+    from mcvd_tpu_torch.config import load_config
+
+    config = load_config(repo_path(CELEBA_CONFIG))
+    config.model.dropout = 0.0
+    n_gn, n_attn = CELEBA_CALLS
+    model = _slice_model(config, 60)
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == CELEBA_PARAMS, f"celeba: {n_params} params, want {CELEBA_PARAMS}")
+    g = torch.Generator(device="cuda").manual_seed(61)
+    B, sz = CELEBA_B, config.data.image_size
+    x = torch.randn(B, 3, sz, sz, generator=g, device="cuda")
+    t = torch.randint(0, config.model.num_classes, (B,), generator=g, device="cuda")
+    want_eval = {"gn_fused": n_gn, "attention_fwd": n_attn}
+    model.eval()
+    with torch.inference_mode():
+        ops.reset_launches()
+        got = model(x, t, None)
+        torch.cuda.synchronize()
+        launches = dict(ops.LAUNCHES)
+        check_launches(launches, want_eval, "celeba evaluation")
+        with ops.reference_ops():
+            want = model(x, t, None)
+            plain_ms, _ = _seconds(lambda: model(x, t, None))
+        ms, _ = _seconds(lambda: model(x, t, None))
+    big, diff = float(want.abs().max()), float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()) and diff <= TRAIN_GRAD_REL * big,
+          f"celeba evaluation: kernels vs plain max abs diff {diff}, largest {big}")
+    step = train_step_vs_plain(config, 60, B, {**want_eval, "gn_fused_bwd": n_gn,
+                                               "attention_bwd": n_attn}, "celeba",
+                               model=model, exact_zero=exact_zero_grads(model))
+    del model
+    torch.cuda.empty_cache()
+    return dict(params=n_params, B=B, eval=dict(max_abs_diff=diff, largest=big,
+                                                launches=launches, ms=ms, plain_ms=plain_ms),
+                train_step=step)
+
+
+def images_cli(root):
+    """--train on celeba.yml and church.yml (`IMAGES_CLI_RUNS`): exact launch
+    counts, finite losses, the validation loss, the checkpoint loaded
+    bit-equal; the loop's ms and wait on the loader a step."""
+    out = {}
+    for name, cfg, tree, n_iters, mods in IMAGES_CLI_RUNS:
+        torch.cuda.empty_cache()
+        n_gn, n_attn = CELEBA_CALLS if name == "celeba" else (0, 0)
+        with tempfile.TemporaryDirectory(prefix=f"mcvd_cli_{name}_") as exp:
+            base = [*IMAGES_CLI_MODS, f"training.checkpoint_freq={n_iters}",
+                    f"training.snapshot_freq={n_iters}", f"training.val_freq={n_iters}"]
+            log, launches, wall_s = run_cli(exp, n_iters, "--train", mods=mods, config=cfg,
+                                            base_mods=base, data_path=os.path.join(root, tree))
+            want = {"gn_fused": n_gn * (n_iters + 1), "gn_fused_bwd": n_gn * n_iters,
+                    "attention_fwd": n_attn * (n_iters + 1), "attention_bwd": n_attn * n_iters}
+            check_launches(launches, want, f"cli {name}")
+            st = _steps_waits(log)
+            check(sorted(st) == list(range(1, n_iters + 1))
+                  and f"training done at step {n_iters}" in log
+                  and all(np.isfinite(v[0]) for v in st.values()) and "test loss" in log,
+                  f"cli {name}: steps {st}")
+            out[name] = dict(
+                config=cfg, mods=mods, launches=launches, wall_s=wall_s,
+                ms_by_step={k: v[1] for k, v in st.items()},
+                wait_ms_by_step={k: v[2] for k, v in st.items()},
+                loss_by_step={k: v[0] for k, v in st.items()},
+                checkpoint_tensors_bit_equal=check_checkpoint(os.path.join(exp, "logs"), cfg,
+                                                              n_iters))
+    return out
+
+
+def images_grid_roundtrip():
+    """`plots.save_video_grid` on the card machine's host: its PNG decoded by
+    the port equal to `video_grid`, its GIF's size."""
+    from mcvd_tpu_torch.data import codecs
+    from mcvd_tpu_torch.runners import plots
+
+    rng = np.random.default_rng(7)
+    pred, real = (rng.random((8, 5, 64, 64, 3), np.float32) for _ in range(2))
+    with tempfile.TemporaryDirectory(prefix="mcvd_grid_") as d:
+        t0 = time.perf_counter()
+        path = plots.save_video_grid(os.path.join(d, "g"), pred=pred, real=real)
+        s = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            got = codecs.decode_image(f.read())
+        check(np.array_equal(got, plots.video_grid(pred=pred, real=real)),
+              "images: the grid's PNG decodes other than the grid")
+        gif_bytes = os.path.getsize(os.path.join(d, "g.gif"))
+    return dict(grid_shape=list(got.shape), gif_frames=5, gif_bytes=gif_bytes, write_s=s)
+
+
+def images_fid_pr():
+    """The fid_pr tool's entry point (`python -m mcvd_tpu_torch.tools.fid_pr`'s
+    `main`, in this process to spare a process start) on the card: two .npz
+    sets of FID_PR_IMAGES 64-px images cut from the goldens, the stand-in
+    Inception, the nearest-neighbour grid; FID, precision and recall
+    finite."""
+    from mcvd_tpu_torch.data import codecs
+    from mcvd_tpu_torch.eval import standins
+    from mcvd_tpu_torch.tools import fid_pr
+
+    with np.load(repo_path(IMAGES_GOLDEN)) as z:
+        src = codecs.decode_image(z["enc:imagenet"].tobytes()).astype(np.float32) / 255
+    rng = np.random.default_rng(8)
+    with tempfile.TemporaryDirectory(prefix="mcvd_fid_pr_") as d:
+        paths = standins.write_standins(os.path.join(d, "w"), seed=0)
+        for name, noise in (("real", 0.02), ("gen", 0.1)):
+            ys, xs = rng.integers(0, 375 - 64, FID_PR_IMAGES), rng.integers(0, 500 - 64,
+                                                                           FID_PR_IMAGES)
+            imgs = np.stack([src[y:y + 64, x:x + 64] for y, x in zip(ys, xs)])
+            np.savez(os.path.join(d, f"{name}.npz"),
+                     np.clip(imgs + rng.normal(0, noise, imgs.shape), 0, 1).astype(np.float32))
+        argv = [os.path.join(d, "real.npz"), os.path.join(d, "gen.npz"), "--weights",
+                paths["inception"], "--nn", "3", "--nn-samples", "4", "--nn-out",
+                os.path.join(d, "nn.png")]
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            res = fid_pr.main(argv)
+        wall_s = time.perf_counter() - t0
+        check(json.loads(printed.getvalue().strip().splitlines()[-1]) == res,
+              "fid_pr: its printed line is not its result")
+        for k in ("fid", "precision", "recall"):
+            _finite(float(res[k]), f"fid_pr {k}")
+        with open(os.path.join(d, "nn.png"), "rb") as f:
+            grid = codecs.decode_image(f.read())
+        check(grid.shape == (4 * 64, 4 * 64, 3), f"fid_pr: nn grid {grid.shape}")
+    return dict(result=res, wall_s=wall_s)
+
+
+def phase_images(card):
+    """The image readers without PIL, and the image configs' path on the
+    card (see IMAGES_*): goldens and codec rates, the readers' items/s, the
+    kernels at celeba's shapes and its model against `reference_ops()`, the
+    sample grid's PNG and GIF, the CLI on celeba.yml and church.yml, and the
+    fid_pr tool."""
+    seconds = {}
+
+    def part(name, fn, *args):
+        t0 = time.perf_counter()
+        r = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return r
+
+    goldens, stored = part("goldens", images_goldens)
+    with tempfile.TemporaryDirectory(prefix="mcvd_images_") as root:
+        part("write_trees", write_image_trees, root, stored)
+        readers = part("readers", images_reader_rates, root)
+        cases = part("kernels", images_kernel_cases)
+        model = part("model", images_model)
+        grid = part("grid", images_grid_roundtrip)
+        cli = part("cli", images_cli, root)
+    fid = part("fid_pr", images_fid_pr)
+    emit("images", card=card, goldens=goldens, readers=readers, kernel_cases=cases,
+         celeba_model=model, grid=grid, cli=cli, cli_mods=IMAGES_CLI_MODS, fid_pr=fid,
+         seconds=seconds)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2822,6 +3188,7 @@ def main():
     with tempfile.TemporaryDirectory(prefix="mcvd_data_") as root:
         timed("data", phase_data, card, root)
         timed("cli_data", phase_cli_data, card, root)
+    timed("images", phase_images, card)
     emit("phases", seconds=seconds)
     check("jax" not in sys.modules, "jax was imported")
 

@@ -4,9 +4,9 @@
 Video datasets give (T, H, W, C) float32 clips in [0, 1]. Ported readers:
 StochasticMovingMNIST and MovingMNIST (its deterministic bounce), KTH, BAIR,
 Cityscapes and UCF101 (the sharded HDF5 store, read in numpy by `h5.py`),
-CIFAR10 and FFHQ (single-frame videos; FFHQ from StyleGAN's TFRecords).
-CelebA, LSUN and ImageNet raise NotImplementedError (ROADMAP Queue 1 item
-9-left: they need an image decoder).
+CIFAR10, FFHQ (StyleGAN's TFRecords), CelebA, LSUN (LMDB) and ImageNet
+(an ImageFolder tree) as single-frame videos, decoded without PIL
+(`codecs.py`, `resize.py`).
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ import numpy as np
 
 from .conditioning import conditioning_fn, fold_frames, get_mode, unfold_frames
 from .h5 import HDF5Dataset, HDF5Maker, KTHMaker, UCFMaker
-from .image_datasets import CIFAR10Dataset, FFHQTFRecordsDataset
+from .image_datasets import (CelebADataset, CIFAR10Dataset, FFHQTFRecordsDataset,
+                             ImageFolderDataset, LSUNDataset)
 from .loader import DataLoader, prefetch_to_device
 from .smmnist import StochasticMovingMNIST
 from .transforms import data_transform, inverse_data_transform
@@ -104,10 +105,22 @@ def get_dataset(data_path, config, video_frames_pred=0, start_at=0, seed=0):
         cut = int(len(full) * 0.9)
         dataset = Subset(full, [int(i) for i in idx[:cut]])
         test_dataset = Subset(full, [int(i) for i in idx[cut:]])
-    else:
-        raise NotImplementedError(
-            f"dataset {name}: not ported yet (ROADMAP Queue 1 item 9-left: its images "
-            "are decoded by PIL)")
+    elif name == "CELEBA":
+        kw = dict(image_size=config.data.image_size)
+        dataset = CelebADataset(data_path, split="train", random_flip=config.data.random_flip,
+                                seed=seed, **kw)
+        test_dataset = CelebADataset(data_path, split="test", seed=seed + 1, **kw)
+    elif name == "IMAGENET":
+        kw = dict(image_size=config.data.image_size, classes=getattr(config.data, "classes", None))
+        dataset = ImageFolderDataset(os.path.join(data_path, "train"),
+                                     random_flip=config.data.random_flip, seed=seed, **kw)
+        test_dataset = ImageFolderDataset(os.path.join(data_path, "val"), seed=seed + 1, **kw)
+    else:   # LSUN
+        kw = dict(image_size=config.data.image_size)
+        dataset = LSUNDataset(data_path, config.data.category, split="train",
+                              random_flip=config.data.random_flip, seed=seed, **kw)
+        test_dataset = LSUNDataset(data_path, config.data.category, split="val", seed=seed + 1,
+                                   **kw)
 
     # clamp to the split: a larger subset would fail mid-epoch
     subset_num = getattr(config.data, "subset", -1)
@@ -120,8 +133,8 @@ def get_dataset(data_path, config, video_frames_pred=0, start_at=0, seed=0):
     return dataset, test_dataset
 
 
-__all__ = ["BAIRDataset", "CIFAR10Dataset", "CityscapesDataset", "DATASETS", "DataLoader",
-           "FFHQTFRecordsDataset", "HDF5Dataset", "HDF5Maker", "KTHDataset", "KTHMaker",
-           "StochasticMovingMNIST", "Subset", "UCF101Dataset", "UCFMaker", "conditioning_fn",
+__all__ = ["BAIRDataset", "CelebADataset", "CIFAR10Dataset", "CityscapesDataset", "DATASETS",
+           "DataLoader", "FFHQTFRecordsDataset", "HDF5Dataset", "HDF5Maker", "ImageFolderDataset",
+           "KTHDataset", "KTHMaker", "LSUNDataset", "StochasticMovingMNIST", "Subset", "UCF101Dataset", "UCFMaker", "conditioning_fn",
            "data_transform", "fold_frames", "get_dataset", "get_mode", "inverse_data_transform",
            "prefetch_to_device", "unfold_frames"]

@@ -1,5 +1,7 @@
 """The data path's host C++ (`mcvd_tpu_torch/csrc/host/*.cpp`): the SMMNIST
-batch synthesizer and the LZF codec of the HDF5 store, bound with ctypes.
+batch synthesizer, the LZF codec of the HDF5 store, the image decoders
+(JPEG, lossy WebP, PNG's scanline filters; `codecs.py` calls them) and
+Pillow's resampling passes (`resize.py`), bound with ctypes.
 
 The library is built with g++ at first use into `build/mcvd_tpu_torch_host/`
 at the repo root, with the JAX package's flags (`-O3 -march=native -shared
@@ -34,7 +36,8 @@ def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
         raise RuntimeError("g++ not found on PATH: the data readers' host library "
-                           "(SMMNIST batches, LZF) is built from csrc/host with g++")
+                           "(SMMNIST batches, LZF, the image decoders) is built from "
+                           "csrc/host with g++")
     return gxx
 
 
@@ -87,6 +90,18 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, i64, p, i64]   # in, n, out, cap
         fn.restype = i64
+    for name in ("jpeg", "webp"):
+        info, decode = getattr(lib, f"{name}_info"), getattr(lib, f"{name}_decode")
+        info.argtypes = [p, i64, p]            # data, n, info
+        info.restype = i32
+        decode.argtypes = [p, i64, p, i64]     # data, n, out, cap
+        decode.restype = i32
+    lib.png_unfilter.argtypes = [p, p, i64, i64, i32]   # src, dst, rows, row_bytes, bpp
+    lib.png_unfilter.restype = i32
+    for name in ("resample_horizontal", "resample_vertical"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, i64, i64, i64, p, i64, p, p, i32]   # in, h, w, c, out, n, bounds, k, ksize
+        fn.restype = None
 
 
 def smmnist_synthesize_batch(digits: np.ndarray, indices, *, seed: int, epoch: int,

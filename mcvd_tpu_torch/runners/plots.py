@@ -2,10 +2,10 @@
 `mcvd_tpu/runners/plots.py`; upstream ncsn_runner.py plot_graphs:740-797,
 plot_video_graphs:799-904 and the grid dumps :626-697, 1995-2190).
 
-matplotlib and PIL are optional here: the card machine may lack them. Without
-matplotlib the curves are not drawn (logged once; the meters pickle, which
-holds the same series, is written either way); without PIL a sample grid is
-written as the same uint8 array in a `.npy` file.
+matplotlib is optional here: the card machine may lack it. Without it the
+curves are not drawn (logged once; the meters pickle, which holds the same
+series, is written either way). Sample grids are written as PNG and GIF by
+the port's own encoders (`data.codecs`), on every host.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import os
 from typing import Dict, Optional
 
 import numpy as np
+
+from ..data.codecs import encode_gif, encode_png
 
 logger = logging.getLogger(__name__)
 
@@ -125,17 +127,13 @@ def save_video_grid(path_prefix: str, *, pred: np.ndarray,
                     real: Optional[np.ndarray] = None,
                     cond: Optional[np.ndarray] = None,
                     max_videos: int = 8, fps: int = 4) -> str:
-    """The `video_grid` of (B, T, H, W, C) arrays in [0, 1] as a PNG and an
-    animated GIF (real over pred, videos side by side, over T); without PIL
-    the grid as `.npy`. Returns the grid's path."""
+    """The `video_grid` of (B, T, H, W, C) arrays in [0, 1] as a PNG, and an
+    animated GIF (real over pred, videos side by side, over T; each frame
+    shown int(1000 / fps) ms, looping) on `codecs.gif_palette()`'s colours.
+    Returns the PNG's path."""
     grid = video_grid(pred=pred, real=real, cond=cond, max_videos=max_videos)
-    if importlib.util.find_spec("PIL") is None:
-        np.save(path_prefix + ".npy", grid)
-        logger.info("PIL not installed: sample grid written as %s.npy", path_prefix)
-        return path_prefix + ".npy"
-    from PIL import Image
-
-    Image.fromarray(grid).save(path_prefix + ".png")
+    with open(path_prefix + ".png", "wb") as f:
+        f.write(encode_png(grid))
     B = min(len(pred), max_videos)
     gif_frames = []
     for t in range(pred.shape[1]):
@@ -145,7 +143,7 @@ def save_video_grid(path_prefix: str, *, pred: np.ndarray,
             if real is not None and t < real.shape[1]:
                 fr = np.concatenate([_rgb(real[b, t]), fr], axis=0)
             cols.append(fr)
-        gif_frames.append(Image.fromarray(np.concatenate(cols, axis=1)))
-    gif_frames[0].save(path_prefix + ".gif", save_all=True, append_images=gif_frames[1:],
-                       duration=int(1000 / fps), loop=0)
+        gif_frames.append(np.concatenate(cols, axis=1))
+    with open(path_prefix + ".gif", "wb") as f:
+        f.write(encode_gif(gif_frames, duration_ms=int(1000 / fps), loop=0))
     return path_prefix + ".png"

@@ -25,6 +25,7 @@ the wrappers take for CPU tensors and under `ops.reference_ops()`.
 
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -190,14 +191,19 @@ def gn_variant(x, G, gamma, beta, scale, shift, *, hsplit=1, parallel=False,
 def device_ms(fn, n=10, reps=5):
     """Median device time of one fn() call: the card first sleeps, so the
     host has enqueued all n calls before the card reaches them and the
-    events time back-to-back work, not the host's enqueue."""
+    events time back-to-back work, not the host's enqueue. The sleep is
+    sized as `marginal` sizes its own, from the warm-up call's host time:
+    twice n such calls plus 5 ms, at most 100M cycles (~57 ms)."""
+    t0 = time.perf_counter()
     fn()
+    host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    cycles = min(100_000_000, int(_cycles_per_ms() * (2e3 * n * host_s + 5.0)))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(100_000_000)
+        torch.cuda._sleep(cycles)
         start.record()
         for _ in range(n):
             fn()
@@ -205,6 +211,12 @@ def device_ms(fn, n=10, reps=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / n)
     return statistics.median(times)
+
+
+@functools.lru_cache(maxsize=None)
+def _cycles_per_ms() -> float:
+    """`_sleep_cycles_per_ms`, measured once a process."""
+    return _sleep_cycles_per_ms()
 
 
 def _sleep_cycles_per_ms() -> float:

@@ -181,16 +181,18 @@ def test_moving_mnist_and_subsets_match_jax(tmp_path):
 
 @pytest.mark.parametrize("name", ["CelebA", "LSUN", "FFHQ", "ImageNet"])
 def test_other_datasets_name_their_roadmap_item(tmp_path, name):
-    """The datasets whose images need a decoder the port lacks still raise,
-    naming their ROADMAP item; FFHQ, which needs none, is read since PR 12
-    (from TFRecords: an empty directory has none); an unknown name is
-    refused."""
+    """The datasets read from files the directory does not hold (FFHQ's
+    TFRecords; CelebA's partition list, LSUN's LMDB and ImageNet's folders,
+    decoded by the port's own codecs) raise FileNotFoundError on an empty
+    directory, no longer a ROADMAP item's NotImplementedError; an unknown
+    name is refused."""
     if name == "FFHQ":
         with pytest.raises(FileNotFoundError, match="tfrecords"):
             get_dataset(str(tmp_path), data_ns(name, random_flip=False))
     else:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            get_dataset(str(tmp_path), data_ns(name))
+        with pytest.raises(FileNotFoundError):
+            get_dataset(str(tmp_path), data_ns(name, category="church_outdoor",
+                                               random_flip=False))
     with pytest.raises(ValueError, match="one of"):
         get_dataset(str(tmp_path), data_ns("NoSuchSet"))
 

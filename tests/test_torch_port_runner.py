@@ -13,6 +13,7 @@ import argparse
 import math
 import os
 import pickle
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -453,12 +454,14 @@ def eval_runner(trained, tmp_path, config=None, **kw):
 # ------------------------------------------------------------ artifacts
 
 def test_video_grid_matches_jax_png_and_falls_back_to_npy(tmp_path, monkeypatch):
-    """The cond | real | pred grid has the JAX package's PNG pixels; where
-    PIL is missing (as it may be on the card machine) the same uint8 grid
-    goes to a .npy file."""
+    """The cond | real | pred grid has the JAX package's PNG pixels, written
+    by the port's own encoder: with PIL hidden from the port (as on the card
+    machine) it still writes the PNG and the GIF, and no .npy. (The .npy
+    fallback of the name is gone: the port no longer needs PIL.)"""
     from PIL import Image
 
     from mcvd_tpu.runners import plots as jax_plots
+    from mcvd_tpu_torch.data import codecs
     from mcvd_tpu_torch.runners import plots
 
     rng = np.random.RandomState(4)
@@ -469,9 +472,9 @@ def test_video_grid_matches_jax_png_and_falls_back_to_npy(tmp_path, monkeypatch)
     path = plots.save_video_grid(str(tmp_path / "port"), pred=pred, real=real, cond=cond)
     assert path.endswith(".png") and (tmp_path / "port.gif").exists()
     assert np.array_equal(np.asarray(Image.open(path)), want)
+    assert np.array_equal(codecs.decode_image((tmp_path / "port.png").read_bytes()), want)
 
-    real_find_spec = plots.importlib.util.find_spec
-    monkeypatch.setattr(plots.importlib.util, "find_spec",
-                        lambda name, *a: None if name == "PIL" else real_find_spec(name, *a))
+    monkeypatch.setitem(sys.modules, "PIL", None)   # import PIL now fails
     path = plots.save_video_grid(str(tmp_path / "nopil"), pred=pred, real=real, cond=cond)
-    assert path.endswith(".npy") and np.array_equal(np.load(path), want)
+    assert path.endswith(".png") and not list(tmp_path.glob("*.npy"))
+    assert np.array_equal(codecs.decode_image(open(path, "rb").read()), want)
