@@ -88,9 +88,9 @@ line each:
                `reference_ops()` (the tolerances of phase 9, gradients zero
                in exact arithmetic held to their rounding noise), the bf16
                evaluation, exact launch counts, the JAX init's parameter
-               count, 3 timed steps; the CLI on the two ymls (--train to 3,
-               --video_gen --ckpt 3, `SMALL5_CLI_MODS`); the committed JAX
-               export imported by `compat.jax_ckpt`, bit-equal, and sampled
+               count, 3 timed steps; the CLI on the two ymls (--train to 3
+               with its in-training video_gen, `SMALL5_CLI_MODS`); the
+               committed JAX export imported by `compat.jax_ckpt`, bit-equal, and sampled
                by --video_gen;
  11. smld      the SMLD family (PR 12) at the shipped widths (`SMLD_MODELS`):
                one fp32 evaluation each of NCSNv2 at 32 px (cifar10_ncsnv2,
@@ -125,7 +125,20 @@ line each:
                timed alone by the runner's log, the first of each process
                apart as warm-up) beside train_headline's fp32 step, and the
                video_gen harness's seconds;
- 14. data      the data readers on the card machine's host: synthetic shards
+ 14. ddp       data parallelism on the one card: `tools.ddp_check`
+               on 2 gloo ranks (the flagship's fp32 step at a global B=16,
+               8 a rank, and its 10-step block split 8 + 8, held to one
+               process on the same draws; the ranks' parameters the same
+               bits; exact launch counts per rank; step, all-reduce and peak
+               memory) and on 1 NCCL rank; the flagship's CLI on 2 gloo
+               ranks (`DDP_CLI_RUNS`: --train to 3 with the snapshot and its
+               vote at 2, then --test and --video_gen side by side, and the
+               NCCL check beside them): exit 0,
+               launch counts per rank, rank 0's files alone, the checkpoint
+               bit-equal, the same finite numbers in both ranks' logs; the
+               polyphase FIR (`ops/upfirdn.py`) against `upsample_2d` at the
+               flagship's Upsample inputs, timed;
+ 15. data      the data readers on the card machine's host: synthetic shards
                (`DATA_SETS`: KTH, BAIR, Cityscapes, UCF101 at their shipped
                frame sizes, `synth_video`) written by the port's HDF5Maker,
                every frame read back bit-equal through the native LZF
@@ -134,13 +147,13 @@ line each:
                its config's B=64 with 0 and 4 worker threads, cache cold and
                warm (the worker counts giving the same batches); SMMNIST's
                batch path against its per-item path;
- 15. cli_data  the command line on those shards at the configs' full width
+ 16. cli_data  the command line on those shards at the configs' full width
                (`CLI_DATA_RUNS`): --train and --video_gen on bair_big.yml and
                kth64_big.yml, --train on ucf101.yml and cityscapes_big.yml;
                exact launch counts (the model's GroupNorm and attention
                calls), the checkpoint loaded bit-equal, finite losses and
                metrics; the loop's ms a step and its wait on the loader;
- 16. images    the image paths without PIL: every golden of
+ 17. images    the image paths without PIL: every golden of
                tests/golden/images.npz decoded by the port's codecs (JPEG,
                WebP, PNG, BMP) bit-equal to PIL's decode stored beside it, the
                datasets' resizes bit-equal to PIL's; each codec's decode MB/s
@@ -321,6 +334,22 @@ CLI_LAUNCHES = {"train": _cli_launches(6, 2 + 2 * 2 * BLOCK),
 CLI_SPADE_RUNS = [("spade_train", 3, ["--train"], []),
                   ("spade_video_gen_ddim", 3, ["--video_gen", "--ckpt", "3"],
                    ["model.version=DDIM"])]
+# The ddp phase: ranks launched as processes of one group on the one card
+# (gloo; NCCL refuses two ranks on one device), each with this time limit.
+DDP_RANKS = 2
+DDP_TIMEOUT_S = 420
+# the flagship's 2-rank CLI: CLI_MODS with the snapshot (and its vote) at 2,
+# --train to 3, then --test (checkpoint 2, its 2 batches of 100 split 50 + 50)
+# and --video_gen --ckpt 2; each rank launches a block's evaluations on its
+# half of the batch, so its counts are one process's.
+DDP_CLI_MODS = CLI_MODS + ["training.snapshot_freq=2"]
+DDP_CLI_RUNS = [("train", ["--train"]), ("test", ["--test"]),
+                ("video_gen", ["--video_gen", "--ckpt", "2"])]   # the last two side by side
+DDP_CLI_LAUNCHES = {"train": _cli_launches(3, 1 + 2 * BLOCK), "test": _cli_launches(0, 2),
+                    "video_gen": _cli_launches(0, 2 * BLOCK)}
+# the polyphase FIR (`ops/upfirdn.py`) against `models/resample.upsample_2d`
+# at the flagship's Upsample inputs (bf16, B=16; each twice an evaluation)
+UPFIRDN_SHAPES = [(16, 256, 8, 8), (16, 192, 16, 16), (16, 128, 32, 32)]
 # The metric networks on the card against the same modules on the CPU, fp32
 # with TF32 off: within this share of the largest output.
 EVAL_NET_REL = 1e-4
@@ -374,13 +403,14 @@ SMALL5_ATTN_B = (4, 64)
 # One call of each kernel with more sequences or examples than the grid's
 # 65,535 (the time attention at fast_fid's batch of 1000 has 256,000).
 PAST_GRID = 70_000
-# The CLI on the two configs: --train to 3 (the validation loss at 3, no
-# in-training video_gen), then --video_gen --ckpt 3 of one batch of 16 clips
-# with 4 predicted frames in 2 blocks of CLI_SUBSAMPLE steps + denoise. Cut
-# from the ymls' subsample 1000 and 20 frames (10 blocks of 1,001
+# The CLI on the two configs: --train to 3 (the validation loss at 3, and
+# the in-training video_gen of one batch of 16 clips with 4 predicted frames
+# in 2 blocks of CLI_SUBSAMPLE steps + denoise at 3; a --video_gen process
+# of its own before, cut to keep the script inside its time limit).
+# Cut from the ymls' subsample 1000 and 20 frames (10 blocks of 1,001
 # evaluations).
 SMALL5_CLI_MODS = ["training.checkpoint_freq=3", "training.snapshot_freq=3",
-                   "training.val_freq=3", "training.snapshot_sampling=False",
+                   "training.val_freq=3", "training.snapshot_sampling=True",
                    "training.log_freq=1", f"sampling.subsample={CLI_SUBSAMPLE}",
                    "sampling.batch_size=16", "sampling.max_data_iter=1",
                    "sampling.num_frames_pred=4"]
@@ -1631,37 +1661,29 @@ def small5_model(card, name, yml, mods, n_gn, n_attn, n_jax):
 
 def small5_cli():
     """The CLI on the two small configs (`SMALL5_CLI_MODS`), each in an
-    experiment of its own: --train to 3, then --video_gen --ckpt 3; exact
-    launch counts, checkpoint_3 loaded bit-equal, finite losses and metrics,
-    the loop's ms a step."""
+    experiment of its own: --train to 3 with the in-training video_gen at 3;
+    exact launch counts, checkpoint_3 loaded bit-equal, finite losses and
+    metrics, the loop's ms a step."""
     from mcvd_tpu_torch.compat import yaml_subset
 
     out = {}
     for name in ("small5", "small5_3d"):
         yml, _, n_gn, n_attn, _ = SMALL5[name]
-        want = {"train": _cli_launches(3, 1, n_gn, n_attn),
-                "video_gen": _cli_launches(0, 2 * BLOCK, n_gn, n_attn)}
         with tempfile.TemporaryDirectory(prefix=f"mcvd_{name}_") as exp:
-            res = {}
-            for run, flags in (("train", ["--train"]), ("video_gen", ["--video_gen", "--ckpt",
-                                                                       "3"])):
-                log, launches, wall_s = run_cli(exp, 3, *flags, config=yml,
-                                                base_mods=SMALL5_CLI_MODS)
-                check_launches(launches, want[run], f"cli {name} {run}")
-                res[run] = dict(launches=launches, wall_s=wall_s)
-                if run == "train":
-                    steps = _steps_waits(log)
-                    check(sorted(steps) == [1, 2, 3] and "training done at step 3" in log
-                          and all(np.isfinite(v[0]) for v in steps.values()),
-                          f"cli {name}: steps {steps}")
-                    res[run].update(ms_by_step={k: v[1] for k, v in steps.items()},
-                                    checkpoint_tensors_bit_equal=check_checkpoint(
-                                        os.path.join(exp, "logs"), yml, 3, SMALL5_CLI_MODS))
-                else:
-                    vid = yaml_subset.load_file(
-                        os.path.join(exp, "video_samples", "videos", "vid_metrics.yml"))
-                    res[run]["vid_metrics"] = _finite_metrics(vid, f"{name} vid_metrics.yml")
-            out[name] = res
+            log, launches, wall_s = run_cli(exp, 3, "--train", config=yml,
+                                            base_mods=SMALL5_CLI_MODS)
+            check_launches(launches, _cli_launches(3, 1 + 2 * BLOCK, n_gn, n_attn),
+                           f"cli {name} train")
+            steps = _steps_waits(log)
+            check(sorted(steps) == [1, 2, 3] and "training done at step 3" in log
+                  and all(np.isfinite(v[0]) for v in steps.values()),
+                  f"cli {name}: steps {steps}")
+            logs = os.path.join(exp, "logs")
+            best = yaml_subset.load_file(os.path.join(logs, "best_metrics.yml"))
+            out[name] = {"train": dict(
+                launches=launches, wall_s=wall_s, ms_by_step={k: v[1] for k, v in steps.items()},
+                checkpoint_tensors_bit_equal=check_checkpoint(logs, yml, 3, SMALL5_CLI_MODS),
+                snapshot_metrics=_finite_metrics(best, f"{name} best_metrics.yml"))}
     return out
 
 
@@ -2512,6 +2534,163 @@ def phase_cli(card, headline_ms):
     return {k: r["launches"] for k, r in runs.items()}
 
 
+def run_ranks(cmd, n, backend=None):
+    """`cmd` as the n ranks of one group from the repo's root
+    (`parallel.launch.spawn_ranks`), `backend` as MCVD_DIST_BACKEND, each
+    rank killed past DDP_TIMEOUT_S."""
+    from mcvd_tpu_torch.parallel.launch import spawn_ranks
+
+    env = dict(os.environ, **({"MCVD_DIST_BACKEND": backend} if backend else {}))
+    return spawn_ranks(cmd, n, timeout=DDP_TIMEOUT_S, env=env, cwd=repo_path("."))
+
+
+def ddp_check_run(n, backend, device):
+    """`tools.ddp_check` on n ranks: its JSON line (every check held) and
+    the wall seconds."""
+    with tempfile.TemporaryDirectory(prefix="mcvd_ddp_") as d:
+        out = os.path.join(d, "ddp.json")
+        outs, wall_s = run_ranks([sys.executable, "-m", "mcvd_tpu_torch.tools.ddp_check",
+                                  "--device", device, "--out", out], n, backend)
+        for r, (rc, o, e) in enumerate(outs):
+            check(rc == 0, f"ddp_check rank {r} of {n} ({backend or 'nccl'}): exit {rc}\n"
+                           f"{o[-2000:]}\n{e[-4000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    check(res["ok"] and res["world"] == n and res["backend"] == (backend or "nccl"),
+          f"ddp_check {n} ranks: {res}")
+    return res, wall_s
+
+
+def _rank_lines(logs, pattern, what):
+    """Each rank's matches of `pattern`, the same on every rank, non-empty."""
+    found = [re.findall(pattern, log) for log in logs]
+    check(found[0] and all(f == found[0] for f in found), f"{what} differ across ranks: {found}")
+    return found[0]
+
+
+def ddp_cli(beside):
+    """The flagship's CLI on DDP_RANKS gloo ranks of the one card
+    (`DDP_CLI_RUNS`): exit 0, exact launch counts on each rank, one
+    checkpoint file a name written by rank 0 alone, no log file lines or
+    meters from rank 1, checkpoint_2 read back bit-equal, and the same
+    finite losses, snapshot, test and video_gen metrics in each rank's log.
+    `beside()` runs beside --test and --video_gen; returns (the phase's
+    payload, what `beside` returned)."""
+    from mcvd_tpu_torch.compat import yaml_subset
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with tempfile.TemporaryDirectory(prefix="mcvd_ddp_cli_") as exp:
+        def launch(flags):
+            return run_ranks([sys.executable, "-m", "mcvd_tpu_torch.main", "--config", CLI_CONFIG,
+                              "--exp", exp, "--data_path", os.path.join(exp, "data"), "--ni",
+                              "--device", "cuda:0", *flags, "--config_mod", *DDP_CLI_MODS,
+                              "training.n_iters=3"], DDP_RANKS, "gloo")
+
+        done = {"train": launch(DDP_CLI_RUNS[0][1])}
+        with ThreadPoolExecutor(3) as pool:   # both read checkpoint_2; other files
+            later = {name: pool.submit(launch, flags) for name, flags in DDP_CLI_RUNS[1:]}
+            other = pool.submit(beside)
+            done.update({name: f.result() for name, f in later.items()})
+            other = other.result()
+        runs = {}
+        for name, _ in DDP_CLI_RUNS:
+            outs, wall_s = done[name]
+            logs = []
+            for r, (rc, _, err) in enumerate(outs):
+                check(rc == 0, f"ddp cli {name} rank {r}: exit {rc}\n{err[-4000:]}")
+                counts = re.findall(r"kernel launches: (\{.*\})", err)
+                check(len(counts) == 1, f"ddp cli {name} rank {r}: no launch count line")
+                check_launches(json.loads(counts[0]), DDP_CLI_LAUNCHES[name],
+                               f"ddp cli {name} rank {r}")
+                logs.append(err)
+            runs[name] = dict(logs=logs, wall_s=wall_s)
+        logs_dir = os.path.join(exp, "logs")
+        train = runs["train"]["logs"]
+        steps = [_steps_waits(log) for log in train]
+        check(all(sorted(s) == [1, 2, 3] for s in steps)
+              and all("training done at step 3" in log for log in train),
+              f"ddp cli train: steps {[sorted(s) for s in steps]}")
+        losses = [{k: v[0] for k, v in s.items()} for s in steps]
+        check(losses[0] == losses[1] and all(np.isfinite(v) for v in losses[0].values()),
+              f"ddp cli train: the ranks' losses {losses}")
+        written = [re.findall(r"checkpoint written: (\S+)", log) for log in train]
+        check([os.path.basename(w) for w in written[0]] == ["checkpoint_2", "checkpoint",
+                                                            "checkpoint"]
+              and written[1] == [], f"ddp cli train: checkpoints written {written}")
+        check(["meters and plots written" in log for log in train] == [True, False],
+              "ddp cli train: meters written by rank 1, or not by rank 0")
+        names = sorted(os.listdir(logs_dir))
+        check([f for f in names if "checkpoint" in f] == ["checkpoint", "checkpoint_2"],
+              f"ddp cli: checkpoint files {names}")
+        with open(os.path.join(logs_dir, "stdout.txt")) as f:
+            text = f.read()
+        check("rank 0 -" in text and "rank 1 -" not in text, "ddp cli: stdout.txt holds rank 1")
+        snap = _rank_lines(train, r"snapshot metrics @2: (.*)", "snapshot metrics")
+        best = _finite_metrics(yaml_subset.load_file(os.path.join(logs_dir, "best_metrics.yml")),
+                               "ddp best_metrics.yml")
+        test = _rank_lines(runs["test"]["logs"], r"ckpt (\S+): test DSM loss (\S+) over (\d+)",
+                           "test losses")
+        check([t[0] for t in test] == ["2"] and all(np.isfinite(float(t[1])) for t in test),
+              f"ddp cli test: {test}")
+        _rank_lines(runs["video_gen"]["logs"], r"video_gen metrics: (.*)", "video_gen metrics")
+        vid = _finite_metrics(yaml_subset.load_file(
+            os.path.join(exp, "video_samples", "videos", "vid_metrics.yml")), "ddp vid_metrics")
+        n_tensors = check_checkpoint(logs_dir, CLI_CONFIG, 2, DDP_CLI_MODS)
+    payload = dict(config=CLI_CONFIG, config_mod=DDP_CLI_MODS, runs=DDP_CLI_RUNS,
+                   ranks=DDP_RANKS, loop_ms_by_step={r: {k: v[1] for k, v in s.items()}
+                                                     for r, s in enumerate(steps)},
+                   losses=losses[0], snapshot=snap[0], best_metrics=best,
+                   test_loss={t[0]: float(t[1]) for t in test}, vid_metrics=vid,
+                   checkpoint_tensors_bit_equal=n_tensors,
+                   wall_s={k: r["wall_s"] for k, r in runs.items()})
+    return other, payload
+
+
+def upfirdn_cases():
+    """`ops.upfirdn.upsample_2d_fast` against `models.resample.upsample_2d`
+    at UPFIRDN_SHAPES, fp32 and bf16: max abs error within TOL, device ms of
+    each."""
+    from mcvd_tpu_torch.models.blocks import FIR_KERNEL
+    from mcvd_tpu_torch.models.resample import upsample_2d
+    from mcvd_tpu_torch.ops.upfirdn import upsample_2d_fast
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    out = []
+    for shape in UPFIRDN_SHAPES:
+        for dn in ("float32", "bfloat16"):
+            x = torch.randn(shape, generator=g, device="cuda").to(getattr(torch, dn))
+            x = x.contiguous(memory_format=torch.channels_last)
+            err, ok = max_err(upsample_2d_fast(x, FIR_KERNEL), upsample_2d(x, FIR_KERNEL), dn)
+            check(ok, f"upsample_2d_fast {shape} {dn}: max abs err {err}")
+            out.append(dict(shape=list(shape), dtype=dn, max_abs_err=err,
+                            polyphase_ms=kernel_ms(lambda: upsample_2d_fast(x, FIR_KERNEL)),
+                            zero_stuffed_ms=kernel_ms(lambda: upsample_2d(x, FIR_KERNEL))))
+    return out
+
+
+def phase_ddp(card):
+    """Data parallelism on the one card: `tools.ddp_check` on 2 gloo ranks
+    (the step and a 10-step block held to one process, the ranks'
+    parameters the same bits, exact launch counts per rank) and on 1 NCCL
+    rank (beside the 2-rank --test and --video_gen, so its times share the
+    card); the flagship's CLI on 2 gloo ranks (`ddp_cli`); the polyphase FIR
+    (`upfirdn_cases`). Gloo on one card moves nothing over an interconnect:
+    its all-reduce ms is not a multi-card rate."""
+    torch.cuda.empty_cache()
+    gloo, gloo_s = ddp_check_run(DDP_RANKS, "gloo", "cuda:0")
+    (nccl, nccl_s), cli = ddp_cli(lambda: ddp_check_run(1, None, "cuda"))
+    fir = upfirdn_cases()
+    emit("ddp", card=card, ranks=DDP_RANKS, gloo_two_ranks=gloo, nccl_one_rank=nccl,
+         wall_s={"gloo_check": gloo_s, "nccl_check": nccl_s},
+         step_ms={"two_ranks_rank0": gloo["ranks"][0]["step_ms"],
+                  "two_ranks_rank1": gloo["ranks"][1]["step_ms"],
+                  "one_process": gloo["step_ms_one_process"]},
+         allreduce_ms_gloo=gloo["allreduce_ms"], allreduce_ms_nccl_one_rank=nccl["allreduce_ms"],
+         allreduce_floats=gloo["allreduce_floats"],
+         peak_mem_gib_per_rank=[r["peak_mem_gib"] for r in gloo["ranks"]],
+         cli=cli, upfirdn=fir)
+
 
 def synth_video(name, v, shape, n=DATA_FRAMES):
     """Video `v` of dataset `name`: smooth waves that drift, in bands of 16
@@ -3185,6 +3364,7 @@ def main():
     train_launches, headline_ms = timed("train_headline", phase_train_headline, card)
     timed("eval_nets", phase_eval_nets, card)
     timed("cli", phase_cli, card, headline_ms)
+    timed("ddp", phase_ddp, card)
     with tempfile.TemporaryDirectory(prefix="mcvd_data_") as root:
         timed("data", phase_data, card, root)
         timed("cli_data", phase_cli_data, card, root)

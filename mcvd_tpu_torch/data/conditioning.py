@@ -20,6 +20,8 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
+from ..parallel import draws as rng
+
 
 def fold_frames(x: torch.Tensor) -> torch.Tensor:
     """(B, T, H, W, C) -> (B, T*C, H, W) channels_last, frame-major."""
@@ -37,7 +39,7 @@ def unfold_frames(x: torch.Tensor, n_frames: int) -> torch.Tensor:
 def _keep(name, draws, B, p, X, generator):
     u = None if draws is None else draws.get(name)
     if u is None:
-        u = torch.rand(B, generator=generator, device=X.device)
+        u = rng.rand((B,), generator, device=X.device)
     elif u.shape != (B,):
         raise ValueError(f"mask draw {name!r} must be ({B},), got {tuple(u.shape)}")
     return u.to(X.device) > p

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel import draws as rng
+
 
 def logit_transform(image: torch.Tensor, lam: float = 1e-6) -> torch.Tensor:
     image = lam + (1 - 2 * lam) * image
@@ -24,7 +26,7 @@ def _draw(explicit, X, generator, sample):
             raise ValueError(f"dequantization noise {tuple(explicit.shape)} is not X's "
                              f"{tuple(X.shape)}")
         return explicit.to(device=X.device, dtype=X.dtype)
-    return sample(X.shape, generator=generator, device=X.device, dtype=X.dtype)
+    return sample(X.shape, generator, device=X.device, dtype=X.dtype)
 
 
 def data_transform(config, X: torch.Tensor, *, uniform: Optional[torch.Tensor] = None,
@@ -32,9 +34,9 @@ def data_transform(config, X: torch.Tensor, *, uniform: Optional[torch.Tensor] =
                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     data = config.data
     if getattr(data, "uniform_dequantization", False):
-        X = X / 256.0 * 255.0 + _draw(uniform, X, generator, torch.rand) / 256.0
+        X = X / 256.0 * 255.0 + _draw(uniform, X, generator, rng.rand) / 256.0
     if getattr(data, "gaussian_dequantization", False):
-        X = X + _draw(normal, X, generator, torch.randn) * 0.01
+        X = X + _draw(normal, X, generator, rng.randn) * 0.01
     if getattr(data, "rescaled", False):
         return 2 * X - 1.0
     if getattr(data, "logit_transform", False):

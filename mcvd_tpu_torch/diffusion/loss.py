@@ -14,6 +14,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ..parallel import draws as rng
 from .schedules import DiffusionSchedule
 
 
@@ -38,7 +39,7 @@ def dsm_loss(model_fn: Callable[..., torch.Tensor], x: torch.Tensor,
         cond = None
     table = sched.sigmas if sched.version == "SMLD" else sched.alphas
     if labels is None:
-        labels = torch.randint(0, len(table), (B,), generator=generator, device=x.device)
+        labels = rng.randint(len(table), (B,), generator, device=x.device)
     labels = labels.to(device=x.device, dtype=torch.long)
     bshape = (B,) + (1,) * (x.ndim - 1)
     used = torch.as_tensor(table, device=x.device)[labels].view(bshape)
@@ -47,9 +48,9 @@ def dsm_loss(model_fn: Callable[..., torch.Tensor], x: torch.Tensor,
         k = torch.as_tensor(sched.k_cum, device=x.device)[labels].view(bshape)
         theta = torch.as_tensor(sched.theta_t, device=x.device)[labels].view(bshape)
     if z is None and gamma:
-        z = torch._standard_gamma(k.expand(x.shape).contiguous(), generator=generator)
+        z = rng.standard_gamma(k.expand(x.shape).contiguous(), generator)
     elif z is None:
-        z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+        z = rng.randn(x.shape, generator, device=x.device, dtype=x.dtype)
     elif z.shape != x.shape:
         raise ValueError(f"dsm_loss: z {tuple(z.shape)} is not x's {tuple(x.shape)}")
     if gamma:

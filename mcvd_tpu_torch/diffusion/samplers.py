@@ -25,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..parallel import draws as rng
 from .schedules import DiffusionSchedule, subsample_schedule
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -76,10 +77,9 @@ def _draw(generator: Optional[torch.Generator], like: torch.Tensor,
     if generator is None:
         raise ValueError("the sampler needs a torch.Generator or explicit draws")
     if k is None:
-        return torch.randn(like.shape, generator=generator, device=like.device,
-                           dtype=like.dtype)
+        return rng.randn(like.shape, generator, device=like.device, dtype=like.dtype)
     conc = torch.full(like.shape, float(k), device=like.device, dtype=torch.float32)
-    return torch._standard_gamma(conc, generator=generator).to(like.dtype)
+    return rng.standard_gamma(conc, generator).to(like.dtype)
 
 
 def _gamma_noise(g: torch.Tensor, k, theta, alpha) -> torch.Tensor:

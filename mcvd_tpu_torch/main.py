@@ -10,7 +10,18 @@ flags it takes; upstream main.py:20-70):
 Config YAML -> nested namespace (the port's own YAML reader), typed
 `--config_mod` overrides, the experiment directory with the config and
 argument snapshots, and one process on one device: the card unless
-`--device cpu` (no card raises). TF32 is off: `compute_dtype: float32` runs
+`--device cpu` (no card raises). With `MCVD_DIST=1` the process is one rank
+of a group (`parallel.dist`: the MCVD_* variables, or torchrun's), on
+`cuda:LOCAL_RANK` unless `--device` names a device:
+
+    MCVD_DIST=1 MCVD_COORDINATOR=host:port MCVD_NUM_PROCESSES=P \
+        MCVD_PROCESS_ID=r python -m mcvd_tpu_torch.main --config ... --train
+    MCVD_DIST=1 torchrun --nproc_per_node P -m mcvd_tpu_torch.main ...
+
+`training.batch_size` is then the global batch. Rank 0 writes the code
+snapshot, the config and argument copies and the log file; every rank logs
+to its stderr, "rank r" in each line. The group is left at the end, after
+an error too, and a rank that fails exits 1. TF32 is off: `compute_dtype: float32` runs
 fp32 convolutions and matmuls. The metric networks (FVD's I3D, LPIPS,
 fast_fid's Inception) take their weight files from `eval.*` or the default
 directories (`mcvd_tpu_torch/eval/weights.py`). At the end the kernels'
@@ -32,8 +43,7 @@ import traceback
 
 def parse_args_and_config(argv=None):
     from mcvd_tpu_torch.compat import yaml_subset
-    from mcvd_tpu_torch.config import (apply_config_mods, dict2namespace, save_config,
-                                       validate_config)
+    from mcvd_tpu_torch.config import apply_config_mods, dict2namespace, validate_config
 
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -103,23 +113,36 @@ def parse_args_and_config(argv=None):
     config = validate_config(config)
 
     args.log_path = os.path.join(args.exp, "logs")
-    os.makedirs(args.log_path, exist_ok=True)
     args.image_folder = os.path.join(args.exp, "image_samples", args.image_folder)
     args.video_folder = os.path.join(args.exp, "video_samples", args.video_folder)
+    return args, config
 
-    # config and args beside the logs (upstream main.py:156-160)
+
+def set_up_logging(args, rank: int = 0, world: int = 1, to_file: bool = True) -> None:
+    """Every rank logs to its stderr; rank 0 also into <exp>/logs/stdout.txt
+    (unless not `to_file`: before a rank knows its rank)."""
+    level = getattr(logging, args.verbose.upper(), logging.INFO)
+    handlers = [logging.StreamHandler()]
+    if rank == 0 and to_file:
+        os.makedirs(args.log_path, exist_ok=True)
+        handlers.append(logging.FileHandler(os.path.join(args.log_path, "stdout.txt")))
+    who = f"rank {rank} - " if world > 1 else ""
+    logging.basicConfig(level=level,
+                        format=f"%(levelname)s - {who}%(filename)s - %(asctime)s - %(message)s",
+                        handlers=handlers, force=True)
+
+
+def save_run_files(args, config) -> None:
+    """The config and the arguments beside the logs (upstream
+    main.py:156-160)."""
+    from mcvd_tpu_torch.compat import yaml_subset
+    from mcvd_tpu_torch.config import save_config
+
+    os.makedirs(args.log_path, exist_ok=True)
     save_config(config, os.path.join(args.log_path, "config.yml"))
     yaml_subset.dump_file({k: v for k, v in vars(args).items()
                            if isinstance(v, (str, int, float, bool, list))},
                           os.path.join(args.log_path, "args.yml"))
-
-    level = getattr(logging, args.verbose.upper(), logging.INFO)
-    handlers = [logging.StreamHandler(),
-                logging.FileHandler(os.path.join(args.log_path, "stdout.txt"))]
-    logging.basicConfig(level=level,
-                        format="%(levelname)s - %(filename)s - %(asctime)s - %(message)s",
-                        handlers=handlers, force=True)
-    return args, config
 
 
 def snapshot_code(exp_dir: str) -> str:
@@ -141,12 +164,13 @@ def snapshot_code(exp_dir: str) -> str:
 
 def main(argv=None):
     args, config = parse_args_and_config(argv)
-    logging.info("args: %s", vars(args))
 
     import torch
 
     from mcvd_tpu_torch import ops
-    from mcvd_tpu_torch.runners.runner import Runner
+    from mcvd_tpu_torch.parallel import dist as pdist
+
+    set_up_logging(args, to_file=not pdist.enabled())
 
     # float32 compute is fp32-class, as in the port's kernels and its card
     # checks: PyTorch would run cuDNN's fp32 convolutions in TF32
@@ -154,8 +178,16 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
 
     try:
-        if not (args.video_gen or args.sample or args.test or args.fast_fid):
-            logging.info("code snapshot: %s", snapshot_code(args.exp))
+        args.device = str(pdist.init_from_env(args.device))
+        if pdist.enabled():
+            set_up_logging(args, pdist.rank(), pdist.world())
+        logging.info("args: %s", vars(args))
+        from mcvd_tpu_torch.runners.runner import Runner
+
+        if pdist.is_main():
+            save_run_files(args, config)
+            if not (args.video_gen or args.sample or args.test or args.fast_fid):
+                logging.info("code snapshot: %s", snapshot_code(args.exp))
         runner = Runner(args, config)
         if args.video_gen:
             runner.video_gen(ckpt=args.ckpt)
@@ -172,6 +204,7 @@ def main(argv=None):
         return 1
     finally:
         logging.info("kernel launches: %s", json.dumps(ops.LAUNCHES))
+        pdist.shutdown()
     return 0
 
 

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import ops
+from ..parallel import draws as rng
 from . import resample
 from .layers import (NIN, Conv2d, Conv3d, GroupNorm, Linear, PseudoConv3d, UpDownConv2d,
                      nchw_unfold, nhwc_fold, num_groups_for)
@@ -47,7 +48,7 @@ def _dropout(h: torch.Tensor, rate: float, training: bool,
     if not training or rate == 0.0:
         return h
     B, C, H, W = h.shape
-    u = torch.rand(B, H, W, C, generator=generator, device=h.device).permute(0, 3, 1, 2)
+    u = rng.rand((B, H, W, C), generator, device=h.device).permute(0, 3, 1, 2)
     return h * (u >= rate).to(h.dtype) / (1.0 - rate)
 
 

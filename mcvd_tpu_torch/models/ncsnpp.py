@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..diffusion.schedules import get_sigmas, make_schedule
+from ..parallel import draws as rng
 from . import blocks
 from .layers import FrameConverter, Linear, get_timestep_embedding, nchw_unfold, nhwc_fold
 
@@ -329,7 +330,7 @@ def draw_cond_noise(config, sched, labels: torch.Tensor, cond: torch.Tensor,
     if generator is None:
         raise ValueError("draw_cond_noise needs a torch.Generator")
     if not getattr(config.model, "gamma", False):
-        return torch.randn(cond.shape, generator=generator, device=cond.device)
+        return rng.randn(cond.shape, generator, device=cond.device)
     k = torch.as_tensor(sched.k_cum, device=cond.device)[labels.to(cond.device)]
     k = k.view((cond.shape[0],) + (1,) * (cond.ndim - 1)).expand(cond.shape)
-    return torch._standard_gamma(k.contiguous(), generator=generator)
+    return rng.standard_gamma(k.contiguous(), generator)

@@ -34,6 +34,7 @@ from torch import nn
 
 from .. import ops
 from ..diffusion.schedules import make_schedule
+from ..parallel import draws as rng
 from .layers import Conv2d, GroupNorm, LegacyNin as Nin, Linear, get_timestep_embedding
 
 LEGACY_GROUPS = 32
@@ -50,7 +51,7 @@ def _dropout2d(h: torch.Tensor, rate: float, training: bool,
     if not training or rate == 0.0:
         return h
     B, C = h.shape[:2]
-    u = torch.rand(B, C, generator=generator, device=h.device)
+    u = rng.rand((B, C), generator, device=h.device)
     return h * ((u >= rate).to(h.dtype) / (1.0 - rate))[:, :, None, None]
 
 

@@ -11,9 +11,21 @@ plain or with an ensemble of checkpoints; SMLD's inpainting and
 interpolation branches of `sample`). The metric networks run on the
 runner's device.
 
-One process on one device: the card unless `args.device` is "cpu". The
-score network's GroupNorm and attention run through the port's kernels on
-the card. The loop syncs with the device only where the host needs a value:
+One process on one device (the card unless `args.device` is "cpu"), or one
+rank of a process group (`parallel.dist`, `MCVD_DIST=1`), as the JAX
+runner's multi-process branches: `training.batch_size` is the global batch,
+each rank reads a disjoint 1/P of the train and validation splits
+(`DataLoader(num_processes, process_index)`) and the train step averages
+the gradients over the ranks; rank 0 writes the checkpoints, meters, plots
+and metric files while the others wait at a barrier; every evaluation runs
+the same host harness on every rank over the full split, with the
+sampler's chain cut into the ranks' rows (`parallel.wrap_chain`, batch
+sizes a multiple of P), so every rank gets the same result; `test()`'s
+ranks read shards of the test split for a common number of batches.
+Filesystem decisions (the checkpoint listing, the caches) are rank 0's or
+every rank's (`broadcast_from_primary`, `all_processes_true`). The score
+network's GroupNorm and attention run through the port's kernels on the
+card. The loop syncs with the device only where the host needs a value:
 at the `log_freq` crossings (loss and grad norm), the `val_freq` crossings
 (validation loss), checkpoints and snapshots; a batch is assembled on a
 producer thread and copied to the card while the previous step runs
@@ -27,9 +39,9 @@ Not carried over from the JAX runner, and why:
   * the stall watchdog (`training.stall_timeout`) and the profiler hook
     (`training.profile_at_step`), both built around the TPU backend; the
     port's profiles come from `tools/profile_eval`;
-  * multi-process training and `chunk_block`, the TPU per-call batch cap;
-    so the Langevin branches run whole in the one process, without the JAX
-    runner's `wrap_chain_collective`.
+  * `chunk_block`, the TPU per-call batch cap; the `lockstep` barriers
+    against XLA's compile skew; the 'tensor' mesh axis (`parallel.tensor`
+    is accepted and ignored, ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -52,7 +64,11 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..diffusion import make_schedule
 from ..eval.video_gen import init_noise, make_block_sampler, run_video_gen
 from ..models import get_model
-from ..train import checkpoints, create_train_state, make_eval_loss_step, make_train_step
+from ..parallel import all_processes_true, barrier, broadcast_from_primary, clamp_batch
+from ..parallel import dist as pdist
+from ..parallel import wrap_chain
+from ..train import (broadcast_state_, checkpoints, create_train_state, make_eval_loss_step,
+                     make_train_step)
 from . import meters as meters_mod
 from . import plots
 
@@ -91,6 +107,7 @@ class Runner:
         self.sched = make_schedule(config)
         self.model = get_model(config, generator=torch.Generator().manual_seed(self.seed),
                                device=self.device)
+        self.is_main = pdist.is_main()
         self._blocks = {}
 
     # ------------------------------------------------------------------ utils
@@ -104,17 +121,21 @@ class Runner:
         return self.args.log_path
 
     def _agreed_ckpt_steps(self, ckpt_dir: str):
-        """The numbered checkpoints' steps, sorted (one process: no peers to
-        agree with)."""
-        return checkpoints.numbered_steps(ckpt_dir)
+        """The numbered checkpoints' steps, sorted: rank 0's listing on every
+        rank, so all run the same number of collective evaluations."""
+        return broadcast_from_primary(checkpoints.numbered_steps(ckpt_dir), "ckpt steps")
 
     def _eval_batch_size(self, bs, n_avail, what: str) -> int:
-        """An eval batch clamped to the split: drop_last with an oversize
-        batch would yield no batch."""
-        out = min(int(bs), int(n_avail))
-        if out <= 0:
-            raise ValueError(f"{what}: batch_size={bs} with only {n_avail} available samples")
-        return out
+        """An eval batch clamped to the split (drop_last with an oversize
+        batch would yield no batch) and to a multiple of the ranks."""
+        return clamp_batch(bs, n_avail, what)
+
+    def _save_checkpoint(self, state, name: str = "checkpoint"):
+        """Rank 0 writes; every rank leaves when it is written."""
+        if self.is_main:
+            path = checkpoints.save_checkpoint(self._ckpt_dir(), state, name=name)
+            logger.info("checkpoint written: %s", path)
+        barrier(f"save {name}")
 
     def _test_loader_repeated(self, test_ds, preds_per_test, batch_size):
         """Each video repeated preds_per_test times, in order."""
@@ -135,15 +156,22 @@ class Runner:
             args.data_path, config,
             video_frames_pred=getattr(config.sampling, "num_frames_pred",
                                       config.data.num_frames))
-        bs = config.training.batch_size
+        bs = config.training.batch_size   # the global batch
+        n_proc, proc = pdist.world(), pdist.rank()
+        if bs % n_proc:
+            raise ValueError(f"training.batch_size={bs} (global) must be a multiple of the "
+                             f"{n_proc} ranks")
         # the items of a batch are read by this many threads (the HDF5
         # readers' decode releases the GIL), in the same order as by one
         num_workers = int(getattr(config.data, "num_workers", 0) or 0)
-        loader = DataLoader(train_ds, batch_size=bs, shuffle=True, seed=self.seed,
-                            drop_last=True, repeat=True, num_workers=num_workers)
-        bs_val = self._eval_batch_size(bs, len(test_ds), "val loader")
-        test_iter = iter(DataLoader(test_ds, batch_size=bs_val, shuffle=True,
+        # each rank reads a disjoint 1/n_proc of the split, bs/n_proc a batch
+        loader = DataLoader(train_ds, batch_size=bs // n_proc, shuffle=True, seed=self.seed,
+                            drop_last=True, repeat=True, num_processes=n_proc,
+                            process_index=proc, num_workers=num_workers)
+        bs_val = self._eval_batch_size(bs, (len(test_ds) // n_proc) * n_proc, "val loader")
+        test_iter = iter(DataLoader(test_ds, batch_size=bs_val // n_proc, shuffle=True,
                                     seed=self.seed + 1, drop_last=True, repeat=True,
+                                    num_processes=n_proc, process_index=proc,
                                     num_workers=num_workers))
 
         state = self._init_state()
@@ -153,6 +181,7 @@ class Runner:
             meters = meters_mod.load_meters(args.log_path)
             logger.info("resumed from step %d", state.step)
         meters = meters or meters_mod.init_meters()
+        broadcast_state_(state)   # rank 0's weights and slots on every rank
         gen = torch.Generator(device=self.device).manual_seed(self.seed)
         step_fn = make_train_step(self.model, self.sched, config)
         eval_fn = make_eval_loss_step(self.model, self.sched, config)
@@ -203,14 +232,15 @@ class Runner:
                     logger.info("step %d | test loss %.2f", step, val)
                     busy = True
                 if _crossed(ckpt_freq, prev_step, step):
-                    checkpoints.save_checkpoint(self._ckpt_dir(), state)
-                    meters_mod.save_meters(meters, args.log_path)
-                    plots.plot_graphs_process(meters, args.log_path)
+                    self._save_checkpoint(state)
+                    if self.is_main:
+                        meters_mod.save_meters(meters, args.log_path)
+                        plots.plot_graphs_process(meters, args.log_path)
+                        logger.info("meters and plots written: %s", args.log_path)
                     busy = True
                 if _crossed(snapshot_freq, prev_step, step):
                     snap_step = (step // snapshot_freq) * snapshot_freq
-                    checkpoints.save_checkpoint(self._ckpt_dir(), state,
-                                                name=f"checkpoint_{snap_step}")
+                    self._save_checkpoint(state, name=f"checkpoint_{snap_step}")
                     if getattr(config.training, "snapshot_sampling", True):
                         self._snapshot_metrics(state, eval_test_ds, meters, step)
                     busy = True
@@ -218,15 +248,21 @@ class Runner:
                     t_mark, mark_step, wait_s = time.time(), step, 0.0
         finally:
             data_iter.close()
-        checkpoints.save_checkpoint(self._ckpt_dir(), state)
-        meters_mod.save_meters(meters, args.log_path)
+        self._save_checkpoint(state)
+        if self.is_main:
+            meters_mod.save_meters(meters, args.log_path)
         logger.info("training done at step %d", step)
         return state
 
     def _snapshot_metrics(self, state, eval_test_ds, meters, step):
         """The in-training video_gen with the EMA weights, its metrics into
-        the meters and best_metrics.yml. A failure is logged, not raised: the
-        evaluation must not end the training (as the JAX runner)."""
+        the meters and (rank 0) best_metrics.yml. A failure is logged, not
+        raised: the evaluation must not end the training (as the JAX runner).
+        In a process group every rank joins the collective sampler, then the
+        ranks vote: a failure on any rank raises on all of them, so they
+        restart together from the checkpoint rather than pair the next
+        collective with a rank that left the evaluation."""
+        eval_ok = True
         try:
             vm = self._video_gen_inner(state, eval_test_ds, train=True, ckpt=step)
             logger.info("snapshot metrics @%d: %s", step, vm)
@@ -235,10 +271,16 @@ class Runner:
                     if f"{name}{task}" in vm:
                         meters[f"{name}{task}_meter"].update(vm[f"{name}{task}"], step)
             best = meters_mod.update_best(meters, vm, step)
-            logger.info("best so far: %s", best)
-            yaml_subset.dump_file(best, os.path.join(self.args.log_path, "best_metrics.yml"))
+            if self.is_main:
+                logger.info("best so far: %s", best)
+                yaml_subset.dump_file(best, os.path.join(self.args.log_path,
+                                                         "best_metrics.yml"))
         except Exception as e:  # the evaluation must not end the training
+            eval_ok = False
             logger.exception("in-training video_gen failed: %s", e)
+        if pdist.world() > 1 and not all_processes_true(eval_ok):
+            raise RuntimeError("in-training video_gen failed on at least one rank; every "
+                               "rank stops, to restart together from the checkpoint")
 
     # -------------------------------------------------------------- video_gen
 
@@ -255,10 +297,11 @@ class Runner:
     def _guarded_block_sampler(self, ensemble: bool = False):
         """The block sampler of every evaluation (one plain, one ensemble),
         each built once: it takes the weights per call, so each snapshot and
-        checkpoint reuses it."""
+        checkpoint reuses it. With more than one rank, the collective one
+        (`parallel.wrap_chain`): each rank samples its rows of the batch."""
         if ensemble not in self._blocks:
-            self._blocks[ensemble] = make_block_sampler(self.config, self.model, self.sched,
-                                                        ensemble=ensemble)
+            block = make_block_sampler(self.config, self.model, self.sched, ensemble=ensemble)
+            self._blocks[ensemble] = wrap_chain(block) if pdist.world() > 1 else block
         return self._blocks[ensemble]
 
     def _video_gen_inner(self, state, test_ds, train: bool, ckpt: int,
@@ -301,6 +344,9 @@ class Runner:
             plots.save_video_grid(os.path.join(out_dir, f"videos_{ckpt or step}{suffix}"),
                                   pred=unfold(pred), real=unfold(real), cond=unfold(cond))
 
+        if not self.is_main:
+            save_artifacts = None
+
         t0 = time.perf_counter()
         vm = run_video_gen(
             config, self.model, params, self.sched, iter(loader),
@@ -309,9 +355,10 @@ class Runner:
             preds_per_test=preds_per_test, lpips_fn=lpips_fn, i3d_embedder=i3d_embedder,
             save_artifacts=save_artifacts, block_sampler=self._guarded_block_sampler())
         seconds = time.perf_counter() - t0
-        yaml_subset.dump_file({k: float(v) if isinstance(v, (int, float, np.floating)) else v
-                               for k, v in vm.items()},
-                              os.path.join(out_dir, "vid_metrics.yml"))
+        if self.is_main:
+            yaml_subset.dump_file({k: float(v) if isinstance(v, (int, float, np.floating))
+                                   else v for k, v in vm.items()},
+                                  os.path.join(out_dir, "vid_metrics.yml"))
         logger.info("video_gen metrics: %s", vm)
         logger.info("video_gen: %.3f s for the harness (%s)", seconds, self.device)
         return vm
@@ -401,8 +448,9 @@ class Runner:
         out_dir = getattr(args, "image_folder", args.log_path)
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, f"samples_{ckpt or step}.npz")
-        np.savez(path, samples=samples, real=real, cond=cond)
-        logger.info("wrote samples %s to %s", samples.shape, path)
+        if self.is_main:
+            np.savez(path, samples=samples, real=real, cond=cond)
+            logger.info("wrote samples %s to %s", samples.shape, path)
         return samples
 
     def _sample_fid_loop(self, ckpt: Optional[int] = None):
@@ -426,8 +474,9 @@ class Runner:
         for i in range(n_rounds):
             X, _ = next(data_iter)
             samples, _, _ = self._generate(block, params, X, gen)
-            np.savez(os.path.join(out_dir, f"fid_samples_{ckpt or step}_{i:05d}.npz"),
-                     samples=samples)
+            if self.is_main:
+                np.savez(os.path.join(out_dir, f"fid_samples_{ckpt or step}_{i:05d}.npz"),
+                         samples=samples)
             n_written += len(samples)
         logger.info("wrote %d FID sample batches (%d videos) to %s", n_rounds, n_written,
                     out_dir)
@@ -464,8 +513,9 @@ class Runner:
         out_dir = getattr(self.args, "image_folder", self.args.log_path)
         os.makedirs(out_dir, exist_ok=True)
         path = os.path.join(out_dir, name)
-        np.savez(path, **arrays)
-        logger.info("wrote %s to %s", {k: v.shape for k, v in arrays.items()}, path)
+        if self.is_main:
+            np.savez(path, **arrays)
+            logger.info("wrote %s to %s", {k: v.shape for k, v in arrays.items()}, path)
 
     def _sample_inpainting(self, ckpt: Optional[int] = None):
         """Left-half-known inpainting (upstream ncsn_runner.py:957-1021) of the
@@ -485,11 +535,17 @@ class Runner:
         cond = None if cond is None else cond.permute(0, 2, 3, 1)
         init = data_transform(config, torch.rand(refer.shape, generator=gen,
                                                  device=self.device))
-        with torch.inference_mode():
-            out = anneal_langevin_inpainting(
-                init, refer, self._eps_closure(params, cond, cond_mask), self.sched,
+
+        def chain(p, init_, refer_, cond_, cond_mask_, *, generator=None):
+            return anneal_langevin_inpainting(
+                init_, refer_, self._eps_closure(p, cond_, cond_mask_), self.sched,
                 n_steps_each=getattr(config.sampling, "n_steps_each", 100),
-                step_lr=getattr(config.sampling, "step_lr", 8e-6), generator=gen)
+                step_lr=getattr(config.sampling, "step_lr", 8e-6), generator=generator)
+
+        if pdist.world() > 1:   # each rank runs its rows of the chain
+            chain = wrap_chain(chain)
+        with torch.inference_mode():
+            out = chain(params, init, refer, cond, cond_mask, generator=gen)
         host = (lambda t: inverse_data_transform(config, t).float().cpu().numpy())
         samples = host(out)
         self._save_smld(f"inpainting_{ckpt or step}.npz", samples=samples, refer=host(refer))
@@ -517,11 +573,17 @@ class Runner:
                          else cond_mask.repeat_interleave(n_interp, dim=0))
         init = data_transform(config, torch.rand((Xt.shape[0], sz, sz, F * C),
                                                  generator=gen, device=self.device))
-        with torch.inference_mode():
-            out = anneal_langevin_interpolation(
-                init, self._eps_closure(params, cond, cond_mask), self.sched, n_interp,
+
+        def chain(p, init_, cond_, cond_mask_, *, generator=None):
+            return anneal_langevin_interpolation(
+                init_, self._eps_closure(p, cond_, cond_mask_), self.sched, n_interp,
                 n_steps_each=getattr(config.sampling, "n_steps_each", 200),
-                step_lr=getattr(config.sampling, "step_lr", 8e-6), generator=gen)
+                step_lr=getattr(config.sampling, "step_lr", 8e-6), generator=generator)
+
+        if pdist.world() > 1:   # init's rows and their n_interp cond rows each
+            chain = wrap_chain(chain)
+        with torch.inference_mode():
+            out = chain(params, init, cond, cond_mask, generator=gen)
         samples = inverse_data_transform(config, out).float().cpu().numpy()
         self._save_smld(f"interpolation_{ckpt or step}.npz", samples=samples)
         return samples
@@ -547,11 +609,16 @@ class Runner:
         clips (a loader of its own, at epoch 0: the SMMNIST clips depend on
         the epoch), and batch i draws its noise levels and noise from a
         generator seeded with i, so the checkpoints differ only in their
-        weights."""
+        weights. With P ranks each reads its strided shard of the split, bs/P
+        a batch, and the loss is the global batch's mean; every rank stops at
+        the batch count the smallest shard gives (a rank with one batch more
+        would wait alone in its collective)."""
         args, config = self.args, self.config
         test_ds = self._test_split()
-        bs = self._eval_batch_size(config.test.batch_size, len(test_ds), "test()")
-        n_batches = len(test_ds) // bs
+        n_proc = pdist.world()
+        bs = self._eval_batch_size(config.test.batch_size, (len(test_ds) // n_proc) * n_proc,
+                                   "test()")
+        n_batches = (len(test_ds) // n_proc) // (bs // n_proc)
         max_batches = getattr(config.test, "max_batches", None)
         if max_batches is not None:
             n_batches = min(n_batches, int(max_batches))
@@ -560,7 +627,8 @@ class Runner:
         for s in self._sweep(begin_ckpt, end_ckpt, freq):
             params, loaded_step = self._load_eval_params(s)
             losses = []
-            loader = DataLoader(test_ds, batch_size=bs, shuffle=False, drop_last=True)
+            loader = DataLoader(test_ds, batch_size=bs // n_proc, shuffle=False, drop_last=True,
+                                num_processes=n_proc, process_index=pdist.rank())
             for i, (X, _) in enumerate(loader):
                 if i >= n_batches:
                     break
@@ -570,7 +638,8 @@ class Runner:
             results[s or loaded_step] = float(np.mean(losses))
             logger.info("ckpt %s: test DSM loss %.6f over %d batches", s or loaded_step,
                         results[s or loaded_step], len(losses))
-        yaml_subset.dump_file(results, os.path.join(args.log_path, "test_losses.yml"))
+        if self.is_main:
+            yaml_subset.dump_file(results, os.path.join(args.log_path, "test_losses.yml"))
         return results
 
     # ---------------------------------------------------------------- fast_fid
@@ -616,7 +685,8 @@ class Runner:
         feats_dir = getattr(args, "feats_dir", None)
         real_cache = (os.path.join(feats_dir, f"{getattr(config.data, 'dataset', 'data')}"
                                               f"_feats.npy") if feats_dir else None)
-        if real_cache and os.path.isfile(real_cache):
+        # every rank takes the cache only if every rank sees it
+        if real_cache and all_processes_true(os.path.isfile(real_cache)):
             feat_r = np.load(real_cache)
             logger.info("loaded real features from %s", real_cache)
         if feat_r is None:
@@ -627,7 +697,7 @@ class Runner:
                 if n >= num_samples:
                     break
             feat_r = embed(np.concatenate(reals)[:num_samples])
-            if real_cache:
+            if real_cache and self.is_main:
                 os.makedirs(feats_dir, exist_ok=True)
                 np.save(real_cache, feat_r)
 
@@ -652,7 +722,7 @@ class Runner:
                 params = [_clone(self._load_eval_params(w)[0]) for w in window[:-1]] + [own]
                 tag = f"{tag}_ens{len(params)}"
             feats_cache = os.path.join(cache_dir, f"feats_{tag}.npy")
-            if os.path.isfile(feats_cache):
+            if all_processes_true(os.path.isfile(feats_cache)):
                 feat_g = np.load(feats_cache)
                 logger.info("ckpt %s: features read from %s", tag, feats_cache)
             else:
@@ -669,8 +739,9 @@ class Runner:
                     n += len(samples[-1])
                 sample_imgs = np.concatenate(samples)[:num_samples]
                 feat_g = embed(sample_imgs)
-                np.save(os.path.join(cache_dir, f"samples_{tag}.npy"), sample_imgs)
-                np.save(feats_cache, feat_g)
+                if self.is_main:
+                    np.save(os.path.join(cache_dir, f"samples_{tag}.npy"), sample_imgs)
+                    np.save(feats_cache, feat_g)
             if no_pr:
                 mu_r, sig_r = activation_statistics(feat_r)
                 mu_g, sig_g = activation_statistics(feat_g)
@@ -680,7 +751,8 @@ class Runner:
             fids[s or loaded] = res
             logger.info("ckpt %s%s: %s", s or loaded, " (ensemble)" if ensemble else "", res)
         out = {int(kk): {m: float(v) for m, v in vv.items()} for kk, vv in fids.items()}
-        yaml_subset.dump_file(out, os.path.join(args.log_path, "fids.yml"))
+        if self.is_main:
+            yaml_subset.dump_file(out, os.path.join(args.log_path, "fids.yml"))
         return out
 
 

@@ -27,6 +27,13 @@ it; the modules sorted by ms), then the bare network window over `--evals`
 evaluations after one. `--cudnn_benchmark` lets cuDNN time its algorithms
 at each new shape (`torch.backends.cudnn.benchmark`) instead of taking its
 heuristics' choice, as the port does by default.
+
+With `--config` and `--train_batches 32,16,8`, instead: the yml's model at
+full width, one fp32 training step (TF32 off, the yml's dropout) at each
+batch after a warm-up step: ms (host clock, synchronised) and the peak
+device memory of that step (and of the warm-up, where `--cudnn_benchmark`
+lets cuDNN try workspaces as large as the free memory); a batch that does
+not fit is recorded as out of memory.
 """
 
 from __future__ import annotations
@@ -215,6 +222,44 @@ def measure_train(compute_dtype: str, batch: int = 64) -> dict:
     return out
 
 
+def measure_train_memory(config_path: str, batches) -> list:
+    """One fp32 step of a yml's model at each batch: ms and peak GiB."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = load_config(config_path)
+    config.training.compute_dtype = "float32"
+    d = config.data
+    out = []
+    for batch in batches:
+        model = state = step = X = None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            model = get_model(config, generator=torch.Generator().manual_seed(0), device="cuda")
+            state = create_train_state(config, model, device="cuda")
+            step = make_train_step(model, make_schedule(config), config)
+            g = torch.Generator(device="cuda").manual_seed(8)
+            X = torch.rand(batch, d.num_frames_cond + d.num_frames + getattr(
+                d, "num_frames_future", 0), d.image_size, d.image_size, d.channels,
+                generator=g, device="cuda")
+            step(state, X, generator=g)   # warm-up (and cuDNN's algorithm search)
+            torch.cuda.synchronize()
+            warm_peak = torch.cuda.max_memory_allocated() / 2**30
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            step(state, X, generator=g)
+            torch.cuda.synchronize()
+            out.append({"batch": batch, "ms": 1e3 * (time.perf_counter() - t0),
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "warmup_peak_mem_gib": warm_peak,
+                        "params": sum(p.numel() for p in model.parameters())})
+        except torch.cuda.OutOfMemoryError as e:
+            out.append({"batch": batch, "out_of_memory": str(e).splitlines()[0],
+                        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", help="profile one evaluation of this yml's model")
@@ -222,8 +267,19 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--evals", type=int, default=5)
     ap.add_argument("--cudnn_benchmark", action="store_true")
+    ap.add_argument("--train_batches", default=None,
+                    help="with --config: a training step's peak memory at these batches")
     args = ap.parse_args(argv)
     card = nvidia_smi()
+    if args.config and args.train_batches:
+        torch.backends.cudnn.benchmark = args.cudnn_benchmark
+        steps = measure_train_memory(args.config,
+                                     [int(b) for b in args.train_batches.split(",")])
+        print(json.dumps({"tool": "profile_eval", "card": card,
+                          "device": torch.cuda.get_device_name(0), "config": args.config,
+                          "dtype": "float32", "cudnn_benchmark": args.cudnn_benchmark,
+                          "train_steps": steps}), flush=True)
+        return 0
     if args.config:
         torch.backends.cudnn.benchmark = args.cudnn_benchmark
         result = measure_network(args.config, args.batch, args.dtype, args.evals)

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..parallel import broadcast_, broadcast_from_primary
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -173,3 +174,15 @@ def create_train_state(config, model: torch.nn.Module, *,
     params = dict(model.named_parameters())
     return TrainState(params=params, opt_state=make_optimizer(config).init(params),
                       ema_params={k: p.detach().clone() for k, p in params.items()})
+
+
+def broadcast_state_(state: TrainState) -> TrainState:
+    """Rank 0's state in every rank's, in place: parameters, EMA, the
+    optimizer's slots and counters (no-op without a process group)."""
+    tensors = [t for d in (state.params, state.ema_params) for t in d.values()]
+    tensors += [t for v in state.opt_state.values() if isinstance(v, dict) for t in v.values()]
+    with torch.no_grad():
+        broadcast_(tensors)
+    state.step, state.epoch, state.opt_state["count"] = broadcast_from_primary(
+        (state.step, state.epoch, state.opt_state["count"]), "train state")
+    return state

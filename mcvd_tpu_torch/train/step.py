@@ -22,6 +22,17 @@ through the cast into fp32), x_t and cond cast to bf16, the output cast back
 to fp32; the DSM chain math and the optimizer stay fp32. The eval loss is
 always fp32, with dropout off.
 
+In a process group (`parallel.dist`, P ranks) each rank runs the step on
+its own rows of the global batch: the draws made from `generator` are the
+global batch's, cut to the rank's rows (`parallel.draws.RowDraws`; explicit
+`draws` are the caller's rows), and the gradients and the loss are averaged
+over the ranks (`parallel.all_reduce_mean_`, flat fp32 buckets) before the
+clip, so the clip, the optimizer and the EMA see the global batch's
+gradient, every rank receives the same bits and the ranks' parameters stay
+equal. The DSM loss is a mean over the batch, so on equal local batches the
+mean of the ranks' gradients is the global batch's. Without a group
+nothing of this runs.
+
 The JAX package's `make_train_chunk` (K steps in one `lax.scan` dispatch,
 `training.steps_per_dispatch`) works around the TPU's per-dispatch cost and
 is not ported: here each step is one Python call.
@@ -40,6 +51,7 @@ from ..diffusion.loss import dsm_loss
 from ..diffusion.schedules import DiffusionSchedule
 from ..models.ema import ema_update
 from ..models.ncsnpp import draw_cond_noise
+from ..parallel import all_reduce_mean_, row_draws
 from .state import TrainState, make_optimizer
 
 _BF16 = ("bfloat16", "bf16")
@@ -94,7 +106,8 @@ def make_train_step(model: torch.nn.Module, sched: DiffusionSchedule, config) ->
     """step(state, X, *, draws=None, generator=None) -> (state, metrics): one
     SGD step on `state` in place (parameters, optimizer slots, EMA, step
     count); metrics {"loss", "grad_norm"} (the global norm of the raw
-    gradients) as 0-dim device tensors."""
+    gradients) as 0-dim device tensors. In a process group X is the rank's
+    rows and the metrics are the global batch's."""
     opt = make_optimizer(config)
     ema_rate = getattr(config.model, "ema_rate", 0.999)
     use_ema = getattr(config.model, "ema", False)
@@ -104,13 +117,16 @@ def make_train_step(model: torch.nn.Module, sched: DiffusionSchedule, config) ->
              generator: Optional[torch.Generator] = None):
         params = state.params
         loss = loss_for_batch(model, sched, config, params, X, train=True, draws=draws,
-                              generator=generator)
+                              generator=row_draws(generator))
         grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
+        # the loss rides in the last bucket of the gradients' mean
+        *grads, loss = all_reduce_mean_([*grads, loss.detach().reshape(1)])
+        loss = loss.reshape(())
         grad_norm = opt.update(params, dict(zip(params, grads)), state.opt_state)
         if use_ema:
             ema_update(state.ema_params, params, ema_rate)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm}
+        return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step
 
@@ -119,13 +135,15 @@ def make_eval_loss_step(model: torch.nn.Module, sched: DiffusionSchedule,
                         config) -> Callable:
     """eval_step(params, X, *, draws=None, generator=None) -> loss: the
     validation DSM loss (upstream ncsn_runner.py:453-479), fp32, dropout off,
-    under `torch.inference_mode()`; params are usually the EMA."""
+    under `torch.inference_mode()`; params are usually the EMA. In a process
+    group X is the rank's rows and the loss the global batch's mean."""
 
     def eval_step(params: Mapping[str, torch.Tensor], X: torch.Tensor, *,
                   draws: Optional[Mapping[str, torch.Tensor]] = None,
                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
         with torch.inference_mode():
-            return loss_for_batch(model, sched, config, params, X, train=False,
-                                  draws=draws, generator=generator)
+            loss = loss_for_batch(model, sched, config, params, X, train=False,
+                                  draws=draws, generator=row_draws(generator))
+            return all_reduce_mean_([loss.reshape(1)])[0].reshape(())
 
     return eval_step

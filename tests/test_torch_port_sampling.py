@@ -319,7 +319,8 @@ assert "mcvd_tpu_torch.data.h5" in sys.modules
 for m in ("models.normalization", "models.legacy_blocks", "models.ncsnv2", "models.registry",
           "diffusion.langevin_extras", "diffusion.sde_lib", "data.tfrecord", "data.codecs",
           "data.resize", "data.lmdb_io", "data.converters", "tools.fid_pr",
-          "tools.convert_dataset"):
+          "tools.convert_dataset", "parallel", "parallel.dist", "parallel.collectives",
+          "parallel.draws", "parallel.launch", "tools.ddp_check", "ops.upfirdn"):
     assert f"mcvd_tpu_torch.{m}" in sys.modules, m
 print(sorted(m for m in sys.modules
              if m in ("jax", "flax", "yaml", "mcvd_tpu", "h5py", "cv2", "PIL")
@@ -346,7 +347,9 @@ def test_port_sources_import_nothing_of_the_jax_package():
               "models/normalization.py", "models/legacy_blocks.py", "models/ncsnv2.py",
               "models/registry.py", "diffusion/langevin_extras.py", "diffusion/sde_lib.py",
               "data/tfrecord.py", "data/codecs.py", "data/resize.py", "data/lmdb_io.py",
-              "data/converters.py", "tools/fid_pr.py", "tools/convert_dataset.py"):
+              "data/converters.py", "tools/fid_pr.py", "tools/convert_dataset.py",
+              "parallel/__init__.py", "parallel/dist.py", "parallel/collectives.py",
+              "parallel/draws.py", "parallel/launch.py", "tools/ddp_check.py", "ops/upfirdn.py"):
         assert os.path.join(REPO, "mcvd_tpu_torch", m) in files, m
     hits = [(os.path.relpath(f, REPO), m.group(0).strip()) for f in files
             for m in bad.finditer(open(f, encoding="utf-8").read())]
