@@ -1,101 +1,66 @@
-// Softmax attention for NVIDIA Hopper (sm_90a), head dims 24, 64, 96, 128 and 192, on
-// the tensor cores: the forward attention_fwd and its VJP attention_bwd (two
-// launches, see "backward" below), each in bf16 and fp32. Every kernel is a
-// template over the element type and the head dim D; the C entry points
-// dispatch on D and refuse any other.
+// Softmax attention on mma.sync (sm_90a): the route of attention_fwd and
+// attention_bwd that ops/attention.py's `attention_route` gives head dim 24,
+// the 3D family's one-head attention (over its 7 or 2 frames, and its 4-px
+// and 16-px space: 16 and 256 tokens). Head dims 64-192, the main path,
+// take the wgmma kernels of attention_wgmma.cuh. Both routes compute the
+// same function with the same rounding points. The kernels are templates
+// over the element type and the head dim D, instantiated at D = 24 alone;
+// the C entry points refuse any other.
 //
 // Replaces mcvd_tpu/ops/lab/attention.py: fused_attention (_kernel) and
 // fused_attention_packed (_packed_kernel), and their custom VJPs _fa_bwd and
-// _packed_bwd (:78, :187; einsums there, no Pallas body). The Pallas
-// kernels hold the whole (T, T) score block of one (batch, head) in VMEM;
-// here a block owns 64 rows (queries, or keys in the dK/dV launch) of one
-// (batch, head) and walks the other side in tiles of 64, so no (T, T) block
-// exists anywhere and T has no limit.
+// _packed_bwd (:78, :187), on this route's shapes. A block owns 64 rows
+// (queries, or keys in the dK/dV launch) of one (batch, head) and walks the
+// other side in tiles of 64, so no (T, T) block exists and T has no limit.
 //
-// What bounds them on this card: operations. At T = 1024, D = 64 a (batch,
-// head) of the forward is 4*T*T*D = 268 MFLOP against ~0.5 MB of q, k, v
-// and o, far above the card's bytes-per-FLOP line; beside the products, the
-// exponentials of the softmax at D = 64. The design, shared by every body:
-// four warps own 16 rows each; the block's own rows are staged once; the
-// walked tiles come through a 2-stage ring of cp.async 16-byte copies, so
-// the next tile's copy overlaps this tile's math. The forward gives Q a
-// tile of its own, so that tile 1's copy is issued before Q lands, and
-// holds Q in registers as fragments for the whole walk at every D. The
-// backward holds its two own-row operands (Q and dO, or K and V) in
-// registers only at D = 64, passing them through the rings' second stages
-// before the walk, which keeps it at four tiles of shared memory. At D = 96
-// and 128 a thread's two held operands and two 16 x D accumulators would
-// pass the 255 registers a thread may have (the fp32 dK/dV launch would
-// need ~320 at D = 128), so there the own rows keep tiles of their own
-// (six tiles) and each product reads its A fragments from them as it goes
-// (fp32 splits them as read), at a quarter more shared-memory reads than
-// the walked tile alone. At D = 192 two more limits bind:
-//   registers: a 16 x 192 fp32 accumulator is 96 a thread, so the forward
-//   reads Q from its tile as the backward reads its own rows, and each
-//   backward block owns half of the D output columns (kColSplit; a block
-//   pair shares its 64 rows and repeats the S and dP products, which take
-//   all of D), so dK and dV are two 16 x 96 accumulators, as at D = 96;
-//   shared memory: a 64 x 196 fp32 tile is 49 KB, so five (forward) or six
-//   (backward) pass the 227 KB a block may opt in to; fp32 at D = 192
-//   walks its tiles through one stage instead of a 2-stage ring (kStages:
-//   the copy of tile j + 1 waits for tile j's math), three tiles forward
-//   and four backward.
-// At D = 24 (the 3D family's one-head attention: ngf 12 at two channel
-// multipliers) a row is padded to 32 columns in shared memory, the pad
-// written as zeros by the copy (cp.async with no source bytes) and never
-// loaded from device memory: in AttnBlock's packed (B, T, 3C) qkv, column
-// 24 of q's row is k's first column, so a 32-wide read would take k's data
-// into q. Every product then runs at depth 32 (bf16 m16n8k16 takes depth
-// in steps of 16): the pad's zeros add exact zeros to S = Q K^T and dP =
-// dO V^T, and the outputs' pad columns (O, dQ, dK, dV) are zeros that are
-// not stored. A quarter of those products is the pad's (kPad).
-// Short sequences: the 3D family's time attention runs over T = 7 or 2
-// tokens and the 4-px space attention over 16, each in one 64-row block
-// with the rows past T zero-filled and masked, as any ragged last tile (see
-// the forward below): most of such a block idles. Packing several short
+// What bounds them: at this route's shapes, not the tensor cores. A
+// sequence of 7 or 2 tokens fills 7 or 2 of a block's 64 rows (89-97% of
+// each block idles), and D = 24 is padded to 32 columns; the work is
+// B*H*W sequences of a few hundred FLOPs each, so launch and per-block
+// costs rule (PERF.md). The design keeps each block small and cheap: four
+// warps own 16 rows each on mma.sync with fp32 accumulators, the walked
+// tiles come through a 2-stage ring of cp.async 16-byte copies (the next
+// tile's copy overlaps this tile's math), and an accumulator (scores, p or
+// ds) is reused from registers as the A operand of the next product, so no
+// block of p or ds passes through shared memory. Packing several short
 // sequences into one block is later work.
+//
+// D = 24: a row is padded to 32 columns in shared memory, the pad written
+// as zeros by the copy (cp.async with no source bytes) and never loaded
+// from device memory: in AttnBlock's packed (B, T, 3C) qkv, column 24 of
+// q's row is k's first column. Every product runs at depth 32 (bf16
+// m16n8k16 takes depth in steps of 16): the pad's zeros add exact zeros to
+// S = Q K^T and dP = dO V^T, and the outputs' pad columns are zeros that
+// are not stored. The forward holds its Q fragments in registers; the
+// backward's own rows (Q and dO, or K and V) keep tiles of their own and
+// each product reads its A fragments from them as it goes.
+//
 // The grid's batch axis (gridDim.z) stops at 65,535, and the time
 // attention's batch is B*H*W (256,000 at fast_fid's batch of 1000): a call
 // with more launches once for each run of up to 65,535 (launch_fwd_d,
 // launch_bwd_d), on pointers moved to the run.
-// Each product runs on
-// mma.sync with fp32 accumulators, and an accumulator (scores, p or ds) is
-// reused from registers as the A operand of the next product, so no
-// (64, 64) block of p or ds passes through shared memory. wgmma with
-// TMA-fed tiles is the route to the card's full rate and later work.
 //
 // Two element types, one body each (the tile traits below):
 //
-// bf16 on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Tiles are [64][D]
-// bf16 with each row's 16-byte chunks permuted by chunk ^ (row % 8) at D =
-// 64, 128 and 192 (24 chunks: the permutation stays within each group of
-// eight), so ldmatrix's eight row reads (eight rows, one chunk) hit
-// eight distinct bank groups; a 96-wide row's last four chunks have no such
-// permutation within the row, so at D = 96 rows are padded to 13 chunks, an
-// odd count, which spreads eight rows over the eight groups as well (the
-// padded layout at D = 64 ran the forward ~11% slower on an H100, PERF.md);
-// a tile whose
-// rows are a product's n side is read with ldmatrix, one whose rows are the
-// k side with ldmatrix.trans. An accumulator is rounded to bf16 as the A
-// operand of the next product. Bound: 989 TFLOP/s.
+// bf16 on mma.sync.m16n8k16 (bf16 in, fp32 accumulate). Tiles are [64][32]
+// bf16 with each row padded to 5 16-byte chunks: an odd count, so
+// ldmatrix's eight row reads of one chunk hit eight distinct bank groups.
+// A tile whose rows are a product's n side is read
+// with ldmatrix, one whose rows are the k side with ldmatrix.trans. An
+// accumulator is rounded to bf16 as the A operand of the next product.
 //
 // fp32 as 3xTF32 on mma.sync.m16n8k8 (tf32 in, fp32 accumulate): each
 // operand x is split as hi = cvt.rna.tf32(x), lo = tf32(x - hi), and a
 // product accumulates lo*hi + hi*lo, then hi*hi; lo*lo is dropped. That
 // keeps ~21-22 bits of each product against fp32's 24 (fp32-class, not
-// TF32), at three TF32 products for one: bound 495/3 = 165 TFLOP/s, beside
-// the CUDA cores' 67. Tiles are [64][D+4] fp32 (rows padded by 4 words: D is
-// a multiple of 32, so a fragment read of a warp, rows as n or rows as k,
-// hits 32 distinct banks) read by 32-bit loads: no
-// ldmatrix for 32-bit types. The accumulator of m16n8k8 holds columns 2t
-// and 2t+1 where the A operand wants t and t+4, so a product whose A is an
-// accumulator takes its k order permuted: position t of an 8-wide k slice
-// is element 2t and position t+4 is element 2t+1, in A and in B alike, and
-// the accumulator is A with no shuffle. Held fragments are kept as fp32 and
-// split once per tile (each split serves eight products); a staged tile's
-// element is split where a fragment read takes it, since splitting tiles in
-// shared memory would double the shared-memory reads, which this body
-// already spends at about the tensor cores' rate.
+// TF32). Tiles are [64][D+4] fp32 (rows padded by 4 words: a fragment read
+// of a warp hits 32 distinct banks) read by 32-bit loads. The accumulator
+// of m16n8k8 holds columns 2t and 2t+1 where the A operand wants t and t+4,
+// so a product whose A is an accumulator takes its k order permuted:
+// position t of an 8-wide k slice is element 2t and position t+4 is 2t+1,
+// in A and in B alike, and the accumulator is A with no shuffle. Held
+// fragments are kept as fp32 and split once per tile; a staged tile's
+// element is split where a fragment read takes it.
 //
 // The forward (attention_fwd_kernel), FlashAttention-2 form: S = Q K^T,
 // online softmax in fp32 registers with scale*log2(e) folded into exp2f
@@ -126,7 +91,6 @@
 #include <stdint.h>
 
 #include <initializer_list>
-#include <type_traits>
 
 namespace {
 
@@ -240,7 +204,7 @@ __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 //       takes its two small terms in the other order, so that C^T = B A^T
 //       takes the same products in the same order as C = A B^T and gives
 //       the same bits (bf16 takes one product, the same either way);
-//   mma_pb(c, p, tile, lane, c0)  c += P tile[:, c0:c0 + 8 NB]: P (16 x
+//   mma_pb(c, p, tile, lane)  c += P tile[:, :8 NB]: P (16 x
 //       64) in accumulator layout, its 64 columns the tile's rows (the k
 //       side), c NB blocks of 8 output columns;
 //   store2(ptr, a, b)          two adjacent outputs.
@@ -249,20 +213,14 @@ template <typename T, int D> struct Tile;
 // bf16: m16n8k16; A holds rows g, g+8, columns 2t, 2t+1 (+8); B holds
 // k = 2t, 2t+1 (+8), column g.
 template <int D> struct Tile<bf16, D> {
-  static_assert(D % 32 == 0, "head dim: a multiple of 32");
-  // rows of D/8 16-byte chunks, permuted by chunk ^ (row % 8) where D is a
-  // multiple of 64; a 96-wide row is padded to 13 chunks instead, a 32-wide
-  // one (D = 24 padded) to 5: an odd count spreads eight rows' reads of one
-  // chunk over the eight bank groups
-  static constexpr bool kSwizzle = D % 64 == 0;
-  static constexpr int kPitch = kSwizzle ? D : D + 8;
+  static_assert(D % 32 == 0 && D % 64 != 0, "head dim: an odd multiple of 32");
+  // rows of D/8 16-byte chunks padded by one: an odd count spreads eight
+  // rows' reads of one chunk over the eight bank groups
+  static constexpr int kPitch = D + 8;
   static constexpr int kElems = kRows * kPitch;
   static constexpr int kK = D / 16;      // k slices of a row
 
-  static __device__ __forceinline__ int at(int row, int col) {
-    return kSwizzle ? row * D + ((((col >> 3) ^ (row & 7)) << 3) | (col & 7))
-                    : row * kPitch + col;
-  }
+  static __device__ __forceinline__ int at(int row, int col) { return row * kPitch + col; }
   // DR <= D: the row's real columns; the chunks past them are zero-filled
   template <int DR = D>
   static __device__ __forceinline__ void load(bf16* dst, const bf16* src, int row0, int T_len,
@@ -322,7 +280,7 @@ template <int D> struct Tile<bf16, D> {
   }
   template <int NB>
   static __device__ __forceinline__ void mma_pb(float (&c)[NB][4], const float (&p)[8][4],
-                                                const bf16* t, int lane, int c0) {
+                                                const bf16* t, int lane) {
     const int mi = lane >> 3;
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
@@ -334,7 +292,7 @@ template <int D> struct Tile<bf16, D> {
       for (int dp = 0; dp < NB / 2; ++dp) {
         uint32_t b0, b1, b2, b3;
         ldsm_x4_trans(smem_u32(t + at(kk * 16 + (lane & 7) + (mi & 1) * 8,
-                                      c0 + dp * 16 + (mi >> 1) * 8)),
+                                      dp * 16 + (mi >> 1) * 8)),
                       b0, b1, b2, b3);
         mma_bf16(c[2 * dp], pa, b0, b1);
         mma_bf16(c[2 * dp + 1], pa, b2, b3);
@@ -415,8 +373,8 @@ template <int D> struct Tile<float, D> {
   // is 2t + 1, so P's accumulator is the A operand as it stands.
   template <int NB>
   static __device__ __forceinline__ void mma_pb(float (&c)[NB][4], const float (&p)[8][4],
-                                                const float* t, int lane, int c0) {
-    const float* r = t + 2 * (lane & 3) * kPitch + (lane >> 2) + c0;
+                                                const float* t, int lane) {
+    const float* r = t + 2 * (lane & 3) * kPitch + (lane >> 2);
 #pragma unroll
     for (int kk = 0; kk < 8; ++kk) {
       uint32_t ah[4], al[4];
@@ -435,61 +393,25 @@ template <int D> struct Tile<float, D> {
   }
 };
 
-// The backward holds its own rows' fragments in registers only at D = 64,
-// the forward its Q up to D = 128 (see the note at the top); above, they
-// are read from their tiles.
-template <int D> constexpr bool kHeldRows = D == 64;
-template <typename T, int D>
-using OwnRows = std::conditional_t<kHeldRows<D>, typename Tile<T, D>::Held,
-                                   typename Tile<T, D>::Staged>;
-template <typename T, int D>
-using QRows = std::conditional_t<(D <= 128), typename Tile<T, D>::Held,
-                                 typename Tile<T, D>::Staged>;
-
-constexpr int kSmemLimit = 232448;   // 227 KB, the most a block may opt in to
 template <typename T, int D> constexpr int kTileBytes = Tile<T, D>::kElems * (int)sizeof(T);
-// Stages of the walked tiles' ring: two where the backward's tiles (four
-// with held rows, else six) and its row values fit, else one.
-template <typename T, int D>
-constexpr int kStages =
-    (kHeldRows<D> ? 4 : 6) * kTileBytes<T, D> + 4 * kRows * 4 <= kSmemLimit ? 2 : 1;
-// Tiles of shared memory a backward block takes: its ring's stages, and two
-// tiles of its own rows where it does not hold them in registers.
-template <typename T, int D>
-constexpr int kBwdTiles = kHeldRows<D> ? 4 : 2 * kStages<T, D> + 2;
-static_assert(!kHeldRows<64> || (kStages<bf16, 64> == 2 && kStages<float, 64> == 2),
-              "held rows pass through the rings' second stages");
-// Blocks that share a backward block's rows, each owning D / kColSplit of
-// the output columns.
-template <int D> constexpr int kColSplit = D > 128 ? 2 : 1;
 // The tiles' width for head dim D: D rounded up to a multiple of 32 (24 ->
-// 32; the other dims are their own).
+// 32).
 template <int D> constexpr int kPad = (D + 31) / 32 * 32;
 
-// Brings tile j of a walk into its ring stage and returns the stage; tile 0
-// was issued before the walk, and load(stage, tile) issues a tile's copies.
-// Two stages: tile j + 1's copy is issued first, so it overlaps tile j's
-// math. One: tile j's copy is issued now, after the walk's __syncthreads()
-// has seen the stage read out.
-template <int kSt, class F>
+// Brings tile j of a walk into its stage of the 2-stage ring and returns
+// the stage; tile 0 was issued before the walk, and load(stage, tile)
+// issues a tile's copies. Tile j + 1's copy is issued first, so it overlaps
+// tile j's math.
+template <class F>
 __device__ __forceinline__ int ring_next(int j, int n_tiles, const F& load) {
-  if constexpr (kSt == 2) {
-    if (j + 1 < n_tiles) {
-      load((j + 1) & 1, j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    return j & 1;
+  if (j + 1 < n_tiles) {
+    load((j + 1) & 1, j + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
   } else {
-    if (j > 0) {
-      load(0, j);
-      cp_async_commit();
-    }
     cp_async_wait<0>();
-    return 0;
   }
+  return j & 1;
 }
 
 template <int N>
@@ -519,11 +441,10 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int64_t o_bs, int64_t o_ts, float scale_log2) {
   constexpr int DP = kPad<D>;   // the tiles' width
   using Tl = Tile<T, DP>;
-  constexpr int kSt = kStages<T, DP>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);   // [tile]
-  T* sK = sQ + Tl::kElems;              // [kSt][tile]
-  T* sV = sK + kSt * Tl::kElems;        // [kSt][tile]
+  T* sK = sQ + Tl::kElems;              // [2][tile]
+  T* sV = sK + 2 * Tl::kElems;          // [2][tile]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.x * kRows;
@@ -544,14 +465,14 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_kv(0, 0);
   cp_async_commit();
 
-  QRows<T, DP> qf;        // this warp's 16 query rows, read after tile 0 lands
+  typename Tl::Held qf;   // this warp's 16 query rows, read after tile 0 lands
   float acc[DP / 8][4];   // O: 16 rows x DP
   float m_r[2] = {-INFINITY, -INFINITY};  // running max of rows g, g+8 (scaled)
   float l_r[2] = {0.f, 0.f};              // this thread's share of the running sums
   zero(acc);
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = ring_next<kSt>(j, n_tiles, load_kv);
+    const int st = ring_next(j, n_tiles, load_kv);
     __syncthreads();
     if (j == 0) qf.load(sQ, warp * 16, lane);
     const T* tK = sK + st * Tl::kElems;
@@ -593,7 +514,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
 
-    Tl::mma_pb(acc, s, tV, lane, 0);   // O += P V, P from the score registers
+    Tl::mma_pb(acc, s, tV, lane);   // O += P V, P from the score registers
     __syncthreads();  // this stage is read out before the next copy into it
   }
 
@@ -627,12 +548,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //   dQ = scale * dS K, dK = scale * dS^T Q, dV = P^T dO.
 // Two launches on the same stream, no atomics, so the result is
 // deterministic (bit-identical from call to call):
-//   attention_bwd_dq_kernel, query-major: a block owns 64 query rows, holds
-//   (D = 64) or stages their Q and dO, computes their D_i, and walks the keys in
+//   attention_bwd_dq_kernel, query-major: a block owns 64 query rows, stages
+//   their Q and dO, computes their D_i, and walks the keys in
 //   tiles of 64: S = Q K^T and dP = dO V^T, then p and ds in fp32
 //   registers, then dQ += dS K with dS as A. Three products a tile.
 //   attention_bwd_dkv_kernel, key-major, after it: a block owns 64 keys,
-//   holds or stages their K and V, and walks the queries in tiles of 64
+//   stages their K and V, and walks the queries in tiles of 64
 //   (Q, dO and the tile's lse and D'): S^T = K Q^T, P^T, dV += P^T dO,
 //   dP^T = V dO^T, dS^T = P^T (dP^T - D'), dK += dS^T Q. Four products.
 // The row terms. The dQ launch needs D before its walk and takes
@@ -669,19 +590,15 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArgs a) {
   constexpr int DP = kPad<D>;   // the tiles' width
   using Tl = Tile<T, DP>;
-  constexpr int kSt = kStages<T, DP>, kSplit = kColSplit<DP>, NB = DP / 8 / kSplit;
-  constexpr int NB_OUT = D / 8 / kSplit;   // the real column blocks a block stores
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sK = reinterpret_cast<T*>(smem);                        // [kSt][tile]
-  T* sV = sK + kSt * Tl::kElems;                             // [kSt][tile]
-  // Q and dO: the rings' second stages when held, else tiles of their own
-  T* sQ = kHeldRows<DP> ? sK + Tl::kElems : sV + kSt * Tl::kElems;
-  T* sG = kHeldRows<DP> ? sV + Tl::kElems : sQ + Tl::kElems;
-  float* sD = reinterpret_cast<float*>(sK + kBwdTiles<T, DP> * Tl::kElems);   // [64]: row terms
+  T* sK = reinterpret_cast<T*>(smem);   // [2][tile]
+  T* sV = sK + 2 * Tl::kElems;          // [2][tile]
+  T* sQ = sV + 2 * Tl::kElems;          // [tile]
+  T* sG = sQ + Tl::kElems;              // [tile]: dO
+  float* sD = reinterpret_cast<float*>(sG + Tl::kElems);   // [64]: row terms
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int m0 = (blockIdx.x / kSplit) * kRows;
-  const int c0 = (blockIdx.x % kSplit) * (DP / kSplit);   // this block's dQ columns
+  const int m0 = blockIdx.x * kRows;
   const int64_t h_off = (int64_t)blockIdx.y * D;
   const int64_t b = blockIdx.z;
   const int64_t bh = b * gridDim.y + blockIdx.y;
@@ -718,7 +635,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
   }
   cp_async_wait<0>();
   __syncthreads();
-  OwnRows<T, DP> qf, gf;  // this warp's 16 rows of Q and dO
+  typename Tl::Staged qf, gf;  // this warp's 16 rows of Q and dO
   qf.load(sQ, warp * 16, lane);
   gf.load(sG, warp * 16, lane);
   float lse2[2], Dr[2];   // rows g and g + 8
@@ -728,13 +645,12 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
     lse2[r] = m0 + rl < T_len ? a.lse[bh * T_len + m0 + rl] * kLog2e : 0.f;
     Dr[r] = sD[rl];
   }
-  __syncthreads();   // held Q and dO are read out before tile 1 is copied over them
 
-  float dq[NB][4];
+  float dq[DP / 8][4];
   float pdp[2] = {0.f, 0.f};   // this thread's share of rowsum(p * dp), rows g, g + 8
   zero(dq);
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = ring_next<kSt>(j, n_tiles, load_kv);
+    const int st = ring_next(j, n_tiles, load_kv);
     __syncthreads();
     const T* tK = sK + st * Tl::kElems;
     const T* tV = sV + st * Tl::kElems;
@@ -755,7 +671,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
         pdp[r] = fmaf(p, dp[nb][e], pdp[r]);
         s[nb][e] = p * (dp[nb][e] - Dr[r]);   // ds
       }
-    Tl::mma_pb(dq, s, tK, lane, c0);   // dQ += dS K
+    Tl::mma_pb(dq, s, tK, lane);   // dQ += dS K
     __syncthreads();  // this stage is read out before the next copy into it
   }
 
@@ -766,11 +682,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dq_kernel(const BwdArg
     float d = pdp[r];   // the four lanes of a row
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     d += __shfl_xor_sync(0xffffffffu, d, 2);
-    if (row < T_len) {   // a block pair's S and dP, and so d, are the same bits
-      if ((lane & 3) == 0 && c0 == 0) a.delta[bh * T_len + row] = d;
-      T* out = dqb + (int64_t)row * a.ts + c0 + (lane & 3) * 2;
+    if (row < T_len) {
+      if ((lane & 3) == 0) a.delta[bh * T_len + row] = d;
+      T* out = dqb + (int64_t)row * a.ts + (lane & 3) * 2;
 #pragma unroll
-      for (int nb = 0; nb < NB_OUT; ++nb)
+      for (int nb = 0; nb < D / 8; ++nb)   // the real columns; the pad's are zeros
         Tl::store2(out + nb * 8, dq[nb][2 * r] * a.scale, dq[nb][2 * r + 1] * a.scale);
     }
   }
@@ -780,20 +696,16 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdArgs a) {
   constexpr int DP = kPad<D>;   // the tiles' width
   using Tl = Tile<T, DP>;
-  constexpr int kSt = kStages<T, DP>, kSplit = kColSplit<DP>, NB = DP / 8 / kSplit;
-  constexpr int NB_OUT = D / 8 / kSplit;   // the real column blocks a block stores
   extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);                          // [kSt][tile]
-  T* sG = sQ + kSt * Tl::kElems;                               // [kSt][tile]: dO
-  // K and V: the rings' second stages when held, else tiles of their own
-  T* sK = kHeldRows<DP> ? sQ + Tl::kElems : sG + kSt * Tl::kElems;
-  T* sV = kHeldRows<DP> ? sG + Tl::kElems : sK + Tl::kElems;
-  float* sL = reinterpret_cast<float*>(sQ + kBwdTiles<T, DP> * Tl::kElems);   // [2][64]: lse
-  float* sDq = sL + 2 * kRows;                                 // [2][64]: D
+  T* sQ = reinterpret_cast<T*>(smem);   // [2][tile]
+  T* sG = sQ + 2 * Tl::kElems;          // [2][tile]: dO
+  T* sK = sG + 2 * Tl::kElems;          // [tile]
+  T* sV = sK + Tl::kElems;              // [tile]
+  float* sL = reinterpret_cast<float*>(sV + Tl::kElems);   // [2][64]: lse
+  float* sDq = sL + 2 * kRows;                             // [2][64]: D
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int k0 = (blockIdx.x / kSplit) * kRows;
-  const int c0 = (blockIdx.x % kSplit) * (DP / kSplit);   // this block's dK, dV columns
+  const int k0 = blockIdx.x * kRows;
   const int64_t h_off = (int64_t)blockIdx.y * D;
   const int64_t b = blockIdx.z;
   const int64_t bh = b * gridDim.y + blockIdx.y;
@@ -822,19 +734,18 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  OwnRows<T, DP> kf, vf;  // this warp's 16 keys of K and V
+  typename Tl::Staged kf, vf;  // this warp's 16 keys of K and V
   kf.load(sK, warp * 16, lane);
   vf.load(sV, warp * 16, lane);
   bool key_ok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) key_ok[r] = k0 + warp * 16 + (lane >> 2) + 8 * r < T_len;
-  __syncthreads();   // held K and V are read out before tile 1 is copied over them
 
-  float dk[NB][4], dv[NB][4];
+  float dk[DP / 8][4], dv[DP / 8][4];
   zero(dk);
   zero(dv);
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = ring_next<kSt>(j, n_tiles, load_queries);
+    const int st = ring_next(j, n_tiles, load_queries);
     __syncthreads();
     const T* tQ = sQ + st * Tl::kElems;
     const T* tG = sG + st * Tl::kElems;
@@ -853,7 +764,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
         s[nb][e] = key_ok[e >> 1] && i0 + c < T_len
                        ? exp2f(fmaf(s[nb][e], sl2, -(L[c] * kLog2e))) : 0.f;
       }
-    Tl::mma_pb(dv, s, tG, lane, c0);   // dV += P^T dO
+    Tl::mma_pb(dv, s, tG, lane);   // dV += P^T dO
     float dp[8][4];  // dP^T, then dS^T
     zero(dp);
     Tl::template mma_abt<true>(dp, vf, tG, lane);   // dP^T = V dO^T
@@ -861,11 +772,11 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     for (int nb = 0; nb < 8; ++nb)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[nb][e] = s[nb][e] * (dp[nb][e] - Dq[acc_col(lane, nb, e)]);
-    Tl::mma_pb(dk, dp, tQ, lane, c0);  // dK += dS^T Q
+    Tl::mma_pb(dk, dp, tQ, lane);  // dK += dS^T Q
     __syncthreads();  // this stage is read out before the next copy into it
   }
 
-  const int64_t out0 = b * a.bs + h_off + c0;
+  const int64_t out0 = b * a.bs + h_off;
   T* dkb = static_cast<T*>(a.dk) + out0;
   T* dvb = static_cast<T*>(a.dv) + out0;
 #pragma unroll
@@ -873,7 +784,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
     if (!key_ok[r]) continue;
     const int64_t off = (int64_t)(k0 + warp * 16 + (lane >> 2) + 8 * r) * a.ts + (lane & 3) * 2;
 #pragma unroll
-    for (int nb = 0; nb < NB_OUT; ++nb) {
+    for (int nb = 0; nb < D / 8; ++nb) {   // the real columns
       Tl::store2(dkb + off + nb * 8, dk[nb][2 * r] * a.scale, dk[nb][2 * r + 1] * a.scale);
       Tl::store2(dvb + off + nb * 8, dv[nb][2 * r], dv[nb][2 * r + 1]);
     }
@@ -883,22 +794,19 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_dkv_kernel(const BwdAr
 // ------------------------------------------------------------------ launch
 
 // Dynamic shared memory of each kernel, in bytes: the forward's tiles (Q
-// and the K and V rings), the backward's (kBwdTiles) and its row values.
+// and the K and V rings), the backward's (the two rings and two tiles of its
+// own rows) and its row values.
 template <typename T, int D>
-constexpr int kFwdSmem = (1 + 2 * kStages<T, kPad<D>>) * kTileBytes<T, kPad<D>>;
+constexpr int kFwdSmem = 5 * kTileBytes<T, kPad<D>>;
 template <typename T, int D>
-constexpr int kDqSmem = kBwdTiles<T, kPad<D>> * kTileBytes<T, kPad<D>> + kRows * 4;
+constexpr int kDqSmem = 6 * kTileBytes<T, kPad<D>> + kRows * 4;
 template <typename T, int D>
-constexpr int kDkvSmem = kBwdTiles<T, kPad<D>> * kTileBytes<T, kPad<D>> + 4 * kRows * 4;
-template <typename T, int D>
-constexpr bool kFits =
-    kFwdSmem<T, D> <= kSmemLimit && kDqSmem<T, D> <= kSmemLimit && kDkvSmem<T, D> <= kSmemLimit;
-static_assert(kFits<float, 128> && kFits<float, 192> && kFits<bf16, 192> && kFits<float, 24>,
-              "every instantiation must fit one block's shared memory");
+constexpr int kDkvSmem = 6 * kTileBytes<T, kPad<D>> + 4 * kRows * 4;
+
+constexpr int kHeadDim = 24;   // the one instantiation
 
 bool bad_shape(int B, int H, int T_len, int D) {
-  return (D != 24 && D != 64 && D != 96 && D != 128 && D != 192) || B <= 0 || H <= 0 ||
-         T_len <= 0 || H > 65535;
+  return D != kHeadDim || B <= 0 || H <= 0 || T_len <= 0 || H > 65535;
 }
 
 constexpr int kMaxGridZ = 65535;   // the grid's batch axis; a larger B launches in runs
@@ -922,9 +830,8 @@ bool misaligned(std::initializer_list<const void*> ptrs,
 
 constexpr int kMaxDevices = 64;
 
-// The kernels take more than 48 KB of dynamic shared memory (fp32 at every
-// D, bf16 above D = 64): every kernel opts in once per device, element type
-// and head dim.
+// The fp32 backward takes more than 48 KB of dynamic shared memory: every
+// kernel opts in once per device and element type.
 template <typename T, int D>
 cudaError_t set_attributes() {
   static bool set[kMaxDevices] = {};
@@ -977,14 +884,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
       misaligned<T>({q, k, v, o}, {q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts}))
     return (int)cudaErrorInvalidValue;
   const FwdArgs f{q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 24: return launch_fwd_d<T, 24>(f, s);
-    case 64: return launch_fwd_d<T, 64>(f, s);
-    case 96: return launch_fwd_d<T, 96>(f, s);
-    case 128: return launch_fwd_d<T, 128>(f, s);
-    default: return launch_fwd_d<T, 192>(f, s);
-  }
+  return launch_fwd_d<T, kHeadDim>(f, (cudaStream_t)stream);
 }
 
 template <typename T, int D>
@@ -998,7 +898,7 @@ int launch_bwd_d(const BwdArgs& a, int B, int H, cudaStream_t stream) {
                     shift<T>(a.o, o0), shift<T>(a.dout, o0), a.lse + r0, shift<T>(a.dq, x0),
                     shift<T>(a.dk, x0), shift<T>(a.dv, x0), a.delta + r0, a.T_len, a.bs,
                     a.ts, a.o_bs, a.o_ts, a.scale};
-    const dim3 grid((a.T_len + kRows - 1) / kRows * kColSplit<kPad<D>>, H, nb);
+    const dim3 grid((a.T_len + kRows - 1) / kRows, H, nb);
     attention_bwd_dq_kernel<T, D><<<grid, kThreads, kDqSmem<T, D>, stream>>>(c);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
@@ -1018,14 +918,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
       misaligned<T>({q, k, v, o, dout, dq, dk, dv}, {bs, ts, o_bs, o_ts}))
     return (int)cudaErrorInvalidValue;
   const BwdArgs a{q, k, v, o, dout, lse, dq, dk, dv, delta, T_len, bs, ts, o_bs, o_ts, scale};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 24: return launch_bwd_d<T, 24>(a, B, H, s);
-    case 64: return launch_bwd_d<T, 64>(a, B, H, s);
-    case 96: return launch_bwd_d<T, 96>(a, B, H, s);
-    case 128: return launch_bwd_d<T, 128>(a, B, H, s);
-    default: return launch_bwd_d<T, 192>(a, B, H, s);
-  }
+  return launch_bwd_d<T, kHeadDim>(a, B, H, (cudaStream_t)stream);
 }
 
 }  // namespace

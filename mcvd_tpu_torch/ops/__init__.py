@@ -6,8 +6,11 @@ version (counterpart of `mcvd_tpu/ops`, whose kernels are Pallas for the TPU).
     thread-block cluster per example);
   * `attention`: softmax attention forward, `attention_fwd`, and its VJP
     `attention_bwd` (two launches, no atomics), CUDA C++ for sm_90a on the
-    tensor cores in both dtypes: bf16 on `mma.sync` m16n8k16, fp32 as
-    3xTF32 on `mma.sync` m16n8k8 (fp32-class, not TF32);
+    tensor cores in both dtypes (bf16, and fp32 as 3xTF32: fp32-class, not
+    TF32), on two routes that `attention.attention_route` picks: head dims
+    64-192 on `wgmma` with TMA-fed tiles in a warp-specialised ring
+    (`csrc/attention_wgmma.cuh`), head dim 24 on `mma.sync`
+    (`csrc/attention.cu`);
   * `fused_act`: bias + LeakyReLU + scale, the Triton kernel
     `fused_leaky_relu`.
 

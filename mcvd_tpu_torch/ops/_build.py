@@ -1,6 +1,10 @@
 """nvcc build of `mcvd_tpu_torch/csrc/*.cu` into a shared library with a
 plain C interface, loaded with ctypes. Each source compiles in its own nvcc
-process, all started together, then one nvcc links them.
+process, all started together, then one nvcc links them. The headers
+beside them (`*.cuh`: the wgmma attention kernels and their generated
+`wgmma_ops.cuh`) are part of the key. The wgmma kernels reach
+`cuTensorMapEncodeTiled` through dlopen of libcuda.so.1 at run time, so
+nothing links against libcuda.
 
 The library is built at first use into `build/mcvd_tpu_torch_kernels/` at the
 repo root, under a name keyed by a hash of the sources and flags, so a changed
@@ -17,6 +21,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -26,6 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _LIB = [None]
 BUILD_SECONDS = [0.0]
 BUILD_LOG = [""]   # nvcc's output of the last build (ptxas: registers, spills)
+BUILD_SOURCE_SECONDS = {}   # source name: seconds its nvcc ran, in the last build
 
 
 BUILD_DIR = CSRC.parent.parent / "build" / "mcvd_tpu_torch_kernels"
@@ -46,7 +52,7 @@ def load_library() -> ctypes.CDLL:
         return _LIB[0]
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cuh")) + sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     out_dir = BUILD_DIR
@@ -59,12 +65,19 @@ def load_library() -> ctypes.CDLL:
         with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
             nvcc = _nvcc()
             objs = [os.path.join(tmp, src.stem + ".o") for src in sources]
-            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-                     for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
-                                 for src, obj in zip(sources, objs))]
-            results = [(cmd, p.communicate()[0], p.returncode) for cmd, p in procs]
-            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+            BUILD_SOURCE_SECONDS.clear()
+
+            def compile_one(src, obj):
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                t = time.perf_counter()
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                BUILD_SOURCE_SECONDS[src.name] = time.perf_counter() - t
+                return cmd, proc.stdout + proc.stderr, proc.returncode
+
+            with ThreadPoolExecutor(len(sources)) as pool:   # one nvcc each, all at once
+                results = list(pool.map(compile_one, sources, objs))
+            link = [nvcc, *NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs,
+                    "-ldl"]
             if all(rc == 0 for *_, rc in results):
                 proc = subprocess.run(link, capture_output=True, text=True)
                 results.append((link, proc.stdout + proc.stderr, proc.returncode))
@@ -89,13 +102,15 @@ def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    for name in ("attention_fwd_f32", "attention_fwd_bf16"):
+    for name in ("attention_fwd_f32", "attention_fwd_bf16", "attention_fwd_wgmma_f32",
+                 "attention_fwd_wgmma_bf16"):
         fn = getattr(lib, name)
         # q, k, v, o, lse, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale,
         # stream
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i64, i64, i64, i64, i64, i64, f, p]
         fn.restype = i
-    for name in ("attention_bwd_f32", "attention_bwd_bf16"):
+    for name in ("attention_bwd_f32", "attention_bwd_bf16", "attention_bwd_wgmma_f32",
+                 "attention_bwd_wgmma_bf16"):
         fn = getattr(lib, name)
         # q, k, v, o, do, lse, dq, dk, dv, delta, B, H, T, D, qkv_bs, qkv_ts, o_bs,
         # o_ts, scale, stream

@@ -1,55 +1,57 @@
-"""Softmax attention, `attention_fwd` and `attention_bwd`: CUDA C++ for sm_90a
-(`csrc/attention.cu`), built with nvcc and bound with ctypes (`_build`).
+"""Softmax attention, `attention_fwd` and `attention_bwd`: CUDA C++ for sm_90a,
+built with nvcc and bound with ctypes (`_build`), on two routes that
+`attention_route` picks from (dtype, head dim):
+
+  * "wgmma" (`csrc/attention_wgmma.cuh`, instantiated by
+    `attention_wgmma_bf16.cu` and `attention_wgmma_f32.cu`): head dims 64,
+    96, 128 and 192 at any T, every product on Hopper's warpgroup MMA
+    (`wgmma`), the walked tiles brought by TMA into a ring of shared memory
+    by a producer warp, the consumer warpgroup's accumulators in registers;
+  * "mma_sync" (`csrc/attention.cu`): head dim 24 (the 3D family's one-head
+    attention over 2-256 tokens), on `mma.sync` with a `cp.async` ring.
 
 Replaces `mcvd_tpu/ops/lab/attention.py`: `fused_attention` (Pallas body
 `_kernel`, (BH, T, D)) and `fused_attention_packed` (`_packed_kernel`, the
 packed (B, T, h*d) layout of the fused QKV projection). One kernel covers
-both: it takes q, k and v as pointers with (batch, token) strides and puts
-head h at column h*D, so it reads `AttnBlock`'s packed (B, T, 3C) qkv as it
-is and writes (B, T, C); with one head it is the (BH, T, D) entry point.
+both: it takes q, k and v with (batch, token) strides and puts head h at
+column h*D, so it reads `AttnBlock`'s packed (B, T, 3C) qkv as it is and
+writes (B, T, C); with one head it is the (BH, T, D) entry point.
 
-Both directions run on the tensor cores (`mma.sync`), one kernel body per
-dtype. bf16 (m16n8k16, fp32 accumulate): the forward rounds the
-unnormalised p to bf16 before the PV product, as the Pallas kernel rounds p
-to v's dtype, so it differs from the plain version (p in fp32) by at most
-2^-8 * sum_j p_j |v_j| / l per output before the output rounding
-(`BF16_P_ROUNDOFF` times `abs_v_weights`; `attention_tc_emulation` repeats
-its arithmetic on the CPU). fp32 (m16n8k8) runs 3xTF32: each operand is
-split into two tf32 parts and a product takes three tf32 products, which
-keeps ~21-22 bits of each (fp32-class, not TF32; `tf32_split` and
-`tf32x3_matmul` emulate it). Scores and softmax are fp32 on both (online
-softmax over key tiles). Head dims 24, 64, 96, 128 and 192
-(`SUPPORTED_HEAD_DIMS`, one instantiation of each kernel per dim; at 192
-each backward block owns half of the output columns, and fp32 walks its
-tiles through one stage of shared memory; at 24 the tiles are 32 wide with
-the pad zero-filled in shared memory and never read from q, k or v, whose
-packed rows put k's first column right after q's last; none of which
-changes the arithmetic, so the emulations below hold at every dim); other
-head dims raise on a CUDA tensor, and so do pointers or strides that are
-not 16-byte aligned (the kernels copy 16-byte chunks). The T>2048 einsum
-fallback of the Pallas version is not carried over: the kernel tiles keys
-and has no length limit. A sequence shorter than 64 tokens (the 3D
-family's time attention over 7 or 2 frames) takes one tile with its rows
-past T masked, and a batch past the grid's 65,535 launches in runs.
+Both routes compute the same function with the same rounding points. bf16
+(fp32 accumulate): the forward walks tiles of 64 keys
+(`TC_KEYS_PER_TILE`) and rounds the unnormalised p to bf16 before the PV
+product, as the Pallas kernel rounds p to v's dtype, so it differs from the
+plain version (p in fp32) by at most 2^-8 * sum_j p_j |v_j| / l per output
+before the output rounding (`BF16_P_ROUNDOFF` times `abs_v_weights`;
+`attention_tc_emulation` repeats its arithmetic on the CPU). fp32 runs
+3xTF32: each operand is split into two tf32 parts (hi rounded to nearest,
+ties away, then lo the same) and a product takes three tf32 products, which
+keeps ~21-22 bits of each (fp32-class, never plain TF32; `tf32_split` and
+`tf32x3_matmul` emulate it). Scores and softmax are fp32 (online softmax
+over key tiles). Other head dims raise on a CUDA tensor, and so do pointers
+or strides that are not 16-byte aligned (the kernels copy 16-byte chunks;
+TMA takes 16-byte strides). The T>2048 einsum fallback of the Pallas
+version is not carried over: the kernels tile keys and have no length
+limit. A batch past the grid's 65,535 launches in runs.
 
 Gradients: when autograd needs them the entry points run through
 `torch.autograd.Function`s. On the card the forward also writes each row's
 logsumexp (fp32, natural log of the scaled scores), and the backward is
-`attention_bwd` (`csrc/attention.cu`), the FlashAttention-2 backward of the
-JAX package's custom VJPs `_fa_bwd` and `_packed_bwd`: p recomputed from the
-logsumexp tile by tile, so no (T, T) block reaches device memory; two
-launches with no atomics (dq, then dk and dv), so two calls on the same
-inputs give the same bits; d(qkv) comes back packed as qkv. The dq launch
-takes the row term rowsum(g * o) from the forward's output, and sums
-rowsum(p * dp) from its own p and dp for the dk/dv launch (the JAX VJP's row
-term), whose products repeat the dq launch's bit for bit: so each row of
-the ds that dk sees sums to zero to fp32 rounding, as in the plain VJP, and
-an exactly-zero gradient such as the key bias's stays at fp32 noise. bf16
-rounds p and ds to bf16 as operands (`bf16_bwd_tolerances` bounds what
-that moves; `attention_bwd_tc_emulation` repeats the arithmetic). On CPU tensors, and
-under `reference_ops()`, both directions are the plain versions
-(`attention_bwd_reference`, `attention_packed_bwd_reference`). With no
-input needing a gradient the forward saves nothing.
+`attention_bwd`, the FlashAttention-2 backward of the JAX package's custom
+VJPs `_fa_bwd` and `_packed_bwd`: p recomputed from the logsumexp tile by
+tile, so no (T, T) block reaches device memory; two launches with no
+atomics (dq, then dk and dv), so two calls on the same inputs give the same
+bits; d(qkv) comes back packed as qkv. The dq launch takes the row term
+rowsum(g * o) from the forward's output, and sums rowsum(p * dp) from its
+own p and dp for the dk/dv launch (the JAX VJP's row term), whose scores
+and dp repeat the dq launch's bit for bit: so each row of the ds that dk
+sees sums to zero to fp32 rounding, as in the plain VJP, and an
+exactly-zero gradient such as the key bias's stays at fp32 noise. bf16
+rounds p and ds to bf16 as operands (`bf16_bwd_tolerances` bounds what that
+moves; `attention_bwd_tc_emulation` repeats the arithmetic). On CPU
+tensors, and under `reference_ops()`, both directions are the plain
+versions (`attention_bwd_reference`, `attention_packed_bwd_reference`).
+With no input needing a gradient the forward saves nothing.
 """
 
 from __future__ import annotations
@@ -59,6 +61,8 @@ import torch
 from . import count_launch, use_kernel
 
 SUPPORTED_HEAD_DIMS = (24, 64, 96, 128, 192)
+# The wgmma route's head dims; the mma.sync route takes the others (24).
+WGMMA_HEAD_DIMS = (64, 96, 128, 192)
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_KEYS_PER_TILE = 64
 # bf16's unit roundoff: rounding p to bf16 moves sum_j p_j v_j / l by at
@@ -107,9 +111,9 @@ def _tc_tiles(qf, kf, scale: float):
 def attention_tc_emulation(q, k, v, scale: float, want_lse: bool = False):
     """The bf16 kernel's arithmetic in plain torch on (BH, T, D), for the
     tests: per tile of 64 keys, fp32 scores (each rounded once from fp64)
-    scaled by scale*log2(e), a
-    running max m and sum l of exp2(s - m) in fp32, p rounded to bf16 before
-    the PV product with fp32 accumulation; o = acc / l rounded once. With
+    scaled by scale*log2(e), a running max m and sum l of
+    exp2(s - m) in fp32, p rounded to bf16 before the PV product with fp32
+    accumulation; o = acc / l rounded once. With
     `want_lse`, also the (BH, T) logsumexp the kernel writes,
     (m + log2 l) * ln 2."""
     qf, kf, vf = q.float(), k.float(), v.float()
@@ -448,7 +452,7 @@ def _launch(q, k, v, o, lse, B, H, T, D, q_strides, kv_strides, o_strides, scale
                    q.element_size())
 
     lib = load_library()
-    fn = lib.attention_fwd_f32 if q.dtype == torch.float32 else lib.attention_fwd_bf16
+    fn = _entry(lib, "fwd", q.dtype, D)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -468,7 +472,7 @@ def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, B, H, T, D, qkv_strides, o_stri
     _check_aligned("attention_bwd", (q, k, v, o, do, dq, dk, dv), (*qkv_strides, *o_strides),
                    q.element_size())
     lib = load_library()
-    fn = lib.attention_bwd_f32 if q.dtype == torch.float32 else lib.attention_bwd_bf16
+    fn = _entry(lib, "bwd", q.dtype, D)
     delta = torch.empty(B, H, T, device=q.device, dtype=torch.float32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -494,8 +498,28 @@ def _check(name, ts):
 def _check_head_dim(name, d):
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not supported by the kernel "
-                         f"(supported: {SUPPORTED_HEAD_DIMS}, one instantiation each in "
-                         f"csrc/attention.cu)")
+                         f"(supported: {SUPPORTED_HEAD_DIMS}: 24 in csrc/attention.cu, the "
+                         f"others in csrc/attention_wgmma.cuh)")
+
+
+def attention_route(dtype, head_dim: int) -> str:
+    """The kernels an attention call on the card takes, from its dtype and
+    head dim: "wgmma" for head dims 64-192 (at any T: a sequence shorter
+    than a tile is one ragged tile), "mma_sync" for head dim 24. Both dtypes
+    take the same route. Raises for a dtype or head dim neither route
+    takes."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"attention: dtype {dtype} not in {_DTYPES}")
+    _check_head_dim("attention", head_dim)
+    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+
+
+def _entry(lib, direction, dtype, head_dim):
+    """The C entry point of a direction ("fwd", "bwd") on the route of
+    (dtype, head_dim)."""
+    suffix = "f32" if dtype == torch.float32 else "bf16"
+    route = "_wgmma" if attention_route(dtype, head_dim) == "wgmma" else ""
+    return getattr(lib, f"attention_{direction}{route}_{suffix}")
 
 
 def _needs_grad(*ts) -> bool:
