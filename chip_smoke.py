@@ -20,9 +20,10 @@ line each:
                head dims 96, 128 and 192 of the shipped configs with wider
                heads (`WIDE_ATTN_CASES`), every case on the wgmma route
                (`ops.attention.attention_route`: TMA-fed wgmma, bf16
-               m64nNk16 and fp32 as 3xTF32 on m64nNk8; the mma.sync route
-               keeps head dim 24, held by `small5`), the route and the
-               host us of enqueue of each case recorded (on tensors seen
+               m64nNk16 and fp32 as 3xTF32 on m64nNk8; head dim 24, held
+               by `small5`, takes it too), the route, the plan
+               (`ops.attention.attention_plan`, held to the library's own)
+               and the host us of enqueue of each case recorded (on tensors seen
                before, and on new ones whose tensor maps are encoded), the bf16
                route held per element to the bound of rounding p to bf16
                and, tighter, to a plain emulation of its own arithmetic
@@ -85,7 +86,9 @@ line each:
                three, read from the models, through the kernels against the
                plain versions in both dtypes, forward and backward, by
                the helpers of phases 3 and 7 (attention at D=24 over 256, 16, 7
-               and 2 tokens at B=4 and B=64 clips, bf16 GroupNorm at 84
+               and 2 tokens at B=4 and B=64 clips, on the wgmma route, packed
+               at T <= 64 and tiled at 256, each case's plan recorded and held
+               to the library's; bf16 GroupNorm at 84
                channels on 8-byte vectors, one call of each past the grid's
                65,535), timed with library and bound; each model at full
                width: an fp32 evaluation at B=64 and one fp32 step against
@@ -245,13 +248,11 @@ PEAK_FLOPS = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # The attention kernels' instructions, by route (`ops.attention.attention_route`)
 # and dtype.
 ATTN_PATH = {("wgmma", "bfloat16"): "wgmma m64nNk16 bf16, TMA ring, warp-specialised",
-             ("wgmma", "float32"): "wgmma m64nNk8 3xTF32, TMA ring, warp-specialised",
-             ("mma_sync", "bfloat16"): "mma.sync m16n8k16 bf16",
-             ("mma_sync", "float32"): "mma.sync m16n8k8 3xTF32"}
-# The attention wrappers' routes and their sources (the kernels line).
+             ("wgmma", "float32"): "wgmma m64nNk8 3xTF32, TMA ring, warp-specialised"}
+# The attention wrappers' one route and its sources (the kernels line).
 ATTN_ROUTES = {"wgmma": "mcvd_tpu_torch/csrc/attention_wgmma.cuh (attention_wgmma_bf16.cu, "
-                        "attention_wgmma_f32.cu): head dims 64-192",
-               "mma_sync": "mcvd_tpu_torch/csrc/attention.cu: head dim 24"}
+                        "attention_wgmma_f32.cu; head dim 24 attention_wgmma_d24.cu): head "
+                        "dims 24-192, tiled, and packed for head dim 24 at T <= 64"}
 # Host us of enqueue of an attention call: the median of 3 runs of this many
 # calls.
 ATTN_HOST_CALLS = 20
@@ -854,8 +855,8 @@ def attn_fwd_case(g, B, T, h, d, dtype, timed=True):
     its device ms beside the plain version's, SDPA's and the bound, the
     host us of enqueue a call on the same qkv (`host_us`) and on a new qkv
     each call (`host_us_new_maps`: the wgmma route encodes its tensor maps),
-    and the share of idle query rows (a sequence takes ceil(T / 64) blocks
-    of 64). The case records its route (`attention_route`)."""
+    and the share of idle query rows of the 64-row tiles. The case records
+    its route (`attention_route`) and plan (`attn_plan`)."""
     from mcvd_tpu_torch import ops
     from mcvd_tpu_torch.ops import attention as A
 
@@ -876,8 +877,9 @@ def attn_fwd_case(g, B, T, h, d, dtype, timed=True):
         q, k, v = (packed_heads(t, B, T, h, d).contiguous() for t in qkv.split(C, dim=-1))
         route = A.attention_route(dtype, d)
         case = dict(op="attention", B=B, T=T, heads=h, head_dim=d, dtype=dn, route=route,
-                    path=ATTN_PATH[route, dn], max_abs_err=err,
-                    max_atol=float(torch.as_tensor(tol[0]).max()), rtol=tol[1])
+                    path=ATTN_PATH[route, dn], plan=attn_plan(dtype, B, T, h, d),
+                    max_abs_err=err, max_atol=float(torch.as_tensor(tol[0]).max()),
+                    rtol=tol[1])
         if dn == "bfloat16":   # the kernel's own arithmetic in plain torch
             emu = A.attention_tc_emulation(q, k, v, scale)
             emu = emu.reshape(B, h, T, d).transpose(1, 2).reshape(B, T, C)
@@ -902,7 +904,7 @@ def attn_fwd_case(g, B, T, h, d, dtype, timed=True):
             flops = 4 * B * h * T * T * d
             case["bound_ms"], case["bound_by"] = attn_bound(nbytes(qkv) * 4 // 3, flops, dn)
             case["tflops"] = flops / case["ms"] / 1e9
-            case["idle_rows_share"] = 1 - T / (64 * ceil(T / 64))
+            case["idle_rows_share"] = 1 - B * h * T / (64 * case["plan"]["tiles"])
     return case
 
 
@@ -942,9 +944,12 @@ def attn_bwd_case(g, B, T, h, d, dtype, timed=True):
         check(e <= rel * float(b.abs().max()), f"{what} d{part}: max err {e}")
         err = max(err, e)
     route = A.attention_route(dtype, d)
+    plan = attn_plan(dtype, B, T, h, d)
+    packed = plan["form"] == "packed"
     case = dict(op="attention_bwd", B=B, T=T, heads=h, head_dim=d, dtype=dn, route=route,
-                path=ATTN_PATH[route, dn] + " (dq, then dk and dv)", max_abs_err=err,
-                rel_tol=rel, launches_per_call=2)
+                path=ATTN_PATH[route, dn] + (" (one launch)" if packed else
+                                             " (dq, then dk and dv)"),
+                plan=plan, max_abs_err=err, rel_tol=rel, launches_per_call=1 if packed else 2)
     qd = qkv.detach()
     o, lse = A.attention_packed_fwd(qd, h, scale, True)
     once = A.attention_packed_bwd(qd, o, lse, dy, h, scale)
@@ -985,8 +990,20 @@ def attn_bwd_case(g, B, T, h, d, dtype, timed=True):
         case["bound_ms"], case["bound_by"] = attn_bound(
             2 * nbytes(qd) + 2 * nbytes(o) + nbytes(lse), flops, dn)
         case["tflops"] = flops / case["ms"] / 1e9
-        case["idle_rows_share"] = 1 - T / (64 * ceil(T / 64))
+        case["idle_rows_share"] = 1 - B * h * T / (64 * plan["tiles"])
     return case
+
+
+def attn_plan(dtype, B, T, h, d):
+    """The plan of an attention call (`ops.attention.attention_plan`: tiled or
+    packed, sequences a tile, tiles), held to the one the built library takes
+    (`kernel_plan`)."""
+    from mcvd_tpu_torch.ops import attention as A
+
+    plan = A.attention_plan(dtype, d, T, B, h)
+    kplan = A.kernel_plan(d, T, B, h)
+    check(plan == kplan, f"attention B={B} T={T} h={h} D={d}: plan {plan}, the library's {kplan}")
+    return plan._asdict()
 
 
 def packed_heads(t, B, T, h, d):
@@ -1829,8 +1846,13 @@ def phase_small5(card):
                           attn_bwd_case(g, *shape, timed=B == 64)]
         cases += [attn_fwd_case(g, PAST_GRID, 7, 1, 24, dtype, timed=False),
                   attn_bwd_case(g, PAST_GRID, 7, 1, 24, dtype, timed=False)]
-    routes = {c["route"] for c in cases if c["op"].startswith("attention")}
-    check(routes == {"mma_sync"}, f"small5: the 3D family's attention took {routes}")
+    attn = [c for c in cases if c["op"].startswith("attention")]
+    routes = {c["route"] for c in attn}
+    check(routes == {"wgmma"}, f"small5: the 3D family's attention took {routes}")
+    for c in attn:   # packed at T <= 64, G = 64 // T sequences a tile
+        want = ("packed", 64 // c["T"]) if c["T"] <= 64 else ("tiled", 1)
+        got = (c["plan"]["form"], c["plan"]["seqs_per_tile"])
+        check(got == want, f"small5: {c['op']} B={c['B']} T={c['T']} took plan {got}")
     torch.cuda.synchronize()
     emit("small5_kernels", card=card, cases=cases)
     models = {name: small5_model(card, name, yml, mods, n_gn, n_attn, n_jax)
@@ -3501,7 +3523,7 @@ def main():
             extra["counterpart_of"] = "the JAX custom VJP (jnp/einsum code XLA compiles)"
         if name == "attention_bwd":
             extra["also_replaces"] = ["mcvd_tpu/ops/lab/attention.py:78"]
-        if name.startswith("attention"):   # the wrapper's two routes, by attention_route
+        if name.startswith("attention"):   # the one route (attention_route) and its sources
             extra["routes"] = ATTN_ROUTES
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=counts[name], ms=t["ms"], plain_ms=t["plain_ms"],

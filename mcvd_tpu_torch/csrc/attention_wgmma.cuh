@@ -1,14 +1,20 @@
 // Softmax attention on Hopper's warpgroup MMA (sm_90a): attention_fwd and
-// its VJP attention_bwd at head dims 64, 96, 128 and 192, any T, in bf16
-// and fp32 (3xTF32). attention.cu keeps the mma.sync bodies for head dim 24
-// (the 3D family); ops/attention.py's `attention_route` picks one of the
-// two from (dtype, D). attention_wgmma_bf16.cu and attention_wgmma_f32.cu
-// instantiate this header, one nvcc process each.
+// its VJP attention_bwd at head dims 24, 64, 96, 128 and 192, any T, in
+// bf16 and fp32 (3xTF32). One family in two forms, picked by plan_of
+// (ops/attention.py's `attention_plan` mirrors it):
+//   - tiled (fwd_kernel, dq_kernel, dkv_kernel): a block owns 64 or 128
+//     query rows of one sequence (KT keys in the dK/dV launch) and walks
+//     the other side in tiles; head dims 64-192 at any T, and 24 at T > 64;
+//   - packed (fwd_packed_kernel, bwd_packed_kernel, "packed form" below):
+//     head dim 24 at T <= 64, G = 64 / T whole sequences in a 64-row tile,
+//     on a persistent grid, the backward in one launch.
+// attention_wgmma_bf16.cu and attention_wgmma_f32.cu instantiate this
+// header at 64-192, attention_wgmma_d24.cu at 24, one nvcc process each.
 //
 // Replaces mcvd_tpu/ops/lab/attention.py: fused_attention (_kernel, :26) and
 // fused_attention_packed (_packed_kernel, :113) and their custom VJPs
-// _fa_bwd and _packed_bwd (:78, :187), as attention.cu does; the two
-// compute the same function with the same rounding points (below).
+// _fa_bwd and _packed_bwd (:78, :187); both forms compute the same function
+// with the same rounding points (below).
 //
 // What bounds them: operations (4*T*T*D FLOPs a (batch, head) forward, 5
 // such products backward, against ~0.5 MB of q, k, v and o at T = 1024, far
@@ -30,10 +36,13 @@
 //     (batch, token) strides of the caller's layout, so the packed (B, T, 3C)
 //     qkv of AttnBlock is read in place (q, k and v are three maps with
 //     bases qkv, qkv + C, qkv + 2C) and a ragged last tile (rows past T) or
-//     the columns past D of a bf16 96-wide head (two 64-column boxes) are
-//     zero-filled by the hardware, never read from the next example or
-//     head. A box is 128 bytes wide (64 bf16 or 32 fp32) with the 128-byte
-//     swizzle that wgmma's descriptors read; a tile is D / box boxes. The
+//     the columns past D of a bf16 96-wide head (two 64-column boxes) or of
+//     a 24-wide one (one box: bf16 S and dP take depth 32 and P V and dS K
+//     N = 64, fp32 depth and N 24) are zero-filled by the hardware, never
+//     read from the next example or head. A box is 128 bytes wide (64 bf16
+//     or 32 fp32) with the 128-byte swizzle that wgmma's descriptors read
+//     (D = 24 in bf16 fills 48 of its bytes: its tiles take 2.7x the
+//     shared memory of the data, 8 KB for 64 rows); a tile is D / box boxes. The
 //     maps are encoded on the host (cuTensorMapEncodeTiled, reached with
 //     dlopen of libcuda.so.1) and kept in a cache keyed by pointer, shape
 //     and strides that holds every map of a training step (get_map), so a
@@ -42,7 +51,7 @@
 //   - a wait on an mbarrier that never completes traps after ~20 s (a
 //     failed launch, not a hung card).
 //
-// The forward (fwd_kernel), FlashAttention-2 form as in attention.cu: S = Q
+// The forward (fwd_kernel), FlashAttention-2 form: S = Q
 // K^T over a walked tile of KT keys (one or two warpgroups a block, by
 // fwd_warpgroups), online softmax in fp32 registers with
 // scale*log2(e) folded into exp2f (running max m and sum l), O += P V with P
@@ -90,7 +99,7 @@
 //   and 16 (D = 192) backward, and one stage of the ring where two do not
 //   fit the 227 KB a block may have (kFwdStages, kDqStages, kDkvStages).
 //
-// C interface (ctypes), in the two .cu files: each entry returns
+// C interface (ctypes), in the .cu files: each entry returns
 // cudaGetLastError() after its launches (or the error that refused it); it
 // never synchronises and allocates nothing.
 
@@ -129,8 +138,13 @@ constexpr int kSmemLimit = 232448;  // 227 KB, the most a block may opt in to
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 template <int NWG> constexpr int kThreadsOf = 128 * (NWG + 1);
-template <int NWG> constexpr int kEntryRegs = NWG == 2 ? 168 : kConsumerRegs;
+template <int NWG> constexpr int kEntryRegs = NWG == 1 ? kConsumerRegs : NWG == 2 ? 168 : 128;
+// The consumers' count after setmaxnreg: 240, or 160 with three consumer
+// warpgroups (512 threads enter with 128).
+template <int NWG> constexpr int kConsumerRegsOf = NWG == 3 ? 160 : kConsumerRegs;
 static_assert(kProducerRegs * 128 + kConsumerRegs * 256 == kEntryRegs<2> * kThreadsOf<2>,
+              "setmaxnreg moves registers, it does not add them");
+static_assert(kProducerRegs * 128 + kConsumerRegsOf<3> * 384 <= kEntryRegs<3> * kThreadsOf<3>,
               "setmaxnreg moves registers, it does not add them");
 
 // ------------------------------------------------------------ PTX helpers
@@ -176,6 +190,24 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
       : "memory");
+}
+// A box from shared memory to a 4D tensor map's (c0, c1, c2, c3); coordinates
+// past the map's edges are not written. Committed as one bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      "cp.async.bulk.commit_group;\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+// The thread's bulk stores have read their shared memory (kRead) or are done.
+template <bool kRead>
+__device__ __forceinline__ void tma_store_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -424,15 +456,15 @@ __device__ __forceinline__ void scores(float (&s)[N / 2], const unsigned char* s
                                        uint32_t bl, int b0, int g, int t, int warp) {
   if constexpr (std::is_same_v<T, bf16>) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < (D + 15) / 16; ++kk)   // D = 24: columns 24-31 are the map's zeros
       wgmma::ss_bf16<N, 0, 0>(s, kdesc<RA>(base + a + a0 * 128, kk),
                               kdesc<RB>(base + bh + b0 * 128, kk), kk > 0);
   } else {
-    constexpr int kChunk = 2, NC = D / 8 / kChunk;
+    constexpr int NK = D / 8, kChunk = 2, NC = (NK + kChunk - 1) / kChunk;
     uint32_t ah[2][kChunk][4], al[2][kChunk][4];
 #pragma unroll
     for (int i = 0; i < kChunk; ++i)
-      load_a_tf32<RA>(sm, a, a0 + 16 * warp, g, t, i, ah[0][i], al[0][i]);
+      if (i < NK) load_a_tf32<RA>(sm, a, a0 + 16 * warp, g, t, i, ah[0][i], al[0][i]);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int x = c & 1;
@@ -440,8 +472,9 @@ __device__ __forceinline__ void scores(float (&s)[N / 2], const unsigned char* s
 #pragma unroll
       for (int i = 0; i < kChunk; ++i) {
         const int kk = c * kChunk + i;
-        mma3<N>(s, ah[x][i], al[x][i], kdesc<RB>(base + bh + b0 * 128, kk),
-                kdesc<RB>(base + bl + b0 * 128, kk), kk > 0);
+        if (kk < NK)   // D = 24: three steps, the last chunk one
+          mma3<N>(s, ah[x][i], al[x][i], kdesc<RB>(base + bh + b0 * 128, kk),
+                  kdesc<RB>(base + bl + b0 * 128, kk), kk > 0);
       }
       wg_commit();
       if (c > 0) {   // chunk c - 1 is done: its buffer takes chunk c + 1
@@ -452,8 +485,9 @@ __device__ __forceinline__ void scores(float (&s)[N / 2], const unsigned char* s
       if (c + 1 < NC) {
 #pragma unroll
         for (int i = 0; i < kChunk; ++i)
-          load_a_tf32<RA>(sm, a, a0 + 16 * warp, g, t, (c + 1) * kChunk + i, ah[x ^ 1][i],
-                          al[x ^ 1][i]);
+          if ((c + 1) * kChunk + i < NK)
+            load_a_tf32<RA>(sm, a, a0 + 16 * warp, g, t, (c + 1) * kChunk + i, ah[x ^ 1][i],
+                            al[x ^ 1][i]);
       }
     }
     wg_wait();
@@ -533,11 +567,12 @@ __device__ __forceinline__ void zero(float (&c)[N]) {
 
 // The configuration of each (element type, head dim): walked key tiles (KT)
 // of the forward (bf16: 64 keys, the tile ops.attention's emulation takes;
-// 128 at D = 64 measured no faster, PERF.md) and of the backward (the backward's KT is also the keys a
-// dK/dV warpgroup owns), and the consumer warpgroups of the two backward
+// 128 at D = 64 measured no faster, PERF.md) and of the backward (the
+// backward's KT is also the keys a dK/dV warpgroup owns; D = 24 takes
+// D = 64's), and the consumer warpgroups of the two backward
 // kernels (the forward's are picked a call: `fwd_warpgroups`). Two where
 // their tiles fit, else one: fp32 dQ at D = 192 (two 128-row own tiles
-// alone are 192 KB), fp32 dK/dV at D = 64 and 128 (each warpgroup's P and
+// alone are 192 KB), fp32 dK/dV at D = 24, 64 and 128 (each warpgroup's P and
 // dS tiles in hi and lo beside the own K and V). Two measured faster where
 // both fit (fp32 dK/dV at D = 96: 1.03 against 1.20 ms a backward, at 192:
 // 3.48 against 4.00; T = 1024, h = 2, B = 16 on an H100, PERF.md).
@@ -545,10 +580,10 @@ template <typename T, int D>
 struct Cfg {
   static constexpr bool kF32 = std::is_same_v<T, float>;
   static constexpr int kFwdKT = !kF32 || D <= 96 ? 64 : 32;
-  static constexpr int kBwdKT = D == 64 ? 64 : (!kF32 || D <= 128 ? 32 : 16);
+  static constexpr int kBwdKT = D <= 64 ? 64 : (!kF32 || D <= 128 ? 32 : 16);
   static constexpr int kDqWG = !kF32 || D <= 128 ? 2 : 1;
   static constexpr int kDkvWG = kF32 && D != 96 && D != 192 ? 1 : 2;
-  static constexpr int kDP = boxes<T>(D) * kBoxCols<T>;   // padded width (bf16 96 -> 128)
+  static constexpr int kDP = boxes<T>(D) * kBoxCols<T>;   // padded width (bf16 24 -> 64, 96 -> 128)
 };
 
 // Shared memory of each kernel: byte offsets from a 1024-aligned base; the
@@ -1147,6 +1182,527 @@ dkv_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
   }
 }
 
+// ------------------------------------------------------------ packed form
+//
+// Sequences of T <= 64 tokens (head dim 24: the 3D family's time attention
+// over 7 or 2 frames and its 4-px space attention over 16 tokens): a 64-row
+// tile holds G = 64 / T whole sequences of one head, rows g T + t, loaded by
+// one TMA box of (columns, 1, T, G) per operand; sequences past B are the
+// map's zero fill, and rows past G T (never loaded) are zeroed once when the
+// block starts. Every key outside a query's own sequence is masked, so a
+// tile computes each of its sequences as the tiled kernels would compute it
+// alone: the masked p are exact zeros, and the row max, bf16's rounding of
+// p and the logsumexp are those of the sequence (ops.attention's
+// emulations, run one sequence at a time, give the same bits on the packed
+// tile). What bounds it: bytes (a tile's 64 x 64 x 32 products are ~0.5
+// MFLOP against ~9 KB of q, k and v), and at a few microseconds of work a
+// tile, the cost of a block: so the grid is persistent, one block an SM
+// walking tiles blockIdx.x, + gridDim.x, ...; the producer's ring loads
+// the next tiles while the consumer warpgroups (each taking every NWG-th
+// tile of the block, each stage always the same warpgroup's) compute
+// theirs, and a tile's stores overlap the next loads (the backward's
+// gradients leave through shared memory by TMA stores; the forward's
+// straight from the registers, which measured faster). A batch of any
+// size is one launch.
+
+struct PackArgs {
+  int T_len, B, H, G, n_tiles;
+  int magic;            // row / T = (row * magic) >> 16 for row < 64
+  int64_t o_bs, o_ts;   // the forward's output
+  float scale_log2;
+};
+
+// Consumer warpgroups and ring stages: the forward three warpgroups on a
+// 6-stage ring (three measured faster than two, and a deeper ring no
+// faster: PERF.md); the bf16 backward two on 4 stages; the fp32 backward
+// one on 2 (its P and dS in hi and lo, its split K and V and its dQ tile
+// take 100 KB beside the 40 KB stages).
+template <typename T>
+struct PackCfg {
+  static constexpr bool kF32 = std::is_same_v<T, float>;
+  static constexpr int kFwdWG = 3, kFwdStages = 6;
+  static constexpr int kBwdWG = kF32 ? 1 : 2, kBwdStages = kF32 ? 2 : 4;
+};
+
+// Stages first (NOPS 64-row operand tiles each), then each warpgroup's
+// scratch (kScratch bytes), then the barriers: full[S], empty[S].
+template <typename T, int D, int NOPS, int S, int NWG, int kScratch>
+struct PackSmem {
+  static constexpr int kTile = tile_bytes<T>(kRows, D);
+  static constexpr int kStage = NOPS * kTile;
+  static constexpr int kWork = S * kStage;
+  static constexpr int kBar = kWork + NWG * kScratch;
+  static constexpr int kBytes = kBar + 16 * S + 1024;
+  __host__ __device__ static constexpr uint32_t op(int st, int i) {
+    return st * kStage + i * kTile;
+  }
+  __host__ __device__ static constexpr uint32_t scratch(int wg) { return kWork + wg * kScratch; }
+};
+// fp32 forward scratch: K lo, V^T hi and lo
+template <typename T, int D>
+constexpr int kPackFwdScratch =
+    PackCfg<T>::kF32 ? tile_bytes<T>(kRows, D) + 2 * tile_bytes<T>(D, kRows) : 0;
+// backward scratch: P and dS' (fp32: hi and lo; then the dK and dV tiles),
+// fp32 K lo, V lo, K^T hi and lo, the dQ tile (the gradients leave by TMA
+// stores of the tile's G sequences)
+template <typename T, int D>
+constexpr int kPackBwdScratch =
+    (PackCfg<T>::kF32 ? 4 * tile_bytes<T>(kRows, kRows) + 2 * tile_bytes<T>(kRows, D) +
+                            2 * tile_bytes<T>(D, kRows)
+                      : 2 * tile_bytes<T>(kRows, kRows)) +
+    tile_bytes<T>(kRows, D);
+template <typename T, int D>
+using PackFwdSmem = PackSmem<T, D, 3, PackCfg<T>::kFwdStages, PackCfg<T>::kFwdWG,
+                             kPackFwdScratch<T, D>>;
+template <typename T, int D>
+using PackBwdSmem = PackSmem<T, D, 5, PackCfg<T>::kBwdStages, PackCfg<T>::kBwdWG,
+                             kPackBwdScratch<T, D>>;
+
+// The block's start: zero the rows past G T of every box of the stages
+// (never loaded, they must read as finite zeros), init the barriers, fence
+// both for the async proxy.
+__device__ __forceinline__ void pack_start(unsigned char* sm, int work_bytes, int rows_loaded,
+                                           uint32_t bars, int S, int tid) {
+  constexpr int kBox = kRows * 128;
+  const int tail = kBox - rows_loaded * 128;
+  for (int i = tid * 16; i < work_bytes / kBox * tail; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(sm + (i / tail) * kBox + (kBox - tail) + i % tail) =
+        make_uint4(0, 0, 0, 0);
+  fence_async_smem();
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (S + s), 4);   // the four warps of the stage's warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer: the block's tiles in order, tile i into stage i % S, each
+// operand one box of G sequences per 128-byte column box.
+template <typename T, int D, int S, int NOPS>
+__device__ __forceinline__ void pack_produce(uint32_t base, uint32_t bars, int stage_bytes,
+                                             int tile_bytes_, const CUtensorMap* const* maps,
+                                             const PackArgs& p) {
+  const uint32_t box_bytes = boxes<T>(D) * 128u * p.T_len * p.G;
+#pragma unroll
+  for (int op = 0; op < NOPS; ++op)
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(maps[op]))
+                 : "memory");
+  int i = 0;
+  for (int tile = blockIdx.x; tile < p.n_tiles; tile += gridDim.x, ++i) {
+    const int st = i % S;
+    const uint32_t full = bars + 8 * st;
+    mbar_wait(bars + 8 * (S + st), ((i / S) & 1) ^ 1);
+    mbar_expect_tx(full, NOPS * box_bytes);
+    const int h = tile % p.H, b0 = (tile / p.H) * p.G;
+#pragma unroll
+    for (int op = 0; op < NOPS; ++op)
+#pragma unroll
+      for (int x = 0; x < boxes<T>(D); ++x)
+        tma_load(base + st * stage_bytes + op * tile_bytes_ + x * (kRows * 128), maps[op], full,
+                 x * kBoxCols<T>, h, 0, b0);
+  }
+}
+
+// A consumer thread's two rows (16 warp + g, + 8) of a packed tile: the
+// sequence slot, its first row, and whether it is a sequence of the batch.
+struct PackRows {
+  int seq[2], lo[2];
+  bool ok[2];
+};
+__device__ __forceinline__ PackRows pack_rows(const PackArgs& p, int b0, int warp, int g) {
+  PackRows r;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = 16 * warp + g + 8 * e;
+    r.seq[e] = (row * p.magic) >> 16;
+    r.lo[e] = r.seq[e] * p.T_len;
+    r.ok[e] = r.seq[e] < p.G && b0 + r.seq[e] < p.B;
+  }
+  return r;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsOf<PackCfg<T>::kFwdWG>, 1)
+fwd_packed_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, T* __restrict__ o,
+                  float* __restrict__ lse, const PackArgs p) {
+  constexpr int NWG = PackCfg<T>::kFwdWG, S = PackCfg<T>::kFwdStages;
+  constexpr bool kF32 = PackCfg<T>::kF32;
+  constexpr int NO = kF32 ? D : Cfg<T, D>::kDP;   // P V's N
+  using L = PackFwdSmem<T, D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t base = smem_base(smem_raw, sm);
+  const uint32_t bars = base + L::kBar;
+  const int tid = threadIdx.x;
+  pack_start(sm, L::kWork, p.G * p.T_len, bars, S, tid);
+
+  if (tid >= 128 * NWG) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * NWG) {
+      const CUtensorMap* maps[3] = {&mq, &mk, &mv};
+      pack_produce<T, D, S, 3>(base, bars, L::kStage, L::kTile, maps, p);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegsOf<NWG>>();
+  const int wg = tid >> 7, twg = tid & 127, warp = (tid >> 5) & 3, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  const uint32_t oKl = L::scratch(wg), oVth = oKl + tile_bytes<T>(kRows, D),
+                 oVtl = oVth + tile_bytes<T>(D, kRows);
+  int i = wg;
+  for (int tile = blockIdx.x + wg * gridDim.x; tile < p.n_tiles;
+       tile += NWG * gridDim.x, i += NWG) {
+    const int st = i % S, h = tile % p.H, b0 = (tile / p.H) * p.G;
+    const PackRows rows = pack_rows(p, b0, warp, g);
+    const uint32_t oQ = L::op(st, 0), oK = L::op(st, 1), oV = L::op(st, 2);
+    mbar_wait(bars + 8 * st, (i / S) & 1);
+    float s[kRows / 2];   // S = Q K^T: 64 rows x 64 keys
+    if constexpr (kF32) {
+      warpgroup_sync(wg);   // the previous tile's P V has read V^T
+      split_tile<kRows, D, 128>(sm, oK, oKl, twg);
+      transpose_split<kRows, D, 128>(sm, oV, oVth, oVtl, twg);
+      fence_async_smem();
+      warpgroup_sync(wg);
+      scores<T, D, kRows, kRows, kRows>(s, sm, base, oQ, 0, oK, oKl, 0, g, t, warp);
+      release(bars, S, st, lane);   // K and V are converted; S has read K
+    } else {
+      wg_fence();
+      scores<T, D, kRows, kRows, kRows>(s, sm, base, oQ, 0, oK, 0, 0, g, t, warp);
+      wg_commit();
+      wg_wait();
+      keep(s);
+    }
+    // softmax over the row's own sequence: keys [lo, lo + T) (row r itself
+    // is one, so the max is finite)
+    float mx[2], l[2];
+#pragma unroll
+    for (int nb = 0; nb < kRows / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * nb + 2 * t + (e & 1), lo = rows.lo[e >> 1];
+        s[4 * nb + e] = c >= lo && c < lo + p.T_len ? s[4 * nb + e] * p.scale_log2 : -INFINITY;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int nb = 0; nb < kRows / 8; ++nb)
+        m = fmaxf(m, fmaxf(s[4 * nb + 2 * r], s[4 * nb + 2 * r + 1]));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+      float sum = 0.f;
+#pragma unroll
+      for (int nb = 0; nb < kRows / 8; ++nb) {
+        s[4 * nb + 2 * r] = exp2f(s[4 * nb + 2 * r] - m);
+        s[4 * nb + 2 * r + 1] = exp2f(s[4 * nb + 2 * r + 1] - m);
+        sum += s[4 * nb + 2 * r] + s[4 * nb + 2 * r + 1];
+      }
+      mx[r] = m;
+      l[r] = sum;
+    }
+    float acc[NO / 2];   // O = P V
+    zero(acc);
+    if constexpr (kF32) {
+      uint32_t ph[kRows / 8][4], pl[kRows / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk) {
+        split_tf32(s[4 * kk + 0], ph[kk][0], pl[kk][0]);
+        split_tf32(s[4 * kk + 2], ph[kk][1], pl[kk][1]);
+        split_tf32(s[4 * kk + 1], ph[kk][2], pl[kk][2]);
+        split_tf32(s[4 * kk + 3], ph[kk][3], pl[kk][3]);
+      }
+      keep(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk)
+        mma3<NO>(acc, ph[kk], pl[kk], kdesc<D>(base + oVth, kk), kdesc<D>(base + oVtl, kk), 1);
+      wg_commit();
+      wg_wait();
+      keep(acc);
+      keep(ph);
+      keep(pl);
+    } else {
+      uint32_t pa[kRows / 16][4];   // p rounded to bf16 (l summed the unrounded p)
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
+      keep(acc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+        wgmma::rs_bf16<NO, 1>(acc, pa[kk], mdesc<kRows>(base + oV, kk), 1);
+      wg_commit();
+      wg_wait();
+      keep(acc);
+      keep(pa);
+      release(bars, S, st, lane);
+    }
+    // O / l of the rows of the batch's sequences, straight from the
+    // registers (a TMA store of the tile through shared memory measured
+    // slower here: PERF.md)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (!rows.ok[r]) continue;
+      const int b = b0 + rows.seq[r], tt = 16 * warp + g + 8 * r - rows.lo[r];
+      const float inv = 1.f / sum;
+      T* orow = o + (int64_t)b * p.o_bs + (int64_t)tt * p.o_ts + (int64_t)h * D + 2 * t;
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        store2(orow + 8 * nb, acc[4 * nb + 2 * r] * inv, acc[4 * nb + 2 * r + 1] * inv);
+      if (lse != nullptr && t == 0)
+        lse[((int64_t)b * p.H + h) * p.T_len + tt] = (mx[r] + log2f(sum)) * kLn2;
+    }
+  }
+}
+
+// The backward of a packed tile in one launch: every sequence lies whole in
+// its tile, so the block holds Q, K, V, dO and O of its G sequences and
+// runs the five products S = Q K^T, dP = dO V^T, dQ = dS K, dV^T = dO^T P and
+// dK^T = Q^T dS' with no atomics and no scratch in device memory. As the
+// tiled pair: dS = P (dP - D) with D = rowsum(dO * O), and dK's
+// dS' = P (dP - D') with D' = rowsum(P * dP) summed here over the row's
+// keys (the dQ launch's D'); P and dS' pass through this warpgroup's shared
+// memory as the B tiles of the dK/dV products (keys x queries).
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreadsOf<PackCfg<T>::kBwdWG>, 1)
+bwd_packed_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                  const __grid_constant__ CUtensorMap mv, const __grid_constant__ CUtensorMap mg,
+                  const __grid_constant__ CUtensorMap mo, const __grid_constant__ CUtensorMap mdq,
+                  const __grid_constant__ CUtensorMap mdk, const __grid_constant__ CUtensorMap mdv,
+                  const BwdArgs a, const PackArgs p) {
+  constexpr int NWG = PackCfg<T>::kBwdWG, S = PackCfg<T>::kBwdStages;
+  constexpr bool kF32 = PackCfg<T>::kF32;
+  constexpr int NO = kF32 ? D : Cfg<T, D>::kDP;   // dS K's N
+  using L = PackBwdSmem<T, D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm;
+  const uint32_t base = smem_base(smem_raw, sm);
+  const uint32_t bars = base + L::kBar;
+  const int tid = threadIdx.x;
+  pack_start(sm, L::kWork, p.G * p.T_len, bars, S, tid);
+
+  if (tid >= 128 * NWG) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (tid == 128 * NWG) {
+      const CUtensorMap* maps[5] = {&mq, &mk, &mv, &mg, &mo};
+      pack_produce<T, D, S, 5>(base, bars, L::kStage, L::kTile, maps, p);
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegsOf<NWG>>();
+  const int wg = tid >> 7, twg = tid & 127, warp = (tid >> 5) & 3, lane = tid & 31,
+            g = lane >> 2, t = lane & 3;
+  const float sl2 = a.scale * kLog2e;
+  constexpr int kPS = tile_bytes<T>(kRows, kRows);   // P or dS': keys x queries
+  const uint32_t oP = L::scratch(wg), oS = oP + kPS;
+  const uint32_t oPl = oS + kPS, oSl = oPl + kPS;                         // fp32
+  const uint32_t oKl = oSl + kPS, oVl = oKl + tile_bytes<T>(kRows, D);    // fp32
+  const uint32_t oKth = oVl + tile_bytes<T>(kRows, D), oKtl = oKth + tile_bytes<T>(D, kRows);
+  const uint32_t oDq = L::scratch(wg) + kPackBwdScratch<T, D> - tile_bytes<T>(kRows, D);
+  int i = wg;
+  for (int tile = blockIdx.x + wg * gridDim.x; tile < p.n_tiles;
+       tile += NWG * gridDim.x, i += NWG) {
+    const int st = i % S, h = tile % p.H, b0 = (tile / p.H) * p.G;
+    const PackRows rows = pack_rows(p, b0, warp, g);
+    const uint32_t oQ = L::op(st, 0), oK = L::op(st, 1), oV = L::op(st, 2), oG = L::op(st, 3),
+                   oO = L::op(st, 4);
+    float L2[2];   // the rows' logsumexp, loaded while the tile lands
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int tt = 16 * warp + g + 8 * r - rows.lo[r];
+      L2[r] = rows.ok[r]
+                  ? a.lse[((int64_t)(b0 + rows.seq[r]) * p.H + h) * p.T_len + tt] * kLog2e
+                  : 0.f;
+    }
+    mbar_wait(bars + 8 * st, (i / S) & 1);
+    if (twg == 0) tma_store_wait<true>();   // the previous tile's gradients have left
+    warpgroup_sync(wg);   // and its products have read the scratch
+    if constexpr (kF32) {
+      transpose_split<kRows, D, 128>(sm, oK, oKth, oKtl, twg);
+      warpgroup_sync(wg);   // K^T has read the raw K before it is split in place
+      split_tile<kRows, D, 128>(sm, oK, oKl, twg);
+      split_tile<kRows, D, 128>(sm, oV, oVl, twg);
+      fence_async_smem();
+      warpgroup_sync(wg);
+    }
+    // D = rowsum(dO * O) of the thread's rows: the four lanes of a row, D / 4
+    // columns each
+    float drow[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < D / 4; ++e) {
+        const uint32_t off = toff<T, kRows>(row, t * (D / 4) + e);
+        d = fmaf(to_f32(*reinterpret_cast<const T*>(sm + oG + off)),
+                 to_f32(*reinterpret_cast<const T*>(sm + oO + off)), d);
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      drow[r] = d;
+    }
+    float s[kRows / 2], dp[kRows / 2];   // S and dP: 64 queries x 64 keys
+    scores2<T, D, kRows, kRows, kRows>(s, dp, sm, base, oQ, oG, 0, oK, oKl, oV, oVl, 0, g, t,
+                                       warp);
+    // p (in place of s), D' of the row, dS for dQ, dS' (in place of dp)
+    float pdp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nb = 0; nb < kRows / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, idx = 4 * nb + e, c = 8 * nb + 2 * t + (e & 1);
+        const bool in = rows.ok[r] && c >= rows.lo[r] && c < rows.lo[r] + p.T_len;
+        s[idx] = in ? exp2f(fmaf(s[idx], sl2, -L2[r])) : 0.f;
+        pdp[r] = fmaf(s[idx], dp[idx], pdp[r]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      pdp[r] += __shfl_xor_sync(0xffffffffu, pdp[r], 1);
+      pdp[r] += __shfl_xor_sync(0xffffffffu, pdp[r], 2);
+    }
+    float dq[NO / 2], dkt[kRows / 2], dvt[kRows / 2];   // dK^T, dV^T: rows d, 64 keys
+    if constexpr (kF32) {
+      uint32_t dh[kRows / 8][4], dl[kRows / 8][4];   // dS as dQ's A (accumulator order)
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk) {
+        const int e0 = 4 * kk;
+        split_tf32(s[e0 + 0] * (dp[e0 + 0] - drow[0]), dh[kk][0], dl[kk][0]);
+        split_tf32(s[e0 + 2] * (dp[e0 + 2] - drow[1]), dh[kk][1], dl[kk][1]);
+        split_tf32(s[e0 + 1] * (dp[e0 + 1] - drow[0]), dh[kk][2], dl[kk][2]);
+        split_tf32(s[e0 + 3] * (dp[e0 + 3] - drow[1]), dh[kk][3], dl[kk][3]);
+      }
+#pragma unroll
+      for (int nb = 0; nb < kRows / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int idx = 4 * nb + e;
+          const float ds1 = s[idx] * (dp[idx] - pdp[e >> 1]);
+          const uint32_t off =
+              toff<T, kRows>(8 * nb + 2 * t + (e & 1), 16 * warp + g + 8 * (e >> 1));
+          uint32_t hi, lo;
+          split_tf32(s[idx], hi, lo);
+          *reinterpret_cast<uint32_t*>(sm + oP + off) = hi;
+          *reinterpret_cast<uint32_t*>(sm + oPl + off) = lo;
+          split_tf32(ds1, hi, lo);
+          *reinterpret_cast<uint32_t*>(sm + oS + off) = hi;
+          *reinterpret_cast<uint32_t*>(sm + oSl + off) = lo;
+        }
+      fence_async_smem();
+      warpgroup_sync(wg);
+      zero(dq);
+      keep(dq);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 8; ++kk)
+        mma3<NO>(dq, dh[kk], dl[kk], kdesc<D>(base + oKth, kk), kdesc<D>(base + oKtl, kk), 1);
+      wg_commit();
+      wg_wait();
+      keep(dq);
+      keep(dh);
+      keep(dl);
+      zero(dvt);
+      zero(dkt);
+      out_product_f32<D, kRows>(dvt, sm, base, oG, oP, oPl, 16 * warp, g, t);
+      out_product_f32<D, kRows>(dkt, sm, base, oQ, oS, oSl, 16 * warp, g, t);
+    } else {
+      uint32_t da[kRows / 16][4];   // dS rounded to bf16, dQ's A
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i0 = 8 * kk + 2 * e, r = e & 1;
+          da[kk][e] = pack_bf16(s[i0] * (dp[i0] - drow[r]), s[i0 + 1] * (dp[i0 + 1] - drow[r]));
+        }
+#pragma unroll
+      for (int idx = 0; idx < kRows / 2; ++idx) dp[idx] = s[idx] * (dp[idx] - pdp[(idx >> 1) & 1]);
+      // P and dS' as 8 x 8 blocks stored transposed (the tiled dK/dV launch's stmatrix)
+      const int m = lane >> 3, ii = lane & 7;
+#pragma unroll
+      for (int nb0 = 0; nb0 < kRows / 8; nb0 += 2) {
+        const int kc = 8 * (nb0 + (m >> 1)) + ii;
+        const uint32_t off = kc * 128 + ((((2 * warp + (m & 1)) ^ (kc & 7))) << 4);
+        stmatrix_x4_trans(base + oP + off, pack_bf16(s[4 * nb0], s[4 * nb0 + 1]),
+                          pack_bf16(s[4 * nb0 + 2], s[4 * nb0 + 3]),
+                          pack_bf16(s[4 * nb0 + 4], s[4 * nb0 + 5]),
+                          pack_bf16(s[4 * nb0 + 6], s[4 * nb0 + 7]));
+        stmatrix_x4_trans(base + oS + off, pack_bf16(dp[4 * nb0], dp[4 * nb0 + 1]),
+                          pack_bf16(dp[4 * nb0 + 2], dp[4 * nb0 + 3]),
+                          pack_bf16(dp[4 * nb0 + 4], dp[4 * nb0 + 5]),
+                          pack_bf16(dp[4 * nb0 + 6], dp[4 * nb0 + 7]));
+      }
+      fence_async_smem();
+      warpgroup_sync(wg);
+      zero(dq);
+      zero(dvt);
+      zero(dkt);
+      keep(dq);
+      keep(dvt);
+      keep(dkt);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        wgmma::rs_bf16<NO, 1>(dq, da[kk], mdesc<kRows>(base + oK, kk), 1);
+        wgmma::ss_bf16<kRows, 1, 0>(dvt, mdesc<kRows>(base + oG, kk), kdesc<kRows>(base + oP, kk),
+                                    1);
+        wgmma::ss_bf16<kRows, 1, 0>(dkt, mdesc<kRows>(base + oQ, kk), kdesc<kRows>(base + oS, kk),
+                                    1);
+      }
+      wg_commit();
+      wg_wait();
+      keep(dq);
+      keep(dvt);
+      keep(dkt);
+      keep(da);
+    }
+    release(bars, S, st, lane);
+    // dQ (rows queries), dK and dV (rows keys, from the transposed
+    // accumulators' rows d) into staging tiles, dK and dV over P and dS'
+    // (read), then a TMA store each: rows past the batch or past G T are
+    // clipped by the maps' edges
+    warpgroup_sync(wg);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int nb = 0; nb < D / 8; ++nb)
+        store2(reinterpret_cast<T*>(sm + oDq +
+                                    toff<T, kRows>(16 * warp + g + 8 * r, 8 * nb + 2 * t)),
+               dq[4 * nb + 2 * r] * a.scale, dq[4 * nb + 2 * r + 1] * a.scale);
+    if (16 * warp < D) {
+#pragma unroll
+      for (int nb = 0; nb < kRows / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 16 * warp + g + 8 * (e >> 1), key = 8 * nb + 2 * t + (e & 1);
+          if (d < D) {
+            const uint32_t off = toff<T, kRows>(key, d);
+            store1(reinterpret_cast<T*>(sm + oP + off), dkt[4 * nb + e] * a.scale);
+            store1(reinterpret_cast<T*>(sm + oS + off), dvt[4 * nb + e]);
+          }
+        }
+    }
+    fence_async_smem();
+    warpgroup_sync(wg);
+    if (twg == 0)
+#pragma unroll
+      for (int x = 0; x < boxes<T>(D); ++x) {
+        const uint32_t bx = x * (kRows * 128);
+        tma_store(&mdq, base + oDq + bx, x * kBoxCols<T>, h, 0, b0);
+        tma_store(&mdk, base + oP + bx, x * kBoxCols<T>, h, 0, b0);
+        tma_store(&mdv, base + oS + bx, x * kBoxCols<T>, h, 0, b0);
+      }
+  }
+  if (twg == 0) tma_store_wait<false>();
+}
+
 // ------------------------------------------------------------------ launch
 
 using EncodeFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -1166,14 +1722,15 @@ inline EncodeFn encode_fn() {
 }
 
 // A tensor map of (D, H, T, B) with the caller's strides, boxes of
-// (kBoxCols, 1, rows, 1), 128-byte swizzle, zero fill past the edges.
+// (kBoxCols, 1, rows, seqs), 128-byte swizzle, zero fill past the edges
+// (columns past D, rows past T, sequences past B).
 struct MapKey {
   const void* ptr;
   int64_t ts, bs;
-  int D, H, T, B, rows;
+  int D, H, T, B, rows, seqs;
   bool operator==(const MapKey& o) const {
     return ptr == o.ptr && ts == o.ts && bs == o.bs && D == o.D && H == o.H && T == o.T &&
-           B == o.B && rows == o.rows;
+           B == o.B && rows == o.rows && seqs == o.seqs;
   }
 };
 
@@ -1186,7 +1743,8 @@ bool encode_map(CUtensorMap* m, const MapKey& k) {
                               (cuuint64_t)k.B};
   const cuuint64_t strides[3] = {(cuuint64_t)k.D * kE, (cuuint64_t)k.ts * kE,
                                  (cuuint64_t)k.bs * kE};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols<T>, 1, (cuuint32_t)k.rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols<T>, 1, (cuuint32_t)k.rows,
+                              (cuuint32_t)k.seqs};
   const cuuint32_t estr[4] = {1, 1, 1, 1};
   const CUtensorMapDataType dt =
       std::is_same_v<T, float> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
@@ -1215,7 +1773,7 @@ bool get_map(CUtensorMap* out, const MapKey& k) {
   static std::mutex mu;
   uint64_t hsh = (uint64_t)(uintptr_t)k.ptr * 0x9E3779B97F4A7C15ull;
   for (int64_t v : {k.ts, k.bs, (int64_t)k.D, (int64_t)k.H, (int64_t)k.T, (int64_t)k.B,
-                    (int64_t)k.rows})
+                    (int64_t)k.rows, (int64_t)k.seqs})
     hsh = (hsh ^ (uint64_t)v) * 0x100000001B3ull;
   Entry* set = table[(hsh >> 32) % kSets];
   std::lock_guard<std::mutex> lock(mu);
@@ -1262,7 +1820,7 @@ cudaError_t prepare(const void* kernel, int smem) {
 
 inline bool bad_args(int B, int H, int T_len, int D, std::initializer_list<const void*> ptrs,
                      std::initializer_list<int64_t> strides, int es) {
-  if ((D != 64 && D != 96 && D != 128 && D != 192) || B <= 0 || H <= 0 || H > 65535 ||
+  if ((D != 24 && D != 64 && D != 96 && D != 128 && D != 192) || B <= 0 || H <= 0 || H > 65535 ||
       T_len <= 0)
     return true;
   for (const void* p : ptrs)
@@ -1272,16 +1830,103 @@ inline bool bad_args(int B, int H, int T_len, int D, std::initializer_list<const
   return false;
 }
 
+// The plan of a call (ops.attention.attention_plan mirrors it): "packed"
+// for head dim 24 at T <= 64, G = 64 / T sequences a tile and H ceil(B / G)
+// tiles; else "tiled", a 64-query tile of one sequence, H B ceil(T / 64)
+// tiles (the kernels above; a block takes one or two of them).
+struct Plan {
+  bool packed;
+  int seqs;
+  int64_t tiles;
+};
+inline Plan plan_of(int D, int T_len, int B, int H) {
+  if (D == 24 && T_len <= kRows) {
+    const int G = kRows / T_len;
+    return {true, G, (int64_t)H * ((B + G - 1) / G)};
+  }
+  return {false, 1, (int64_t)H * B * ((T_len + kRows - 1) / kRows)};
+}
+
+inline int sm_count() {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  return sms;
+}
+
+inline PackArgs pack_args(const Plan& pl, int B, int H, int T_len, int64_t o_bs, int64_t o_ts,
+                          float scale) {
+  return PackArgs{T_len, B, H, pl.seqs, (int)pl.tiles, (65536 + T_len - 1) / T_len, o_bs, o_ts,
+                  scale * kLog2e};
+}
+
+template <typename T, int D>
+int fwd_packed(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+               int T_len, int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts,
+               int64_t o_bs, int64_t o_ts, float scale, cudaStream_t stream) {
+  constexpr int NWG = PackCfg<T>::kFwdWG, smem = PackFwdSmem<T, D>::kBytes;
+  static_assert(smem <= kSmemLimit, "the packed forward's ring fits one block");
+  const auto kern = fwd_packed_kernel<T, D>;
+  cudaError_t err = prepare<T, D, 3, NWG>((const void*)kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  const Plan pl = plan_of(D, T_len, B, H);
+  if (pl.tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!get_map<T>(&mq, {q, q_ts, q_bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mk, {k, kv_ts, kv_bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mv, {v, kv_ts, kv_bs, D, H, T_len, B, T_len, pl.seqs}))
+    return (int)cudaErrorNotSupported;
+  const int grid = (int)(pl.tiles < sm_count() ? pl.tiles : sm_count());
+  kern<<<grid, kThreadsOf<NWG>, smem, stream>>>(mq, mk, mv, static_cast<T*>(o), lse,
+                                                pack_args(pl, B, H, T_len, o_bs, o_ts, scale));
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int bwd_packed(const void* q, const void* k, const void* v, const BwdArgs& a, int B, int H,
+               cudaStream_t stream) {
+  constexpr int NWG = PackCfg<T>::kBwdWG, smem = PackBwdSmem<T, D>::kBytes;
+  static_assert(smem <= kSmemLimit, "the packed backward's ring fits one block");
+  const auto kern = bwd_packed_kernel<T, D>;
+  cudaError_t err = prepare<T, D, 4, NWG>((const void*)kern, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int T_len = a.T_len;
+  const Plan pl = plan_of(D, T_len, B, H);
+  if (pl.tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv, mg, mo, mdq, mdk, mdv;
+  if (!get_map<T>(&mq, {q, a.ts, a.bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mk, {k, a.ts, a.bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mv, {v, a.ts, a.bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mg, {a.dout, a.o_ts, a.o_bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mo, {a.o, a.o_ts, a.o_bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mdq, {a.dq, a.ts, a.bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mdk, {a.dk, a.ts, a.bs, D, H, T_len, B, T_len, pl.seqs}) ||
+      !get_map<T>(&mdv, {a.dv, a.ts, a.bs, D, H, T_len, B, T_len, pl.seqs}))
+    return (int)cudaErrorNotSupported;
+  const int grid = (int)(pl.tiles < sm_count() ? pl.tiles : sm_count());
+  kern<<<grid, kThreadsOf<NWG>, smem, stream>>>(
+      mq, mk, mv, mg, mo, mdq, mdk, mdv, a, pack_args(pl, B, H, T_len, a.o_bs, a.o_ts, a.scale));
+  return (int)cudaGetLastError();
+}
+
+// Head dim 24, instantiated in attention_wgmma_d24.cu (a translation unit
+// of its own, compiled beside the other two): the packed form where
+// plan_of says so, else the tiled kernels at D = 24.
+template <typename T>
+int fwd_d24(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+            int T_len, int64_t q_bs, int64_t q_ts, int64_t kv_bs, int64_t kv_ts, int64_t o_bs,
+            int64_t o_ts, float scale, cudaStream_t stream);
+template <typename T>
+int bwd_d24(const void* q, const void* k, const void* v, BwdArgs a, int B, int H,
+            cudaStream_t stream);
+
 // The forward's consumer warpgroups a block: one (64 query rows) while
 // blocks of 64 rows do not outnumber the SMs, so that each takes an SM of
 // its own; else two (128 rows, sharing each walked tile; an SM holds one
 // block either way).
 inline int fwd_warpgroups(int B, int H, int T_len) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    sms = 132;
-  return (int64_t)((T_len + kRows - 1) / kRows) * H * B > sms ? 2 : 1;
+  return (int64_t)((T_len + kRows - 1) / kRows) * H * B > sm_count() ? 2 : 1;
 }
 
 template <typename T, int D, int NWG>
@@ -1295,9 +1940,9 @@ int fwd_run(const void* q, const void* k, const void* v, void* o, float* lse, in
   if (err != cudaSuccess) return (int)err;
   constexpr int KT = Cfg<T, D>::kFwdKT, QR = kRows * NWG;
   CUtensorMap mq, mk, mv;
-  if (!get_map<T>(&mq, {q, q_ts, q_bs, D, H, T_len, B, QR}) ||
-      !get_map<T>(&mk, {k, kv_ts, kv_bs, D, H, T_len, B, KT}) ||
-      !get_map<T>(&mv, {v, kv_ts, kv_bs, D, H, T_len, B, KT}))
+  if (!get_map<T>(&mq, {q, q_ts, q_bs, D, H, T_len, B, QR, 1}) ||
+      !get_map<T>(&mk, {k, kv_ts, kv_bs, D, H, T_len, B, KT, 1}) ||
+      !get_map<T>(&mv, {v, kv_ts, kv_bs, D, H, T_len, B, KT, 1}))
     return (int)cudaErrorNotSupported;
   for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
     const dim3 grid((T_len + QR - 1) / QR, H, B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ);
@@ -1329,6 +1974,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 24: return fwd_d24<T>(q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale, s);
     case 64: return fwd_d<T, 64>(q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale, s);
     case 96: return fwd_d<T, 96>(q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale, s);
     case 128: return fwd_d<T, 128>(q, k, v, o, lse, B, H, T_len, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale, s);
@@ -1354,14 +2000,14 @@ int bwd_d(const void* q, const void* k, const void* v, BwdArgs a, int B, int H,
   // dQ: own Q and dO (QR rows), walked K and V (KT); dK/dV: own K and V
   // (KR rows), walked Q and dO (64)
   CUtensorMap q1, g1, k1, v1, q2, g2, k2, v2;
-  if (!get_map<T>(&q1, {q, a.ts, a.bs, D, H, T_len, B, QR}) ||
-      !get_map<T>(&g1, {a.dout, a.o_ts, a.o_bs, D, H, T_len, B, QR}) ||
-      !get_map<T>(&k1, {k, a.ts, a.bs, D, H, T_len, B, KT}) ||
-      !get_map<T>(&v1, {v, a.ts, a.bs, D, H, T_len, B, KT}) ||
-      !get_map<T>(&q2, {q, a.ts, a.bs, D, H, T_len, B, kRows}) ||
-      !get_map<T>(&g2, {a.dout, a.o_ts, a.o_bs, D, H, T_len, B, kRows}) ||
-      !get_map<T>(&k2, {k, a.ts, a.bs, D, H, T_len, B, KR}) ||
-      !get_map<T>(&v2, {v, a.ts, a.bs, D, H, T_len, B, KR}))
+  if (!get_map<T>(&q1, {q, a.ts, a.bs, D, H, T_len, B, QR, 1}) ||
+      !get_map<T>(&g1, {a.dout, a.o_ts, a.o_bs, D, H, T_len, B, QR, 1}) ||
+      !get_map<T>(&k1, {k, a.ts, a.bs, D, H, T_len, B, KT, 1}) ||
+      !get_map<T>(&v1, {v, a.ts, a.bs, D, H, T_len, B, KT, 1}) ||
+      !get_map<T>(&q2, {q, a.ts, a.bs, D, H, T_len, B, kRows, 1}) ||
+      !get_map<T>(&g2, {a.dout, a.o_ts, a.o_bs, D, H, T_len, B, kRows, 1}) ||
+      !get_map<T>(&k2, {k, a.ts, a.bs, D, H, T_len, B, KR, 1}) ||
+      !get_map<T>(&v2, {v, a.ts, a.bs, D, H, T_len, B, KR, 1}))
     return (int)cudaErrorNotSupported;
   for (int b0 = 0; b0 < B; b0 += kMaxGridZ) {
     const int nb = B - b0 < kMaxGridZ ? B - b0 : kMaxGridZ;
@@ -1390,6 +2036,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   const BwdArgs a{o, dout, lse, delta, dq, dk, dv, bs, ts, o_bs, o_ts, T_len, 0, scale};
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
+    case 24: return bwd_d24<T>(q, k, v, a, B, H, s);
     case 64: return bwd_d<T, 64>(q, k, v, a, B, H, s);
     case 96: return bwd_d<T, 96>(q, k, v, a, B, H, s);
     case 128: return bwd_d<T, 128>(q, k, v, a, B, H, s);

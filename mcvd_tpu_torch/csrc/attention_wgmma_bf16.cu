@@ -1,6 +1,6 @@
 // attention_fwd and attention_bwd on wgmma, bf16: the C entry points of the
-// kernels in attention_wgmma.cuh (head dims 64, 96, 128, 192),
-// one nvcc process of their own. The arguments are attention.cu's.
+// kernels in attention_wgmma.cuh (head dims 64, 96, 128, 192 here; 24
+// through attention_wgmma_d24.cu), one nvcc process of their own.
 
 #include "attention_wgmma.cuh"
 

@@ -323,8 +323,15 @@ def run_video_gen(config, model, params, sched: DiffusionSchedule, test_loader,
     `params` (a state dict of `model`) go to `block_sampler` (by default
     `make_block_sampler`'s) on their device; draws come from `generator`.
     Returns the vid_metrics dict in the JAX package's key layout: per-video
-    best of preds_per_test, then mean, std and 95% interval."""
+    best of preds_per_test, then mean, std and 95% interval. A config with
+    no conditioning frames (`data.num_frames_cond` 0: the image configs)
+    has no video to predict: it raises, naming `--sample`, which samples
+    it (the JAX package fails there too, on the missing cond)."""
     data = config.data
+    if data.num_frames_cond == 0:
+        raise ValueError(
+            f"video_gen: {data.dataset} has data.num_frames_cond 0, so there are no "
+            f"conditioning frames to predict from; sample this config with --sample")
     condp = getattr(data, "prob_mask_cond", 0.0)
     future = getattr(data, "num_frames_future", 0)
     futrp = getattr(data, "prob_mask_future", 0.0)

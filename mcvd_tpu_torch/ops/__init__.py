@@ -5,12 +5,12 @@ version (counterpart of `mcvd_tpu/ops`, whose kernels are Pallas for the TPU).
     and its VJP `gn_fused_bwd`, CUDA C++ for sm_90a built by `_build` (a
     thread-block cluster per example);
   * `attention`: softmax attention forward, `attention_fwd`, and its VJP
-    `attention_bwd` (two launches, no atomics), CUDA C++ for sm_90a on the
-    tensor cores in both dtypes (bf16, and fp32 as 3xTF32: fp32-class, not
-    TF32), on two routes that `attention.attention_route` picks: head dims
-    64-192 on `wgmma` with TMA-fed tiles in a warp-specialised ring
-    (`csrc/attention_wgmma.cuh`), head dim 24 on `mma.sync`
-    (`csrc/attention.cu`);
+    `attention_bwd` (no atomics), CUDA C++ for sm_90a on the tensor cores in
+    both dtypes (bf16, and fp32 as 3xTF32: fp32-class, not TF32), one
+    family on `wgmma` with TMA-fed tiles in a warp-specialised ring
+    (`csrc/attention_wgmma.cuh`) at head dims 24-192, in the two forms that
+    `attention.attention_plan` picks: tiled, and packed (head dim 24's
+    sequences of 64 tokens or fewer, several to a tile);
   * `fused_act`: bias + LeakyReLU + scale, the Triton kernel
     `fused_leaky_relu`.
 

@@ -102,20 +102,21 @@ def check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, i64, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-    for name in ("attention_fwd_f32", "attention_fwd_bf16", "attention_fwd_wgmma_f32",
-                 "attention_fwd_wgmma_bf16"):
+    for name in ("attention_fwd_wgmma_f32", "attention_fwd_wgmma_bf16"):
         fn = getattr(lib, name)
         # q, k, v, o, lse, B, H, T, D, q_bs, q_ts, kv_bs, kv_ts, o_bs, o_ts, scale,
         # stream
         fn.argtypes = [p, p, p, p, p, i, i, i, i, i64, i64, i64, i64, i64, i64, f, p]
         fn.restype = i
-    for name in ("attention_bwd_f32", "attention_bwd_bf16", "attention_bwd_wgmma_f32",
-                 "attention_bwd_wgmma_bf16"):
+    for name in ("attention_bwd_wgmma_f32", "attention_bwd_wgmma_bf16"):
         fn = getattr(lib, name)
         # q, k, v, o, do, lse, dq, dk, dv, delta, B, H, T, D, qkv_bs, qkv_ts, o_bs,
         # o_ts, scale, stream
         fn.argtypes = [p] * 10 + [i, i, i, i, i64, i64, i64, i64, f, p]
         fn.restype = i
+    # D, T, B, H, seqs_per_tile (out), tiles (out) -> 1 packed, 0 tiled
+    lib.attention_plan_wgmma.argtypes = [i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i64)]
+    lib.attention_plan_wgmma.restype = i
     # x, y, n, n_blocks, stream
     lib.gn_copy_bf16.argtypes = [p, p, i64, i, p]
     lib.gn_copy_bf16.restype = i

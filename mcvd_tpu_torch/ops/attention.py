@@ -1,14 +1,20 @@
 """Softmax attention, `attention_fwd` and `attention_bwd`: CUDA C++ for sm_90a,
-built with nvcc and bound with ctypes (`_build`), on two routes that
-`attention_route` picks from (dtype, head dim):
+built with nvcc and bound with ctypes (`_build`), one kernel family
+(`csrc/attention_wgmma.cuh`, instantiated by `attention_wgmma_bf16.cu`,
+`attention_wgmma_f32.cu` and, for head dim 24, `attention_wgmma_d24.cu`):
+every product on Hopper's warpgroup MMA (`wgmma`), the tiles brought by TMA
+into a ring of shared memory by a producer warp, the consumer warpgroups'
+accumulators in registers. Head dims 24, 64, 96, 128 and 192, in two forms
+that `attention_plan` picks from (head dim, T):
 
-  * "wgmma" (`csrc/attention_wgmma.cuh`, instantiated by
-    `attention_wgmma_bf16.cu` and `attention_wgmma_f32.cu`): head dims 64,
-    96, 128 and 192 at any T, every product on Hopper's warpgroup MMA
-    (`wgmma`), the walked tiles brought by TMA into a ring of shared memory
-    by a producer warp, the consumer warpgroup's accumulators in registers;
-  * "mma_sync" (`csrc/attention.cu`): head dim 24 (the 3D family's one-head
-    attention over 2-256 tokens), on `mma.sync` with a `cp.async` ring.
+  * "tiled", a 64-query tile of one sequence walking tiles of keys: head
+    dims 64-192 at any T, and 24 at T > 64 (the 3D family's space attention
+    over 16x16 tokens);
+  * "packed", head dim 24 at T <= 64 (the 3D family's time attention over 7
+    or 2 frames and its 4x4 space attention): a 64-row tile holds
+    G = 64 // T whole sequences, every key outside a query's own sequence
+    masked, on a persistent grid; its backward is one launch of five
+    products.
 
 Replaces `mcvd_tpu/ops/lab/attention.py`: `fused_attention` (Pallas body
 `_kernel`, (BH, T, D)) and `fused_attention_packed` (`_packed_kernel`, the
@@ -17,14 +23,15 @@ both: it takes q, k and v with (batch, token) strides and puts head h at
 column h*D, so it reads `AttnBlock`'s packed (B, T, 3C) qkv as it is and
 writes (B, T, C); with one head it is the (BH, T, D) entry point.
 
-Both routes compute the same function with the same rounding points. bf16
+Both forms compute the same function with the same rounding points. bf16
 (fp32 accumulate): the forward walks tiles of 64 keys
 (`TC_KEYS_PER_TILE`) and rounds the unnormalised p to bf16 before the PV
 product, as the Pallas kernel rounds p to v's dtype, so it differs from the
 plain version (p in fp32) by at most 2^-8 * sum_j p_j |v_j| / l per output
 before the output rounding (`BF16_P_ROUNDOFF` times `abs_v_weights`;
-`attention_tc_emulation` repeats its arithmetic on the CPU). fp32 runs
-3xTF32: each operand is split into two tf32 parts (hi rounded to nearest,
+`attention_tc_emulation` repeats its arithmetic on the CPU, and on a packed
+tile under the block-diagonal mask gives each sequence the same bits). fp32
+runs 3xTF32: each operand is split into two tf32 parts (hi rounded to nearest,
 ties away, then lo the same) and a product takes three tf32 products, which
 keeps ~21-22 bits of each (fp32-class, never plain TF32; `tf32_split` and
 `tf32x3_matmul` emulate it). Scores and softmax are fp32 (online softmax
@@ -32,17 +39,19 @@ over key tiles). Other head dims raise on a CUDA tensor, and so do pointers
 or strides that are not 16-byte aligned (the kernels copy 16-byte chunks;
 TMA takes 16-byte strides). The T>2048 einsum fallback of the Pallas
 version is not carried over: the kernels tile keys and have no length
-limit. A batch past the grid's 65,535 launches in runs.
+limit. A tiled batch past the grid's 65,535 launches in runs; the packed
+form's persistent grid takes any batch in one launch.
 
 Gradients: when autograd needs them the entry points run through
 `torch.autograd.Function`s. On the card the forward also writes each row's
 logsumexp (fp32, natural log of the scaled scores), and the backward is
 `attention_bwd`, the FlashAttention-2 backward of the JAX package's custom
 VJPs `_fa_bwd` and `_packed_bwd`: p recomputed from the logsumexp tile by
-tile, so no (T, T) block reaches device memory; two launches with no
-atomics (dq, then dk and dv), so two calls on the same inputs give the same
-bits; d(qkv) comes back packed as qkv. The dq launch takes the row term
-rowsum(g * o) from the forward's output, and sums rowsum(p * dp) from its
+tile, so no (T, T) block reaches device memory; no atomics, so two calls
+on the same inputs give the same bits; d(qkv) comes back packed as qkv. The
+tiled form takes two launches (dq, then dk and dv), the packed form one,
+whose tile holds all its sequences' keys and queries. The dq launch takes
+the row term rowsum(g * o) from the forward's output, and sums rowsum(p * dp) from its
 own p and dp for the dk/dv launch (the JAX VJP's row term), whose scores
 and dp repeat the dq launch's bit for bit: so each row of the ds that dk
 sees sums to zero to fp32 rounding, as in the plain VJP, and an
@@ -56,13 +65,16 @@ With no input needing a gradient the forward saves nothing.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import count_launch, use_kernel
 
 SUPPORTED_HEAD_DIMS = (24, 64, 96, 128, 192)
-# The wgmma route's head dims; the mma.sync route takes the others (24).
-WGMMA_HEAD_DIMS = (64, 96, 128, 192)
+# The head dims whose short sequences (T <= TILE_ROWS) take the packed form.
+PACKED_HEAD_DIMS = (24,)
+TILE_ROWS = 64
 _DTYPES = (torch.float32, torch.bfloat16)
 TC_KEYS_PER_TILE = 64
 # bf16's unit roundoff: rounding p to bf16 moves sum_j p_j v_j / l by at
@@ -94,75 +106,105 @@ def _mm64(a, b):
     return torch.matmul(a.double(), b.double().transpose(-1, -2)).float()
 
 
-def _tc_tiles(qf, kf, scale: float):
+# The emulations take every product, row sum and exp2 of theirs in fp64 and
+# round it once to fp32, and the rest in fp32 elementwise: so a row's values
+# do not depend on the tensor around it (torch's fp32 sums and exp2 take
+# other orders and paths at other widths), and a packed tile of sequences
+# under the block-diagonal mask gives each sequence's bits.
+def _mmn64(a, b):
+    """a @ b, taken in fp64 and rounded once to fp32."""
+    return torch.matmul(a.double(), b.double()).float()
+
+
+def _rowsum64(x):
+    return x.double().sum(-1, keepdim=True).float()
+
+
+def _exp2_64(x):
+    return torch.exp2(x.double()).float()
+
+
+def _masked(x, mask, fill):
+    """x where `mask` (broadcast; None: everywhere) allows, else `fill`."""
+    return x if mask is None else x.masked_fill(~mask, fill)
+
+
+def _tc_tiles(qf, kf, scale: float, mask=None):
     """The bf16 forward's softmax tile by tile, on fp32 (BH, T, D) q and k:
     for each tile of 64 keys, (n0, alpha, p, t, m) with t the scores scaled
     by scale*log2(e), m the running max after the tile, p = exp2(t - m) the
-    values the kernel rounds to bf16, and alpha = exp2(m_before - m)."""
+    values the kernel rounds to bf16, and alpha = exp2(m_before - m). A
+    `mask` (bool, broadcast to (BH, T, T)) keeps the keys it allows; p is 0
+    elsewhere."""
     BH, T, _ = qf.shape
     m = torch.full((BH, T, 1), float("-inf"), device=qf.device)
     for n0 in range(0, T, TC_KEYS_PER_TILE):
-        t = _mm64(qf, kf[:, n0:n0 + TC_KEYS_PER_TILE]) * (scale * _LOG2E)
+        keys = slice(n0, n0 + TC_KEYS_PER_TILE)
+        mk = None if mask is None else mask[..., keys]
+        t = _masked(_mm64(qf, kf[:, keys]) * (scale * _LOG2E), mk, float("-inf"))
         m_new = torch.maximum(m, t.amax(-1, keepdim=True))
-        yield n0, torch.exp2(m - m_new), torch.exp2(t - m_new), t, m_new
+        yield n0, _exp2_64(m - m_new), _masked(_exp2_64(t - m_new), mk, 0.0), t, m_new
         m = m_new
 
 
-def attention_tc_emulation(q, k, v, scale: float, want_lse: bool = False):
+def attention_tc_emulation(q, k, v, scale: float, want_lse: bool = False, mask=None):
     """The bf16 kernel's arithmetic in plain torch on (BH, T, D), for the
     tests: per tile of 64 keys, fp32 scores (each rounded once from fp64)
-    scaled by scale*log2(e), a running max m and sum l of
-    exp2(s - m) in fp32, p rounded to bf16 before the PV product with fp32
-    accumulation; o = acc / l rounded once. With
+    scaled by scale*log2(e), a running max m and sum l of exp2(s - m) in
+    fp32, p rounded to bf16 before the PV product (each product and sum of
+    the emulation rounded once from fp64; the kernel's fp32 accumulation
+    differs from it by its own rounding); o = acc / l rounded once. With
     `want_lse`, also the (BH, T) logsumexp the kernel writes,
-    (m + log2 l) * ln 2."""
+    (m + log2 l) * ln 2. `mask` as in `_tc_tiles`."""
     qf, kf, vf = q.float(), k.float(), v.float()
     BH, T, D = q.shape
     l = torch.zeros(BH, T, 1, device=q.device)
     acc = torch.zeros(BH, T, D, device=q.device)
-    for n0, alpha, p, _, m in _tc_tiles(qf, kf, scale):
-        l = l * alpha + p.sum(-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(torch.bfloat16).float(),
-                                         vf[:, n0:n0 + TC_KEYS_PER_TILE])
+    for n0, alpha, p, _, m in _tc_tiles(qf, kf, scale, mask):
+        l = l * alpha + _rowsum64(p)
+        acc = acc * alpha + _mmn64(p.to(torch.bfloat16).float(),
+                                   vf[:, n0:n0 + TC_KEYS_PER_TILE])
     o = (acc * (1.0 / l)).to(q.dtype)
     if want_lse:
-        return o, ((m + torch.log2(l)) * _LN2).squeeze(-1)
+        return o, ((m + torch.log2(l.double()).float()) * _LN2).squeeze(-1)
     return o
 
 
-def _tc_bwd_terms(q, k, v, g, scale: float, o, lse):
+def _tc_bwd_terms(q, k, v, g, scale: float, o, lse, mask=None):
     """The bf16 backward kernels' fp32 terms on (BH, T, D), from the
     forward's output o and logsumexp lse (BH, T), each product and row sum
     taken in fp64 and rounded once: the scaled scores
     t = s * scale*log2(e) and p = exp2(t - lse*log2(e)), dp = g v^T, the dq
     launch's row term D = rowsum(g * o) and ds = p (dp - D), the dk/dv
-    launch's D' = rowsum(p * dp) and ds' = p (dp - D')."""
+    launch's D' = rowsum(p * dp) and ds' = p (dp - D'). p is 0 where `mask`
+    (as in `_tc_tiles`) does not allow."""
     qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
     D = (gf.double() * o.double()).sum(-1, keepdim=True).float()
     t = _mm64(qf, kf) * (scale * _LOG2E)
-    p = torch.exp2(t - lse.float().reshape(D.shape) * _LOG2E)
+    p = _masked(_exp2_64(t - lse.float().reshape(D.shape) * _LOG2E), mask, 0.0)
     dp = _mm64(gf, vf)
     D1 = (p.double() * dp.double()).sum(-1, keepdim=True).float()
     return dict(t=t, p=p, dp=dp, D=D, ds=p * (dp - D), D1=D1, ds1=p * (dp - D1))
 
 
-def attention_bwd_tc_emulation(q, k, v, g, scale: float, o=None, lse=None):
+def attention_bwd_tc_emulation(q, k, v, g, scale: float, o=None, lse=None, mask=None):
     """The bf16 backward kernels' arithmetic in plain torch on (BH, T, D),
     for the tests: (dq, dk, dv) in q's dtype. From the forward's output o and
     logsumexp lse (by default `attention_tc_emulation`'s), the terms of
     `_tc_bwd_terms`: ds, ds' and p^T are rounded to bf16 as the operands of
-    dq = ds k, dk = ds'^T q and dv = p^T g (fp32 accumulation); dq and dk
-    scaled; each gradient rounded once."""
+    dq = ds k, dk = ds'^T q and dv = p^T g (each rounded once from fp64);
+    dq and dk scaled; each gradient rounded once. `mask` as in
+    `_tc_tiles`."""
     if o is None or lse is None:
-        o, lse = attention_tc_emulation(q, k, v, scale, want_lse=True)
-    f = _tc_bwd_terms(q, k, v, g, scale, o, lse)
+        o, lse = attention_tc_emulation(q, k, v, scale, want_lse=True, mask=mask)
+    f = _tc_bwd_terms(q, k, v, g, scale, o, lse, mask)
 
     def bf(t):
         return t.to(torch.bfloat16).float()
 
-    dq = torch.matmul(bf(f["ds"]), k.float()) * scale
-    dk = torch.matmul(bf(f["ds1"]).transpose(-1, -2), q.float()) * scale
-    dv = torch.matmul(bf(f["p"]).transpose(-1, -2), g.float())
+    dq = _mmn64(bf(f["ds"]), k.float()) * scale
+    dk = _mmn64(bf(f["ds1"]).transpose(-1, -2), q.float()) * scale
+    dv = _mmn64(bf(f["p"]).transpose(-1, -2), g.float())
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
@@ -183,27 +225,38 @@ def tf32_split(x):
 def tf32x3_matmul(a, b):
     """a @ b as the fp32 kernels' 3xTF32 products compute it: both operands
     split by `tf32_split`, lo*hi + hi*lo accumulated first, then hi*hi
-    (lo*lo dropped); tf32 products are exact in fp32, the sums are fp32."""
+    (lo*lo dropped); tf32 products are exact in fp32, each of the three
+    sums is taken in fp64 and rounded once, and they add in fp32."""
     ah, al = tf32_split(a)
     bh, bl = tf32_split(b)
-    return (torch.matmul(al, bh) + torch.matmul(ah, bl)) + torch.matmul(ah, bh)
+    return (_mmn64(al, bh) + _mmn64(ah, bl)) + _mmn64(ah, bh)
 
 
-def attention_tf32x3_emulation(q, k, v, scale: float):
+def _softmax64(s, mask=None):
+    """softmax over the last axis in fp32 (exp and the row sum rounded once
+    from fp64); 0 where `mask` does not allow."""
+    s = _masked(s, mask, float("-inf"))
+    e = torch.exp((s - s.amax(-1, keepdim=True)).double()).float()
+    return _masked(e / _rowsum64(e), mask, 0.0)
+
+
+def attention_tf32x3_emulation(q, k, v, scale: float, mask=None):
     """The fp32 forward's products as 3xTF32, in plain torch on (BH, T, D):
-    s = q k^T and o = p v through `tf32x3_matmul`, softmax in fp32."""
+    s = q k^T and o = p v through `tf32x3_matmul`, softmax in fp32 over the
+    keys `mask` (as in `_tc_tiles`) allows."""
     s = tf32x3_matmul(q, k.transpose(-1, -2)) * scale
-    return tf32x3_matmul(torch.softmax(s, dim=-1), v)
+    return tf32x3_matmul(_softmax64(s, mask), v)
 
 
-def attention_bwd_tf32x3_emulation(q, k, v, g, scale: float):
+def attention_bwd_tf32x3_emulation(q, k, v, g, scale: float, mask=None):
     """The plain VJP (`attention_bwd_reference`) with every product as
-    3xTF32 (`tf32x3_matmul`): (dq, dk, dv) in fp32 on (BH, T, D)."""
+    3xTF32 (`tf32x3_matmul`): (dq, dk, dv) in fp32 on (BH, T, D), over the
+    keys `mask` (as in `_tc_tiles`) allows."""
     s = tf32x3_matmul(q, k.transpose(-1, -2)) * scale
-    p = torch.softmax(s, dim=-1)
+    p = _softmax64(s, mask)
     dv = tf32x3_matmul(p.transpose(-1, -2), g)
     dp = tf32x3_matmul(g, v.transpose(-1, -2))
-    ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+    ds = p * (dp - _rowsum64(dp * p))
     return (tf32x3_matmul(ds, k) * scale, tf32x3_matmul(ds.transpose(-1, -2), q) * scale,
             dv)
 
@@ -464,9 +517,10 @@ def _launch(q, k, v, o, lse, B, H, T, D, q_strides, kv_strides, o_strides, scale
 
 def _launch_bwd(q, k, v, o, do, lse, dq, dk, dv, B, H, T, D, qkv_strides, o_strides,
                 scale):
-    """`attention_bwd`: two launches, dq (which writes the row sums
+    """`attention_bwd`: tiled, two launches, dq (which writes the row sums
     rowsum(p * dp) that the second launch takes), then dk and dv, on one
-    (B, H, T) fp32 scratch for those sums."""
+    (B, H, T) fp32 scratch for those sums; packed, one launch that sums
+    them itself (the scratch goes unused)."""
     from ._build import check_launch, load_library
 
     _check_aligned("attention_bwd", (q, k, v, o, do, dq, dk, dv), (*qkv_strides, *o_strides),
@@ -498,28 +552,62 @@ def _check(name, ts):
 def _check_head_dim(name, d):
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"{name}: head dim {d} not supported by the kernel "
-                         f"(supported: {SUPPORTED_HEAD_DIMS}: 24 in csrc/attention.cu, the "
-                         f"others in csrc/attention_wgmma.cuh)")
+                         f"(supported: {SUPPORTED_HEAD_DIMS}, each instantiated from "
+                         f"csrc/attention_wgmma.cuh: 24 in attention_wgmma_d24.cu)")
 
 
 def attention_route(dtype, head_dim: int) -> str:
     """The kernels an attention call on the card takes, from its dtype and
-    head dim: "wgmma" for head dims 64-192 (at any T: a sequence shorter
-    than a tile is one ragged tile), "mma_sync" for head dim 24. Both dtypes
-    take the same route. Raises for a dtype or head dim neither route
-    takes."""
+    head dim: "wgmma" for every supported head dim (24, 64, 96, 128, 192)
+    and both dtypes, the one family of `csrc/attention_wgmma.cuh`. Raises
+    for a dtype or head dim it does not take."""
     if dtype not in _DTYPES:
         raise TypeError(f"attention: dtype {dtype} not in {_DTYPES}")
     _check_head_dim("attention", head_dim)
-    return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "mma_sync"
+    return "wgmma"
+
+
+class AttentionPlan(NamedTuple):
+    form: str            # "tiled" or "packed"
+    seqs_per_tile: int   # G: whole sequences in a 64-row tile (1 when tiled)
+    tiles: int           # 64-row tiles of the call
+
+
+def attention_plan(dtype, head_dim: int, T: int, B: int, H: int = 1) -> AttentionPlan:
+    """The form of a call over B sequences of T tokens and H heads, as the
+    kernels' `plan_of` (`csrc/attention_wgmma.cuh`) picks it: "packed" for
+    head dims in PACKED_HEAD_DIMS at T <= 64, G = 64 // T whole sequences of
+    a head a tile and H * ceil(B / G) tiles; else "tiled", a 64-query tile
+    of one sequence, H * B * ceil(T / 64) tiles. Raises as
+    `attention_route`."""
+    attention_route(dtype, head_dim)
+    if head_dim in PACKED_HEAD_DIMS and T <= TILE_ROWS:
+        G = TILE_ROWS // T
+        return AttentionPlan("packed", G, H * -(-B // G))
+    return AttentionPlan("tiled", 1, H * B * -(-T // TILE_ROWS))
+
+
+def kernel_plan(head_dim: int, T: int, B: int, H: int = 1) -> AttentionPlan:
+    """`plan_of` as the built library takes it (the C entry
+    `attention_plan_wgmma`), so that a check on the card can hold
+    `attention_plan` to it. Needs nvcc (the library is built at first
+    use)."""
+    import ctypes
+
+    from ._build import load_library
+
+    seqs, tiles = ctypes.c_int(), ctypes.c_int64()
+    packed = load_library().attention_plan_wgmma(head_dim, T, B, H, ctypes.byref(seqs),
+                                                 ctypes.byref(tiles))
+    return AttentionPlan("packed" if packed else "tiled", seqs.value, tiles.value)
 
 
 def _entry(lib, direction, dtype, head_dim):
-    """The C entry point of a direction ("fwd", "bwd") on the route of
-    (dtype, head_dim)."""
+    """The C entry point of a direction ("fwd", "bwd") for (dtype,
+    head_dim): the one family's, by dtype."""
+    attention_route(dtype, head_dim)
     suffix = "f32" if dtype == torch.float32 else "bf16"
-    route = "_wgmma" if attention_route(dtype, head_dim) == "wgmma" else ""
-    return getattr(lib, f"attention_{direction}{route}_{suffix}")
+    return getattr(lib, f"attention_{direction}_wgmma_{suffix}")
 
 
 def _needs_grad(*ts) -> bool:

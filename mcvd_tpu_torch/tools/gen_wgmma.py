@@ -23,7 +23,7 @@ from pathlib import Path
 OUT = Path(__file__).resolve().parent.parent / "csrc" / "wgmma_ops.cuh"
 SS_BF16 = (32, 64)
 RS_BF16 = (64, 128, 192)
-RS_TF32 = (16, 32, 64, 96, 128, 192)
+RS_TF32 = (16, 24, 32, 64, 96, 128, 192)
 
 
 def _regs(n):

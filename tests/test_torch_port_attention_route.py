@@ -1,15 +1,16 @@
-"""The attention kernels' two routes on the card.
+"""The attention kernels' one route on the card.
 
-`ops.attention.attention_route` picks, from (dtype, head dim), the wgmma
-kernels (`csrc/attention_wgmma.cuh`: head dims 64-192, any T) or the
-mma.sync ones (`csrc/attention.cu`: head dim 24, the 3D family). On the CPU
+`ops.attention.attention_route` gives every supported (dtype, head dim) the
+wgmma kernels (`csrc/attention_wgmma.cuh`: head dims 24-192, any T; head
+dim 24's short sequences in the packed form, `attention_plan`). On the CPU
 these tests hold the route function at every shape `chip_smoke.py` runs and
 the entry point it names, and the bf16 kernels' emulation over many key
 tiles against the JAX package's `fused_attention_packed` (Pallas, interpret
 mode). The `cuda` test holds the wgmma kernels against their plain versions
-(both forward block shapes, sequences shorter than a tile) and skips
-without a card; on the card machine (no jax) it runs with
-`python -m pytest --noconftest tests/test_torch_port_attention_route.py -m cuda`.
+(both forward block shapes, sequences shorter than a tile, head dim 24 in
+both forms) and skips without a card; on the card machine (no jax) it runs
+with `python -m pytest --noconftest tests/test_torch_port_attention_route.py
+tests/test_torch_port_attention_short.py -m cuda`.
 """
 
 from types import SimpleNamespace
@@ -46,18 +47,20 @@ def test_every_chip_smoke_case_takes_the_wgmma_route(T, h, d, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_the_3d_family_keeps_the_mma_sync_route(dtype):
-    assert A.attention_route(dtype, 24) == "mma_sync"
+    """Head dim 24 (the 3D family) no longer keeps a route of its own: its
+    mma.sync kernels are retired and it takes the wgmma family's."""
+    assert A.attention_route(dtype, 24) == "wgmma"
 
 
 @pytest.mark.parametrize("d", A.SUPPORTED_HEAD_DIMS)
 def test_the_route_names_its_entry_points(d):
-    """Each dtype and head dim reaches the C entry point of its route."""
-    lib = SimpleNamespace(**{f"attention_{x}{r}_{t}": (x, r, t) for x in ("fwd", "bwd")
-                             for r in ("", "_wgmma") for t in ("f32", "bf16")})
-    r = "_wgmma" if d in A.WGMMA_HEAD_DIMS else ""
+    """Each dtype and head dim reaches the C entry point of the one family,
+    by dtype."""
+    lib = SimpleNamespace(**{f"attention_{x}_wgmma_{t}": (x, t) for x in ("fwd", "bwd")
+                             for t in ("f32", "bf16")})
     for dtype, t in zip(DTYPES, ("f32", "bf16")):
         for x in ("fwd", "bwd"):
-            assert A._entry(lib, x, dtype, d) == (x, r, t)
+            assert A._entry(lib, x, dtype, d) == (x, t)
 
 
 def test_the_route_refuses_what_neither_kernel_takes():
@@ -104,10 +107,13 @@ def cuda():
 # than a tile (7 and 16 tokens), and both forward block shapes: one
 # consumer warpgroup while the blocks of 64 query rows fit the 132 SMs, two
 # past that (B=140 at T=7: a second warpgroup with no valid row; B=24 at
-# T=384).
+# T=384). Head dim 24, one head: packed at T <= 64 (9, 32, 4 and 1 sequences
+# a tile, B not a multiple of them: the last tile's missing sequences and
+# the rows past G*T), tiled at 65 and 256.
 WGMMA_CUDA_CASES = [(2, 64, 2, 64), (2, 100, 2, 64), (2, 7, 2, 64), (3, 16, 1, 192),
                     (2, 256, 1, 96), (2, 128, 2, 128), (2, 200, 1, 192), (140, 7, 1, 96),
-                    (24, 384, 1, 128)]
+                    (24, 384, 1, 128), (70, 7, 1, 24), (33, 2, 1, 24), (5, 16, 1, 24),
+                    (3, 33, 1, 24), (2, 64, 1, 24), (2, 65, 1, 24), (2, 256, 1, 24)]
 
 
 @pytest.mark.cuda

@@ -6,6 +6,7 @@ prefix), the FVD preprocessing, LPIPS, the FID math, the Inception embedder,
 the ensemble block sampler (the JAX draws replayed), and
 `load_model_from_ckpt` on an upstream-format `.pt`."""
 
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -14,13 +15,14 @@ import pytest
 import torch
 import torch.nn as nn
 
+from mcvd_tpu.config import load_config as jax_load_config
 from mcvd_tpu.diffusion import make_schedule as jax_make_schedule
 from mcvd_tpu.eval import fid as jax_fid
 from mcvd_tpu.eval import i3d as jax_i3d
 from mcvd_tpu.eval import lpips as jax_lpips
 from mcvd_tpu.eval import video_gen as jax_video_gen
 from mcvd_tpu_torch.compat import yaml_subset
-from mcvd_tpu_torch.config import flagship_config, namespace2dict
+from mcvd_tpu_torch.config import flagship_config, load_config, namespace2dict
 from mcvd_tpu_torch.diffusion import make_schedule
 from mcvd_tpu_torch.eval import fid, i3d, lpips, standins, video_gen
 from mcvd_tpu_torch.eval import weights as W
@@ -367,3 +369,24 @@ def test_load_model_from_upstream_pt_matches_jax(tmp_path):
     torch.save({"not": "a list"}, str(tmp_path / "bad.pt"))
     with pytest.raises(ValueError, match="upstream checkpoint list"):
         load_model(str(tmp_path / "bad.pt"), device="cpu")
+
+
+def test_video_gen_on_an_image_config_refuses_naming_sample():
+    """An unconditional image config (celeba.yml, `data.num_frames_cond` 0)
+    has no video to predict. The JAX package's `autoregressive_predict`
+    fails on its None cond; the port's `run_video_gen` refuses first, with
+    a ValueError that names `--sample`, so neither makes a video."""
+    mods = ["model.ngf=8", "model.n_head_channels=8", "model.num_res_blocks=1",
+            "data.image_size=16"]
+    yml = str(Path(__file__).resolve().parents[1] / "configs" / "celeba.yml")
+    jconfig = jax_load_config(yml, mods)
+    with pytest.raises(AttributeError, match="shape"):
+        jax_video_gen.autoregressive_predict(jconfig, None, None, jax.random.PRNGKey(0), None,
+                                             None, 1, 0, jax_make_schedule(jconfig))
+    config = load_config(yml, mods)
+    assert config.data.num_frames_cond == 0
+    model = get_model(config, device="cpu")
+    with pytest.raises(ValueError, match="--sample"):
+        video_gen.run_video_gen(config, model, model.state_dict(), make_schedule(config),
+                                [np.zeros((2, 1, 16, 16, 3), np.float32)],
+                                torch.Generator().manual_seed(0))

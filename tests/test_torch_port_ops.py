@@ -502,7 +502,7 @@ def test_check_head_dim_takes_the_kernels_dims():
     for d in (24, 64, 96, 128, 192):
         ops.attention._check_head_dim("attention", d)
     for d in (32, 256):
-        with pytest.raises(ValueError, match="supported.*csrc/attention.cu"):
+        with pytest.raises(ValueError, match="supported.*csrc/attention_wgmma.cuh"):
             ops.attention._check_head_dim("attention", d)
 
 
