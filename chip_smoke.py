@@ -39,8 +39,10 @@ line each:
                comparison only; the GroupNorm totals of one evaluation;
   4. profile_gn2  the GroupNorm microbenchmark's kernels (`gn_copy`,
                `gn_variant`) and `fused_leaky_relu` against their plain
-               versions at the tool's shapes, `gn_variant` against the port's
-               GroupNorm; then the tool's own run
+               versions at the tool's shapes (`gn_variant` at its five lines
+               and at a shape on its streamed route, each case with its plan's
+               route and cluster, bit-identical over two calls), `gn_variant`
+               against the port's GroupNorm; then the tool's own run
                (`mcvd_tpu_torch.tools.profile_gn2.measure`) and the
                `fused_leaky_relu` op at a main-path activation, with their
                launch counts: device ms and host us per call of each line;
@@ -1060,6 +1062,11 @@ def phase_profile_gn2(card, summary):
     x64, x128, prm = P.inputs(dev, seed=1)
     v64, v128 = x64.permute(0, 3, 1, 2), x128.permute(0, 3, 1, 2)
     g = torch.Generator(device=dev).manual_seed(4)
+    B2, C2, H2, W2 = P.STREAMED_SHAPE   # past what a cluster holds: the streamed route
+    big = torch.rand(B2, H2, W2, C2, generator=g, device=dev).to(torch.bfloat16).permute(
+        0, 3, 1, 2)
+    prm["streamed"] = (prm[C2][0], prm[C2][1], *(0.1 * torch.randn(B2, C2, generator=g,
+                                                                  device=dev) for _ in "ab"))
     act_x = torch.randn(16, 64, 64, 64, generator=g, device=dev).permute(0, 3, 1, 2)
     act_b = torch.randn(64, generator=g, device=dev)
     cases, timing = [], {}
@@ -1079,20 +1086,29 @@ def phase_profile_gn2(card, summary):
             record(summary, "gn_copy", "bfloat16", 0.0)
             cases.append(dict(op="gn_copy", shape=list(x.shape), dtype="bfloat16",
                               max_abs_err=0.0))
-        variants = [("baseline", v64, 64, {}), ("parallel", v64, 64, dict(parallel=True)),
-                    ("hsplit4", v64, 64, dict(hsplit=4, parallel=True)),
-                    ("stats_bf16", v64, 64, dict(stats_bf16=True, parallel=True)),
-                    ("lane_full", v128, 128, {})]
+        # the five lines at the tool's shapes, then the streamed route's
+        # shape: past what a cluster of 8 holds (8 MB a bf16 example)
+        views = {64: v64, 128: v128, "streamed": big}
+        variants = [*P.VARIANT_LINES, ("streamed", "streamed", {})]
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[-1]
-            for label, v, c, kw in variants:
-                xv = v.to(dtype)
+            for label, c, kw in variants:
+                xv = views[c].to(dtype)
+                B, CN, H, W = xv.shape
+                hs = kw.get("hsplit", 1)
+                plan = P.card_plan(xv, hs)
+                check(plan.route == ("streamed" if c == "streamed" else "resident"),
+                      f"gn_variant {label} {dn}: plan {plan}")
                 got, want = vs_plain(lambda: P.gn_variant(xv, G, *prm[c], **kw))
                 err, ok = max_err(got, want, dn, STATS_BF16_TOL if "stats_bf16" in kw else None)
                 check(ok, f"gn_variant {label} {dn}: max err {err}")
+                check(torch.equal(got, P.gn_variant(xv, G, *prm[c], **kw)),
+                      f"gn_variant {label} {dn}: two calls differ")
                 record(summary, "gn_variant", dn, err)
-                case = dict(op="gn_variant", variant=label, shape=list(v.shape), dtype=dn,
-                            max_abs_err=err)
+                case = dict(op="gn_variant", variant=label, shape=list(xv.shape), dtype=dn,
+                            max_abs_err=err, bit_identical_twice=True, route=plan.route,
+                            cluster=plan.cluster, blocks=plan.blocks,
+                            clusters_at_once=P.variant_max_active_clusters(xv, plan, hs))
                 if "hsplit" not in kw:
                     # 2. the one-launch variant is the port's GroupNorm
                     gamma, beta, scale, shift = prm[c]
@@ -1119,11 +1135,25 @@ def phase_profile_gn2(card, summary):
             plain_ms=device_ms(lambda: P.copy_reference(x64)),
             library_ms=device_ms(lambda: torch.mul(x64, 1.0000001)),
             bound=bound(2 * nbytes(x64), x64.numel(), "fp32"))
+        # gn_variant: the baseline's numbers, and beside them the tool's H/4
+        # and bf16-statistics lines and the streamed route at its own shape,
+        # each with its share of the bytes bound
+        lines = {}
+        for label, c, kw in [*P.VARIANT_LINES[2:4], ("streamed", "streamed", {})]:
+            xv = views[c]
+            b_ms = bound(2 * nbytes(xv) + nbytes(*prm[c]), 13 * xv.numel(), "fp32")[0]
+            ms = device_ms(lambda: P.gn_variant(xv, G, *prm[c], **kw))
+            lines[label] = dict(shape=list(xv.shape), ms=ms, bound_ms=b_ms,
+                                bound_share=b_ms / ms)
         timing["gn_variant"] = dict(
             ms=device_ms(lambda: P.gn_variant(v64, G, *prm[64])),
             plain_ms=device_ms(lambda: P.gn_variant_reference(v64, G, *prm[64])),
             library_ms=None,   # no one PyTorch call does GroupNorm + AdaGN + SiLU
-            bound=bound(2 * nbytes(v64) + nbytes(*prm[64]), 13 * v64.numel(), "fp32"))
+            bound=bound(2 * nbytes(v64) + nbytes(*prm[64]), 13 * v64.numel(), "fp32"),
+            plan=P.card_plan(v64).__dict__)
+        timing["gn_variant"]["bound_share"] = timing["gn_variant"]["bound"][0] / \
+            timing["gn_variant"]["ms"]
+        timing["gn_variant"]["lines"] = lines
         timing["fused_leaky_relu"] = dict(
             ms=device_ms(lambda: FA.fused_leaky_relu(xa, act_b, dim=1)),
             plain_ms=device_ms(lambda: FA.fused_leaky_relu_reference(xa, act_b, dim=1)),
@@ -3515,7 +3545,9 @@ def main():
     for name, (route, source, replaces, counts) in where.items():
         t = timing[name]
         check(counts[name] > 0, f"{name} was not launched on its path")
-        extra = {k: t[k] for k in ("host_us", "dtype") if k in t}
+        # gn_variant: its plan (the route, resident or streamed, and the
+        # cluster) and its other timed lines
+        extra = {k: t[k] for k in ("host_us", "dtype", "plan", "bound_share", "lines") if k in t}
         if name == "gn_fused":   # it replaces the Pallas tiled path too
             extra["also_replaces"] = ["mcvd_tpu/ops/lab/groupnorm.py:283",
                                       "mcvd_tpu/ops/lab/groupnorm.py:324"]

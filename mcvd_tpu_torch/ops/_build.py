@@ -120,12 +120,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     # x, y, n, n_blocks, stream
     lib.gn_copy_bf16.argtypes = [p, p, i64, i, p]
     lib.gn_copy_bf16.restype = i
-    for name in ("gn_variant_f32", "gn_variant_bf16"):
-        fn = getattr(lib, name)
-        # x, gamma, beta, scale, shift, y, B, hsplit, rows, CN, G, n_per_group,
-        # eps, stats_bf16, stream
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, i, p]
-        fn.restype = i
+    # bf16, x, gamma, beta, scale, shift, y, B, hsplit, rows, CN, G, n_per_group,
+    # eps, stats_bf16, cluster, rows_per_block, threads, chunk_rows, stages,
+    # resident, smem, stream
+    lib.gn_variant.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, f, *[i] * 8, p]
+    lib.gn_variant.restype = i
+    # bf16, B, hsplit, rows, CN, G, cluster, rows_per_block, threads,
+    # chunk_rows, stages, resident, smem, out
+    lib.gn_variant_max_active_clusters.argtypes = [*[i] * 13, ctypes.POINTER(i)]
+    lib.gn_variant_max_active_clusters.restype = i
     # x, y, gamma, beta, scale, shift, stats, ss_stride, gb_bf16, ss_bf16, bf16, B,
     # S, CN, G, N, rows, cluster, threads, smem, eps, n_per_group, act, stream
     lib.gn_fused.argtypes = [p, p, p, p, p, p, p, i64, *[i] * 13, f, f, i, p]

@@ -43,17 +43,17 @@ FORMS = {  # name: (eps, affine, adagn, act), as chip_smoke.py's
 FLUSH_BYTES = 128 * 2**20   # past the H100's 50 MB L2
 
 
-def load_other(root: str):
-    """The `ops` package of the port package under `root`, imported as a
-    package of another name (its kernels build from its own sources, into
-    its own build directory)."""
+def load_other(root: str, module: str = "ops"):
+    """`module` (the `ops` package, or another) of the port package under
+    `root`, imported as a package of another name (its kernels build from
+    its own sources, into its own build directory)."""
     pkg = Path(root).resolve() / "mcvd_tpu_torch"
     spec = importlib.util.spec_from_file_location(
         "other_mcvd_tpu_torch", pkg / "__init__.py", submodule_search_locations=[str(pkg)])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[spec.name] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module(spec.name + ".ops")
+    return importlib.import_module(f"{spec.name}.{module}")
 
 
 def cold_ms(fn, reps: int = 20) -> float:

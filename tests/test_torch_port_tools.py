@@ -211,6 +211,118 @@ def test_gn_variant_refuses_what_it_does_not_take():
         tool.gn_variant(xt, 4, prm[0], prm[1], prm[2][:1], prm[3])
 
 
+# (B, hsplit, rows, CN, dtype) -> (route, cluster, bytes a block, blocks):
+# the microbenchmark's lines (B=16, 64x64, C=64, and the lane-full 64x32,
+# C=128) and a shape past what a cluster of 8 holds.
+PLAN_TABLE = [
+    ((16, 1, 4096, 64, BF16), ("resident", 8, 64 * 1024, 128)),
+    ((16, 1, 4096, 64, torch.float32), ("resident", 8, 128 * 1024, 128)),
+    ((16, 4, 1024, 64, BF16), ("resident", 2, 64 * 1024, 128)),
+    ((16, 4, 1024, 64, torch.float32), ("resident", 2, 128 * 1024, 128)),
+    ((16, 1, 2048, 128, BF16), ("resident", 8, 64 * 1024, 128)),
+    ((2, 1, 256 * 256, 64, BF16), ("streamed", 8, 1024 * 1024, 16)),
+    ((2, 1, 256 * 256, 64, torch.float32), ("streamed", 8, 2048 * 1024, 16)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLAN_TABLE, ids=[
+    "bf16", "f32", "h4_bf16", "h4_f32", "lane_full", "streamed_bf16", "streamed_f32"])
+def test_variant_plan_at_the_tools_shapes(args, want):
+    B, hsplit, rows, CN, dtype = args
+    p = tool.variant_plan(*args)
+    esz = dtype.itemsize
+    assert (p.route, p.cluster, p.rows_per_block * CN * esz, p.blocks) == want
+    assert p.smem == tool.variant_smem(p.threads, esz, CN, p.chunk_rows, p.stages, p.cluster)
+    if p.route == "resident":   # the block's rows in one bulk copy, held
+        assert (p.stages, p.chunk_rows) == (1, p.rows_per_block)
+    else:                       # a ring, and x read twice
+        assert p.stages == tool.VARIANT_RING and p.chunk_rows * CN * esz <= tool.VARIANT_CHUNK
+    assert tool.variant_plan(*args, route=p.route) == p
+
+
+def test_variant_plan_keeps_one_wave():
+    """Where the card holds fewer clusters of a size at once than there are
+    domains (the H100 80GB HBM3 holds 15 clusters of 7 or 8 blocks of 512
+    threads), the plan takes the largest size that it holds in one wave."""
+    def at_once(p):
+        return {8: 15, 7: 15}.get(p.cluster, 132 // p.cluster)
+
+    for dtype in (BF16, torch.float32):
+        p = tool.variant_plan(16, 1, 4096, 64, dtype, clusters_at_once=at_once)
+        assert (p.route, p.cluster, p.blocks) == ("resident", 6, 96)
+        assert p.rows_per_block == 683   # 5 blocks of 683 rows, one of 681
+    # every size in one wave: the largest within the SMs, as without the query
+    assert tool.variant_plan(16, 4, 1024, 64, BF16, clusters_at_once=at_once).cluster == 2
+    # no size in one wave: the smallest that holds the domain
+    p = tool.variant_plan(16, 1, 4096, 64, BF16, clusters_at_once=lambda p: 1)
+    assert p.route == "resident" and p.cluster == 3
+    # past the portable 8 only where the query holds the clusters: two
+    # examples of 8 MB in clusters of 16, or of 8 where 16 do not fit
+    p = tool.variant_plan(2, 1, 256 * 256, 64, BF16, clusters_at_once=lambda p: 7)
+    assert (p.route, p.cluster, p.blocks) == ("streamed", 16, 32)
+    p = tool.variant_plan(2, 1, 256 * 256, 64, BF16,
+                          clusters_at_once=lambda p: 1 if p.cluster > 8 else 15)
+    assert (p.route, p.cluster) == ("streamed", 8)
+    assert tool.variant_plan(2, 1, 256 * 256, 64, BF16).cluster == 8   # no query: portable
+
+
+def test_variant_plan_covers_every_shape():
+    """At many shapes of both dtypes: no empty block, shared memory within
+    227 KB; the resident route wherever a cluster of up to 8 holds the
+    domain, the largest such cluster within the 132 SMs (else the
+    smallest); the streamed route past it, with its ring of whole row
+    sweeps."""
+    for dtype in (BF16, torch.float32):
+        esz = dtype.itemsize
+        for CN in (8, 24, 64, 192, 1024):
+            for rows in (1, 3, 7, 64, 255, 4096, 40000, 300000):
+                for B, hsplit in ((1, 1), (16, 1), (16, 4), (200, 1), (65535, 2)):
+                    p = tool.variant_plan(B, hsplit, rows, CN, dtype)
+                    k, rpb, D = p.cluster, p.rows_per_block, B * hsplit
+                    assert 1 <= k <= 8 and p.blocks == D * k
+                    assert rpb == -(-rows // k) and rpb * (k - 1) < rows, (p, rows)
+                    nv = CN * esz // 16
+                    rstep = p.threads // nv
+                    assert p.threads % nv == 0 and 512 - nv < p.threads <= 512
+                    assert p.smem <= tool.VARIANT_SMEM, p
+                    sizes = [c for c in range(1, 9) if -(-rows // c) * (c - 1) < rows]
+                    held = [c for c in sizes if tool.variant_smem(
+                        p.threads, esz, CN, -(-rows // c), 1, c) <= tool.VARIANT_SMEM]
+                    want = held if p.route == "resident" else sizes
+                    assert k == max([c for c in want if D * c <= 132], default=want[0])
+                    if p.route == "streamed":
+                        assert not held and p.stages <= tool.VARIANT_RING
+                        chunk = max(rstep, tool.VARIANT_CHUNK // (CN * esz) // rstep * rstep)
+                        assert p.chunk_rows == min(chunk, rpb)
+                        with pytest.raises(ValueError, match="do not fit"):
+                            tool.variant_plan(B, hsplit, rows, CN, dtype, route="resident")
+                    else:
+                        assert (p.stages, p.chunk_rows) == (1, rpb)
+
+
+def test_variant_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tool.variant_plan(2, 1, 64, 12, BF16)
+    with pytest.raises(ValueError, match="up to 1024"):
+        tool.variant_plan(2, 1, 64, 1028, torch.float32)
+    with pytest.raises(ValueError, match="65,535"):
+        tool.variant_plan(65536, 1, 64, 64, BF16)
+    with pytest.raises(ValueError, match="65,535"):
+        tool.variant_plan(2, 65536, 64, 64, BF16)
+    with pytest.raises(ValueError, match="rows"):
+        tool.variant_plan(2, 1, 0, 64, BF16)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        tool.variant_plan(2, 1, 64, 64, torch.float16)
+    with pytest.raises(ValueError, match="route"):
+        tool.variant_plan(2, 1, 64, 64, BF16, route="tiled")
+    with pytest.raises(ValueError, match="do not fit"):
+        tool.variant_plan(2, 1, 256 * 256, 64, BF16, route="resident")
+    x, gamma, beta, scale, shift = gn_inputs(5)
+    with pytest.raises(ValueError, match="route"):
+        tool.gn_variant(nchw(x, BF16), 4, *map(torch.from_numpy, (gamma, beta, scale, shift)),
+                        route="tiled")
+
+
 def test_profile_gn2_needs_the_card(monkeypatch):
     """The tool measures the card only: no CPU fallback."""
     with pytest.raises(RuntimeError, match="no CPU mode"):
@@ -270,17 +382,42 @@ def test_gn_copy_kernel_is_exact(cuda):
         assert torch.equal(got, want) and torch.equal(got, x)
 
 
+# (B, H, W, C, G): examples on clusters of 8 or more (the first three, where
+# the card holds them), fewer blocks as B grows (20, 40) down to one (140),
+# and one example past what a cluster of 16 holds (8 MB in bf16), on the
+# streamed route.
+CARD_SHAPES = [(2, 16, 16, 64, 32), (3, 8, 4, 128, 32), (2, 8, 8, 24, 4), (20, 8, 8, 64, 32),
+               (40, 4, 4, 32, 8), (140, 4, 4, 32, 8), (1, 256, 256, 64, 32)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, BF16], ids=["f32", "bf16"])
 def test_gn_variant_kernel_matches_plain(cuda, dtype):
-    for (B, H, W, C, G) in [(2, 16, 16, 64, 32), (3, 8, 4, 128, 32), (2, 8, 8, 24, 4)]:
+    seen = set()
+    for (B, H, W, C, G) in CARD_SHAPES:
         x, gamma, beta, scale, shift = gn_inputs(7, B, H, W, C)
         xt = nchw(x, dtype).to(cuda)
         prm = [torch.from_numpy(a).to(cuda) for a in (gamma, beta, scale, shift)]
-        for kw in [{}, dict(hsplit=4, parallel=True), dict(stats_bf16=True)]:
+        for kw in [{}, dict(hsplit=4, parallel=True), dict(stats_bf16=True),
+                   dict(route="streamed")]:
+            hs = kw.get("hsplit", 1)
+            p = tool.card_plan(xt, hs, kw.get("route"))
+            seen.add((p.route, p.cluster, "route" in kw))
             got, want = _kernel_and_plain(lambda: tool.gn_variant(xt, G, *prm, **kw))
             assert ops.LAUNCHES["gn_variant"] == 1
             torch.testing.assert_close(got.float(), want.float(), **variant_card_tol(dtype, kw))
+            with torch.inference_mode():
+                again = tool.gn_variant(xt, G, *prm, **kw)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["gn_variant"] == 2
+            assert torch.equal(got, again), (B, H, W, C, kw)   # no atomics: the same bits
+    # clusters from one block to the most the card holds in one wave on the
+    # resident route, and the streamed route where the plan picks it
+    # (1, 128, 128, 64) and where it is forced
+    resident = {k for r, k, _ in seen if r == "resident"}
+    assert 1 in resident and max(resident) >= 6 and len(resident) >= 3, seen
+    assert any(r == "streamed" and k >= 8 and not forced for r, k, forced in seen), seen
+    assert len({k for r, k, _ in seen if r == "streamed"}) > 1, seen
 
 
 def variant_card_tol(dtype, kw):
