@@ -1,0 +1,11 @@
+"""`attention_bwd`'s share of its roofline in training (see harness.shares.roofline
+and counts/attention_bwd.py)."""
+
+UNIT = "%"
+
+
+def read(run):
+    if run.mode != "train":
+        return None
+    from portbench.harness.shares import roofline
+    return roofline(run, "attention_bwd")
