@@ -10,19 +10,26 @@ HDF5 readers' LZF decode releases the GIL); so the port and the JAX package
 see the same clips in the same batches. `prefetch_to_device` assembles the
 next batches on a producer thread into pinned host tensors and copies each
 to the card with `non_blocking=True` on the consumer's side, so the copy
-overlaps the device's work. The JAX package's wire dtypes work around its
-TPU host link and are not carried over.
+overlaps the device's work; the consumer's wait for the producer is the
+span `data.wait` and the counters `data.batches` and `data.wait_ns`
+(`tracing`). The JAX package's wire dtypes work around its TPU host link
+and are not carried over.
 """
 
 from __future__ import annotations
 
 import queue as queue_mod
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
 import torch
+
+from .. import tracing
+
+_DATA = tracing.family("data", ("batches", "wait_ns"))
 
 
 class DataLoader:
@@ -137,11 +144,15 @@ def prefetch_to_device(iterator, device, size: int = 2):
     thread.start()
     try:
         while True:
-            item = q.get()
+            t0 = time.perf_counter_ns()
+            with tracing.span("data.wait"):
+                item = q.get()
+            _DATA["wait_ns"] += time.perf_counter_ns() - t0
             if item is done:
                 return
             if isinstance(item, Exception):
                 raise item
+            _DATA["batches"] += 1
             yield tuple(x.to(device, non_blocking=True) if isinstance(x, torch.Tensor) else x
                         for x in item)
     finally:

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import tracing
 from ..data.conditioning import conditioning_fn
 from ..data.transforms import data_transform, inverse_data_transform
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -110,7 +111,7 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
 
     def block(params, init, cond, cond_mask=None, *, generator=None, inj_noise=None,
               step_noise=None, cond_noise=None):
-        with torch.inference_mode():
+        with tracing.span("sample.block"), torch.inference_mode():
             members = params if ensemble else [params]
             if ensemble and not members:
                 raise ValueError("ensemble block sampler: no state dicts")
@@ -136,12 +137,13 @@ def make_block_sampler(config, model: torch.nn.Module, sched: DiffusionSchedule,
                 return z[e]
 
             def eps_fn(x, labels):
-                x_c = x.permute(0, 3, 1, 2).to(comp_dtype)
-                kw = {"cond_noise": cond_noise_at(labels)} if noisy else {}
-                outs = [functional_call(net, w, (x_c, labels, cond_c, cond_mask), kw)
-                        for w in weights]
-                out = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
-                return out.permute(0, 2, 3, 1)
+                with tracing.span("sample.eval"):
+                    x_c = x.permute(0, 3, 1, 2).to(comp_dtype)
+                    kw = {"cond_noise": cond_noise_at(labels)} if noisy else {}
+                    outs = [functional_call(net, w, (x_c, labels, cond_c, cond_mask), kw)
+                            for w in weights]
+                    out = outs[0] if len(outs) == 1 else torch.stack(outs).mean(dim=0)
+                    return out.permute(0, 2, 3, 1)
 
             return sampler(init, eps_fn, sched, generator=generator,
                            inj_noise=inj_noise, step_noise=step_noise, **kwargs)[-1]
@@ -220,28 +222,29 @@ def autoregressive_predict(config, block_sampler, params, cond, cond_mask,
     n_iter = num_frames_pred if one_frame else ceil(num_frames_pred / F)
     shape = (B, sz, sz, C * F)
 
-    preds = []
-    gen = None
-    for i_frame in range(n_iter):
-        d = draws[i_frame] if draws is not None else {}
-        if i_frame == 0 or getattr(config.sampling, "init_prev_t", -1) <= 0:
-            init = d.get("init")
-            if init is None:
-                init = init_noise(config, sched, shape, generator=generator,
-                                  device=cond.device)
-        else:
-            init = gen
-        extra = {"cond_noise": d["cond_noise"]} if "cond_noise" in d else {}
-        gen = block_sampler(params, init, cond, cond_mask, generator=generator,
-                            inj_noise=d.get("inj_noise"), step_noise=d.get("step_noise"),
-                            **extra)
-        preds.append(gen)
-        if i_frame == n_iter - 1:
-            continue
-        cond = slide_cond_window(config, cond, gen, future, one_frame)
-        if unmask_after_first and i_frame == 0 and cond_mask is not None:
-            cond_mask = torch.ones_like(cond_mask)
-    return torch.cat(preds, dim=-1)[..., : C * num_frames_pred]
+    with tracing.span("sample.request"):
+        preds = []
+        gen = None
+        for i_frame in range(n_iter):
+            d = draws[i_frame] if draws is not None else {}
+            if i_frame == 0 or getattr(config.sampling, "init_prev_t", -1) <= 0:
+                init = d.get("init")
+                if init is None:
+                    init = init_noise(config, sched, shape, generator=generator,
+                                      device=cond.device)
+            else:
+                init = gen
+            extra = {"cond_noise": d["cond_noise"]} if "cond_noise" in d else {}
+            gen = block_sampler(params, init, cond, cond_mask, generator=generator,
+                                inj_noise=d.get("inj_noise"), step_noise=d.get("step_noise"),
+                                **extra)
+            preds.append(gen)
+            if i_frame == n_iter - 1:
+                continue
+            cond = slide_cond_window(config, cond, gen, future, one_frame)
+            if unmask_after_first and i_frame == 0 and cond_mask is not None:
+                cond_mask = torch.ones_like(cond_mask)
+        return torch.cat(preds, dim=-1)[..., : C * num_frames_pred]
 
 
 def _metric_stats(values: np.ndarray):

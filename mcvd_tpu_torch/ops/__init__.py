@@ -26,14 +26,18 @@ wrappers take the plain versions on the card too; only the tests and
 Each wrapper adds one to its counter in `LAUNCHES` where it launches its
 kernel, and nowhere else, so a run can show it went through the kernels (a
 backward wrapper counts one per call, though it may make two launches).
+`LAUNCHES` is the `launch` family of the port's counters (`tracing`).
 """
 
 from __future__ import annotations
 
 import contextlib
 
-LAUNCHES = {"gn_fused": 0, "gn_fused_bwd": 0, "attention_fwd": 0, "attention_bwd": 0,
-            "fused_leaky_relu": 0, "gn_copy": 0, "gn_variant": 0}
+from .. import tracing
+
+LAUNCHES = tracing.family("launch", ("gn_fused", "gn_fused_bwd", "attention_fwd",
+                                     "attention_bwd", "fused_leaky_relu", "gn_copy",
+                                     "gn_variant"))
 _REFERENCE = [False]
 
 
@@ -42,8 +46,7 @@ def count_launch(name: str) -> None:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    tracing.reset("launch")
 
 
 def use_kernel(x) -> bool:

@@ -37,8 +37,17 @@ Not carried over from the JAX runner, and why:
     and `wire_dtype`: TPU host-link and dispatch workarounds; the keys are
     accepted and ignored (ROADMAP "Don't port");
   * the stall watchdog (`training.stall_timeout`) and the profiler hook
-    (`training.profile_at_step`), both built around the TPU backend; the
-    port's profiles come from `tools/profile_eval`;
+    (`training.profile_at_step`), both built around the TPU backend. The
+    port's spans (`tracing`: a sampling request, block and evaluation; a
+    training step, its forward, backward, optimizer and EMA; the loader's
+    wait) record under any `torch.profiler` session, on the profiler's
+    clock, and are read with `tracing.take()`; `tools/profile_eval`
+    profiles the sampler alone. The step log's "ms/step waiting on data"
+    comes from the `data` counters (`data.wait_ns` over `data.batches`):
+    the consumer's wait on the producer's queue alone. Before these
+    counters it timed the whole `next()` of the prefetch, the issue of the
+    batch's non-blocking copy to the card included, so logs from before
+    and after them are not one series;
   * `chunk_block`, the TPU per-call batch cap; the `lockstep` barriers
     against XLA's compile skew; the 'tensor' mesh axis (`parallel.tensor`
     is accepted and ignored, ROADMAP item 15).
@@ -56,6 +65,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
+from .. import tracing
 from ..compat import yaml_subset
 from ..config import getattr_nested
 from ..data import (DataLoader, conditioning_fn, data_transform, get_dataset,
@@ -195,12 +205,13 @@ class Runner:
         t_start = t_mark = time.time()   # t_mark: start of the steps the next log times
         mark_step = step
         data_iter = prefetch_to_device(iter(loader), self.device)
-        wait_s = 0.0   # the loop's wait on the loader over the steps the next log times
+        # the loop's wait on the loader's queue (not the copy's issue): the
+        # data counters at the mark
+        data = tracing.family("data")
+        data_mark = (data["wait_ns"], data["batches"])
         try:
             while step < n_iters:
-                t_wait = time.perf_counter()
                 X, _ = next(data_iter)
-                wait_s += time.perf_counter() - t_wait
                 state, metrics = step_fn(state, X, generator=gen)
                 prev_step, step = step, step + 1
                 busy = False   # whether the host ran more than the step after it
@@ -210,8 +221,10 @@ class Runner:
                     gn = float(metrics["grad_norm"])
                     now = time.time()
                     ms_step = 1e3 * (now - t_mark) / (step - mark_step)
-                    ms_wait = 1e3 * wait_s / (step - mark_step)
-                    t_mark, mark_step, wait_s = now, step, 0.0
+                    ms_wait = (1e-6 * (data["wait_ns"] - data_mark[0])
+                               / max(data["batches"] - data_mark[1], 1))
+                    t_mark, mark_step = now, step
+                    data_mark = (data["wait_ns"], data["batches"])
                     meters["losses_train"].update(loss, step)
                     meters["grad_norm"].update(gn, step)
                     warm = getattr(config.optim, "warmup", 0) or 1
@@ -245,7 +258,8 @@ class Runner:
                         self._snapshot_metrics(state, eval_test_ds, meters, step)
                     busy = True
                 if busy:   # the next log times the steps alone
-                    t_mark, mark_step, wait_s = time.time(), step, 0.0
+                    t_mark, mark_step = time.time(), step
+                    data_mark = (data["wait_ns"], data["batches"])
         finally:
             data_iter.close()
         self._save_checkpoint(state)

@@ -45,6 +45,7 @@ from typing import Callable, Mapping, Optional
 import torch
 from torch.func import functional_call
 
+from .. import tracing
 from ..data.conditioning import conditioning_fn
 from ..data.transforms import data_transform
 from ..diffusion.loss import dsm_loss
@@ -115,17 +116,23 @@ def make_train_step(model: torch.nn.Module, sched: DiffusionSchedule, config) ->
     def step(state: TrainState, X: torch.Tensor, *,
              draws: Optional[Mapping[str, torch.Tensor]] = None,
              generator: Optional[torch.Generator] = None):
-        params = state.params
-        loss = loss_for_batch(model, sched, config, params, X, train=True, draws=draws,
-                              generator=row_draws(generator))
-        grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
-        # the loss rides in the last bucket of the gradients' mean
-        *grads, loss = all_reduce_mean_([*grads, loss.detach().reshape(1)])
-        loss = loss.reshape(())
-        grad_norm = opt.update(params, dict(zip(params, grads)), state.opt_state)
-        if use_ema:
-            ema_update(state.ema_params, params, ema_rate)
-        state.step += 1
+        with tracing.span("train.step"):
+            params = state.params
+            with tracing.span("train.forward"):
+                loss = loss_for_batch(model, sched, config, params, X, train=True,
+                                      draws=draws, generator=row_draws(generator))
+            with tracing.span("train.backward"):
+                grads = torch.autograd.grad(loss, list(params.values()),
+                                            materialize_grads=True)
+            # the loss rides in the last bucket of the gradients' mean
+            *grads, loss = all_reduce_mean_([*grads, loss.detach().reshape(1)])
+            loss = loss.reshape(())
+            with tracing.span("train.optimizer"):
+                grad_norm = opt.update(params, dict(zip(params, grads)), state.opt_state)
+            if use_ema:
+                with tracing.span("train.ema"):
+                    ema_update(state.ema_params, params, ema_rate)
+            state.step += 1
         return state, {"loss": loss, "grad_norm": grad_norm}
 
     return step

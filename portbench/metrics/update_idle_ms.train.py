@@ -1,0 +1,13 @@
+"""The device's idle time in the training step's update: the traced
+slice's idle gaps that began while `train.optimizer` (clip and Adam's
+foreach ops) or `train.ema` (the EMA's per-leaf ops) was the innermost
+program span, in ms per step (harness.spans)."""
+
+UNIT = "ms"
+
+
+def read(run):
+    if run.mode != "train":
+        return None
+    from portbench.harness.spans import idle_ms
+    return idle_ms(run, ("train.optimizer", "train.ema"), "train.step")
